@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for H100).
+
+    python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
+
+Phases (each raises on failure; the script then exits non-zero and prints
+no result line):
+
+1. setup   — build the hand-written CUDA kernels from ``src/repro_torch``
+             (one nvcc per source, in parallel); TF32 off everywhere.
+2. kernels — every kernel of the main path at the Qwen1.5-0.5B shapes the
+             path gives it, held against its plain PyTorch version
+             (rtol 1e-5, atol 1e-5, float32) and timed with CUDA events
+             beside the plain version, one PyTorch library call computing
+             the same function, and the least time the card could take.
+3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
+             clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
+             d1024, vocab 151936), random weights from seed 0.  Launch
+             counters are zeroed just before and read just after.
+4. delayed — the same arch cut to 2 layers, flood_k=1, τ=2, drain, 6
+             steps: replays cross τ-epochs, so the epoch kernel runs E >= 2.
+5. small   — the same code on a small input, on the card and on the CPU
+             (the kernels' plain versions); results must agree.
+6. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
+             limit, and last ``{"ok": true, "device": {...}}``.
+
+``--profile`` adds a torch.profiler breakdown of one steady full-width step
+(host spans, device-busy time and share, top kernels).
+
+It needs a CUDA device and the repository's ``src/`` next to it.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+RTOL = ATOL = 1e-5
+# published H100 SXM peaks at 700 W (NVIDIA data sheet): float32 on the
+# CUDA cores, and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# what the JAX package's FloodTransport charges a ring of 8
+# (tests/test_torch_slice.py pins the port's transport to the same values)
+LEDGER_RING8_3STEPS = (368, 2944)
+LEDGER_RING8_6STEPS_K1_DRAIN = (768, 6144)
+SOURCES = {
+    "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
+                     "src/repro/kernels/rank1_matmul.py:63"),
+    "rank1_matmul_t": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
+                       "src/repro/kernels/rank1_matmul.py:128"),
+    "subcge_apply": ("src/repro_torch/kernels/csrc/subcge_apply.cu",
+                     "src/repro/kernels/subcge_apply.py:53"),
+    "subcge_apply_epochs": ("src/repro_torch/kernels/csrc/subcge_apply.cu",
+                            "src/repro/kernels/subcge_apply.py:70"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median device milliseconds of ``fn()`` (CUDA events per call)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def bound(nbytes: float, flops: float):
+    t_b, t_f = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+class Entry:
+    """Accumulates one kernel's numbers over the shapes the path gives it."""
+
+    def __init__(self, name):
+        self.name = name
+        self.err = 0.0
+        self.ms = self.plain_ms = self.library_ms = 0.0
+        self.nbytes = self.flops = 0.0
+
+    def add(self, got, want, ms, plain_ms, library_ms, nbytes, flops, what,
+            count=1):
+        """Check one shape (``count`` uses of it per unit) and add it."""
+        import torch
+        diff = (got - want).abs()
+        err = float(diff.max())
+        ok = bool(torch.all(diff <= ATOL + RTOL * want.abs()))
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"  {self.name:20s} {what:36s} x{count} max_abs {err:.3e} "
+            f"(|want| max {float(want.abs().max()):.3e}; tol rtol {RTOL} atol "
+            f"{ATOL}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        if not ok:
+            raise AssertionError(f"{self.name} {what}: kernel disagrees with "
+                                 f"its plain version (max abs {err})")
+        self.err = max(self.err, err)
+        self.ms += count * ms
+        self.plain_ms += count * plain_ms
+        self.library_ms += count * library_ms
+        self.nbytes += count * nbytes
+        self.flops += count * flops
+
+    def record(self, launches: int) -> dict:
+        b_ms, b_by = bound(self.nbytes, self.flops)
+        src, rep = SOURCES[self.name]
+        return {"name": self.name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches,
+                "max_abs_err": self.err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": self.library_ms}
+
+
+def phase_kernels(qwen, C: int, M: int) -> dict:
+    """Each kernel at the main path's Qwen1.5-0.5B shapes, summed over the
+    shapes one training step gives it (one layer's seven projections, the
+    logits, one update of every matrix leaf)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank1_matmul as r1
+    from repro_torch.kernels import subcge_apply as sa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    entries = {n: Entry(n) for n in SOURCES}
+    # the delayed-flood shapes (E >= 2) are checked and printed, not summed
+    # into the main path's entry
+    extra = {E: Entry("subcge_apply_epochs") for E in (2, 4)}
+    d, ff, V, L = qwen.d_model, qwen.groups[0].slots[0].d_ff, qwen.vocab, \
+        qwen.n_layers
+    r = 16
+    s = torch.tensor([1e-3, -1e-3] * (C // 2), device=dev)
+
+    # rank1_matmul: the seven projections of one layer, all clients
+    e = entries["rank1_matmul"]
+    for (K, N), count in (((d, d), 4), ((d, ff), 2), ((ff, d), 1)):
+        x, W = randn(C, M, K), randn(C, K, N, scale=K ** -0.5)
+        u, v = randn(C, K), randn(C, N)
+        got = ops.rank1_matmul(x, W, u, v, s)
+        want = r1.rank1_matmul_plain(x, W, u, v, s)
+        R = (s[:, None, None] * torch.bmm(x, u[..., None])) * v[:, None, :]
+        ms = time_ms(lambda: ops.rank1_matmul(x, W, u, v, s))
+        p_ms = time_ms(lambda: r1.rank1_matmul_plain(x, W, u, v, s))
+        l_ms = time_ms(lambda: torch.baddbmm(R, x, W))
+        nbytes = 4 * (C * M * K + C * K * N + C * K + C * N + C + C * M * N)
+        flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
+        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
+              f"x({C},{M},{K}) W({C},{K},{N})", count)
+        del x, W, got, want, R
+
+    # rank1_matmul_t: the tied logits
+    e = entries["rank1_matmul_t"]
+    x, W = randn(C, M, d), randn(C, V, d, scale=0.02)
+    u, v = randn(C, V), randn(C, d)
+    got = ops.rank1_matmul_t(x, W, u, v, s)
+    want = r1.rank1_matmul_t_plain(x, W, u, v, s)
+    R = (s[:, None, None] * torch.bmm(x, v[..., None])) * u[:, None, :]
+    e.add(got, want, time_ms(lambda: ops.rank1_matmul_t(x, W, u, v, s), 5),
+          time_ms(lambda: r1.rank1_matmul_t_plain(x, W, u, v, s), 5),
+          time_ms(lambda: torch.baddbmm(R, x, W.transpose(1, 2)), 5),
+          4 * (C * M * d + C * V * d + C * V + C * d + C + C * M * V),
+          2 * C * M * d * (V + 1) + 3 * C * M * V, f"x({C},{M},{d}) W({C},{V},{d})")
+    del x, W, got, want, R
+    torch.cuda.empty_cache()
+
+    # subcge_apply (own update) and subcge_apply_epochs (replay, E = 2, 4):
+    # every matrix leaf of the stacked client params
+    leaves = [((C,), V, d, 1)] + [((C, L), d, d, 4), ((C, L), d, ff, 2),
+                                  ((C, L), ff, d, 1)]
+    for name, E in (("subcge_apply", 1), ("subcge_apply_epochs", 1),
+                    ("subcge_apply_epochs", 2), ("subcge_apply_epochs", 4)):
+        e = entries[name] if E == 1 else extra[E]
+        for batch, n, m, count in leaves:
+            nb = math.prod(batch)
+            W = randn(*batch, n, m, scale=0.05)
+            U, Vm = randn(E, n, r), randn(E, m, r)
+            # coefficients of a few messages: deltas comparable to W itself
+            A = randn(E, *batch, r, r, scale=1e-2)
+            if name == "subcge_apply":
+                def fn():
+                    return ops.subcge_apply(W, U[0], A[0], Vm[0])
+
+                def plain():
+                    return sa.subcge_apply_plain(W, U[0], A[0], Vm[0])
+            else:
+                def fn():
+                    return ops.subcge_apply_epochs(W, U, A, Vm)
+
+                def plain():
+                    return sa.subcge_apply_epochs_plain(W, U, A, Vm)
+            got, want = fn(), plain()
+            UA = torch.einsum("enr,ebrs->bnes", U,
+                              A.reshape(E, nb, r, r)).reshape(nb, n, E * r)
+            Vt = Vm.permute(0, 2, 1).reshape(E * r, m).expand(nb, E * r, m)
+            Wf = W.reshape(nb, n, m)
+            ms, p_ms = time_ms(fn, 5), time_ms(plain, 5)
+            l_ms = time_ms(lambda: torch.baddbmm(Wf, UA, Vt), 5)
+            nbytes = 4 * (2 * nb * n * m + E * (n * r + m * r + nb * r * r))
+            flops = 2 * E * nb * (n * m * r + n * r * r)
+            shape = f"E={E} W({','.join(map(str, batch))},{n},{m}) r={r}"
+            e.add(got, want, ms, p_ms, l_ms, nbytes, flops, shape, count)
+            del W, got, want, UA, Vt, Wf
+            torch.cuda.empty_cache()
+    return entries
+
+
+def phase_profile(arch, C: int, B: int, device: str, steps: int = 3) -> dict:
+    """Where one steady step's time goes: the main path's pieces run by
+    hand (the same calls ``run`` makes), the last step under
+    ``torch.profiler``.  Returns host-span milliseconds, device-busy
+    milliseconds, the busy share of the step's wall time, and the kernels
+    that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.transport import FloodTransport
+    from repro_torch.dtrain.api import Setup
+    from repro_torch.dtrain.methods.seedflood import SeedFloodMethod
+    from repro_torch.dtrain.runner import DTrainConfig
+
+    cfg = DTrainConfig(arch=arch, n_clients=C, steps=steps, batch_size=B,
+                       device=device)
+    setup = Setup(cfg)
+    method, transport = SeedFloodMethod(cfg), FloodTransport(setup.graph)
+    state = method.init(setup)
+    cuda = device == "cuda"
+
+    def step(t):
+        nonlocal state
+        state, outbox = method.local_step(state, setup.batches(t), t)
+        state = method.apply_inbox(state, transport.exchange(outbox.payload, t))
+        if cuda:
+            torch.cuda.synchronize()
+
+    for t in range(steps - 1):
+        step(t)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(steps - 1)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # host spans: the CPU-side seedflood.* ranges; device busy: the kernel
+    # and copy events on the card (the ranges' device-side mirrors, also
+    # named seedflood.*, are left out so nothing counts twice)
+    from torch.autograd import DeviceType
+    spans, kernels = {}, {}
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        on_card = e.device_type == DeviceType.CUDA
+        if e.name.startswith("seedflood."):
+            if not on_card:
+                spans[e.name] = spans.get(e.name, 0.0) + us / 1e3
+        elif on_card:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + us / 1e3, n + 1)
+    top = sorted(((k[:90], ms, n) for k, (ms, n) in kernels.items()),
+                 key=lambda k: -k[1])
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    del state, setup
+    return {"wall_ms": wall_ms, "spans_ms": spans, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "device_launches": sum(n for _, n in kernels.values()),
+            "top_kernels": top[:12]}
+
+
+def check_run(res, ledger, what: str) -> None:
+    losses = res.loss_curve
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    if not res.consensus_error < 1e-10:
+        raise AssertionError(f"{what}: consensus error {res.consensus_error}")
+    got = (res.extra["n_messages"], res.total_bytes)
+    if got != ledger:
+        raise AssertionError(f"{what}: ledger {got} != JAX FloodTransport's "
+                             f"{ledger}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="also write details as JSON")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one steady full-width step")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import archs
+    from repro_torch.configs.base import Group
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {card}")
+
+    # 1. setup
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build_s = build.build_all()
+    for name in ("rank1_matmul", "subcge_apply"):
+        build.load(name)
+    log(f"[1] kernels built in {build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
+
+    # 2. kernels at the main path's shapes
+    qwen = archs.get("qwen1.5-0.5b")
+    C, B, T = 8, 8, 33           # clients, batch, 32 tokens + the label slot
+    log(f"[2] kernels vs plain versions at Qwen1.5-0.5B shapes ({card})")
+    entries = phase_kernels(qwen, C, B * T)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # 3. the slice: 3 SeedFlood steps, ring of 8, full width
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run(DTrainConfig(arch=qwen, n_clients=C, topology="ring", steps=3,
+                           batch_size=B, device="cuda"))
+    launches = dict(build.LAUNCHES)
+    wall = time.perf_counter() - t0
+    check_run(res, LEDGER_RING8_3STEPS, "slice")
+    for name in SOURCES:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"slice: kernel {name} never launched")
+    steady = res.extra["step_wall_s"]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    log(f"[3] slice: qwen1.5-0.5b ({res.extra['n_params']} params) x {C} "
+        f"clients, ring, 3 steps in {wall:.1f} s; losses {res.loss_curve}; "
+        f"consensus {res.consensus_error:.3e}; gmp {res.gmp}; ledger "
+        f"{res.extra['n_messages']} msgs / {res.total_bytes} B; first step "
+        f"{1e3 * res.compile_wall_s:.1f} ms, steady step {step_ms:.1f} ms "
+        f"({steady}); peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches} ({card})")
+    del res
+    torch.cuda.empty_cache()
+
+    # 4. delayed flooding across τ-epochs, 2 layers
+    slot = qwen.groups[0].slots[0]
+    qwen2 = dataclasses.replace(qwen, name=qwen.name + "-2l",
+                                groups=(Group((slot,), 2),))
+    build.reset_launches()
+    res = run(DTrainConfig(arch=qwen2, n_clients=C, topology="ring", steps=6,
+                           batch_size=B, flood_k=1, subcge_tau=2, drain=True,
+                           device="cuda"))
+    check_run(res, LEDGER_RING8_6STEPS_K1_DRAIN, "delayed")
+    multi = {E: k for E, k in build.EPOCH_LAUNCHES.items() if E >= 2}
+    if not multi:
+        raise AssertionError("delayed: subcge_apply_epochs never ran with E >= 2")
+    log(f"[4] delayed flood: losses {res.loss_curve}; consensus "
+        f"{res.consensus_error:.3e}; epoch launches by E "
+        f"{dict(build.EPOCH_LAUNCHES)}; launches {dict(build.LAUNCHES)}")
+    del res
+    torch.cuda.empty_cache()
+
+    # 5. the same code on a small input, card against the CPU (the kernels'
+    # plain versions): loss rtol 1e-4, params atol 1e-4 — the ZO
+    # coefficient (L+ - L-) / 2 eps amplifies float32 summation-order
+    # differences ~1e3-fold (tests/test_torch_slice.py sees 3e-5 between
+    # the JAX package and the port)
+    from repro_torch.dtrain.api import sim_arch
+    small = dict(arch=sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128),
+                 n_clients=4, steps=3, batch_size=2)
+    on_card = run(DTrainConfig(device="cuda", **small))
+    on_cpu = run(DTrainConfig(device="cpu", **small))
+    err = max(float((on_card.extra["final_stacked"][p].cpu() - t).abs().max())
+              for p, t in on_cpu.extra["final_stacked"].items())
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(on_card.loss_curve,
+                                                   on_cpu.loss_curve))
+    log(f"[5] small input, card vs CPU: loss rel {lrel:.3e} (tol 1e-4), "
+        f"params max abs {err:.3e} (tol 1e-4)")
+    if not (lrel <= 1e-4 and err <= 1e-4):
+        raise AssertionError("small-input run on the card disagrees with the "
+                             "CPU run")
+
+    details = {}
+    if args.profile:
+        details["profile"] = phase_profile(qwen, C, B, "cuda")
+        log(f"[p] one steady step ({card}): {details['profile']}")
+
+    # 6. report
+    report = {"kernels": [entries[n].record(launches[n]) for n in SOURCES]}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {**report, "card": card, "step_ms": step_ms,
+             "steady_step_s": steady, **details}, indent=1))
+    print(json.dumps(report))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,53 @@
+"""Seed-scalar messages and byte accounting (paper §3.1, Table 1, Fig. 1).
+
+The counterpart of ``repro/core/messages.py`` (host code; the port keeps
+its own copy).  A wire message is ``(seed, coef, step)``: a 4-byte uint32
+seed, a 2-byte fp16 coefficient and a 2-byte header whose dedup id is the
+sender step.  The sender step travels because a receiver must replay every
+message under the SubCGE subspace of the sender's τ-epoch.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+SEED_BYTES = 4      # uint32 seed
+COEF_BYTES = 2      # fp16 scalar
+HEADER_BYTES = 2    # dedup id == sender step mod 2^16 (uid + epoch replay)
+MESSAGE_BYTES = SEED_BYTES + COEF_BYTES + HEADER_BYTES
+
+
+def pad_pow2(k: int, minimum: int = 4) -> int:
+    """Smallest power-of-two bucket >= k (padded payload widths)."""
+    n = max(1, minimum)
+    while n < k:
+        n *= 2
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class Message:
+    """One seed-reconstructible ZO update m = (s, α·η/n)."""
+    seed: int          # s_{i,t}
+    coef: float        # the fixed coefficient (flooding never reweights it)
+    origin: int        # producing client
+    step: int          # producing iteration: fixes the sender's τ-epoch
+
+    @property
+    def uid(self) -> tuple[int, int]:
+        return (self.origin, self.step)
+
+
+@dataclasses.dataclass
+class CommLedger:
+    """Byte counters of one run; ``per_edge`` is the paper's cost metric."""
+    total_bytes: int = 0
+    n_edges: int = 1
+    n_messages: int = 0
+
+    def send(self, nbytes: int, count: int = 1) -> None:
+        self.total_bytes += nbytes
+        self.n_messages += count
+
+    @property
+    def per_edge(self) -> float:
+        return self.total_bytes / max(1, self.n_edges)

@@ -1,0 +1,226 @@
+"""SubCGE — Subspace Canonical-basis Gradient Estimation (paper §3.4).
+
+The counterpart of ``repro/core/subcge.py``.  Every 2D weight
+``W ∈ R^{n×m}`` gets a shared Gaussian subspace ``U ∈ R^{n×r}``,
+``V ∈ R^{m×r}`` regenerated every τ steps from the global seed; a message
+perturbs one canonical coordinate ``z = U[:, i] V[:, j]^T`` per layer
+instance, and K messages aggregate into ``ΔW = U A V^T`` with
+``A = Σ_k α_k E_{i_k j_k}``.  Non-2D leaves take a dense Gaussian.
+
+Port conventions (where JAX would ``vmap``): parameters are a flat dict of
+tensors stacked on a leading client axis ``C``; message seeds, coefficients
+and sender steps are ``(C, K)`` matrices, one row per client.  Updates are
+applied in place — the counterpart of the JAX package's donated buffers.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import prng, seeds as seedlib
+from repro_torch.core.messages import pad_pow2
+from repro_torch.kernels import ops as kops
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafMeta:
+    """Static description of one parameter leaf: ``n_batch_dims`` leading
+    dims are layer instances; the leaf is a SubCGE matrix iff the rest is
+    2D (otherwise it takes a dense Gaussian)."""
+    shape: tuple[int, ...]
+    n_batch_dims: int = 0
+
+    @property
+    def batch_shape(self) -> tuple[int, ...]:
+        return self.shape[: self.n_batch_dims]
+
+    @property
+    def inst_shape(self) -> tuple[int, ...]:
+        return self.shape[self.n_batch_dims:]
+
+    @property
+    def is_matrix(self) -> bool:
+        return len(self.inst_shape) == 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SubCGEConfig:
+    rank: int = 32
+    refresh_period: int = 1000   # τ
+    eps: float = 1e-3            # perturbation scale ε
+
+
+# ---------------------------------------------------------------------------
+# subspaces and coordinates
+# ---------------------------------------------------------------------------
+
+def refresh_step(step: int, cfg: SubCGEConfig) -> int:
+    """The refresh step governing ``step``: τ·⌊t/τ⌋."""
+    return (int(step) // cfg.refresh_period) * cfg.refresh_period
+
+
+def make_subspace(meta: dict[str, LeafMeta], cfg: SubCGEConfig,
+                  global_seed: int, step: int, device="cpu"):
+    """path -> (U (rows, r), V (cols, r)) for every matrix leaf, generated
+    at refresh step ``step`` (identical on every client)."""
+    out = {}
+    for path in seedlib.path_order(meta):
+        m = meta[path]
+        if not m.is_matrix:
+            continue
+        rows, cols = m.inst_shape
+        ku, kv = prng.split(seedlib.subspace_key(global_seed, step, path,
+                                                 device)).unbind(-2)
+        out[path] = (prng.normal(ku, (rows, cfg.rank)),
+                     prng.normal(kv, (cols, cfg.rank)))
+    return out
+
+
+def subspace_at_step(meta, cfg: SubCGEConfig, global_seed: int, step: int,
+                     device="cpu"):
+    return make_subspace(meta, cfg, global_seed, refresh_step(step, cfg),
+                         device)
+
+
+def sample_coords(meta: dict[str, LeafMeta], cfg: SubCGEConfig,
+                  message_seeds: torch.Tensor):
+    """RNG_S for a tensor of message seeds: path -> (i, j), each of shape
+    ``message_seeds.shape + batch_shape`` (int32)."""
+    key = seedlib.message_key(message_seeds)
+    out = {}
+    for path in seedlib.path_order(meta):
+        m = meta[path]
+        if m.is_matrix:
+            out[path] = seedlib.coord_sample(seedlib.leaf_key(key, path),
+                                             m.batch_shape, cfg.rank)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# aggregation: scatter into A, apply U A V^T (paper eq. 10)
+# ---------------------------------------------------------------------------
+
+def scatter_A(i: torch.Tensor, j: torch.Tensor, coefs: torch.Tensor,
+              rank: int) -> torch.Tensor:
+    """Σ_k coef_k · E_{i_k j_k} per client and layer instance.
+
+    i, j  : (C, K, *B) int — coordinates of K messages per client
+    coefs : (C, K) float32
+    returns (C, *B, rank, rank)
+
+    Deterministic: messages are added one at a time in k order (the order
+    the JAX scatter-add sums duplicates in); within one k every (client,
+    instance) row receives exactly one index, so no two adds collide.
+    """
+    C, K = i.shape[:2]
+    B = tuple(i.shape[2:])
+    nb = int(np.prod(B, dtype=np.int64))
+    A = torch.zeros((C, nb, rank * rank), dtype=torch.float32,
+                    device=coefs.device)
+    flat = (i.long() * rank + j.long()).reshape(C, K, nb, 1)
+    for k in range(K):
+        A.scatter_add_(2, flat[:, k],
+                       coefs[:, k, None, None].expand(C, nb, 1).contiguous())
+    return A.reshape((C,) + B + (rank, rank))
+
+
+def _vector_update(path: str, m: LeafMeta, message_seeds: torch.Tensor,
+                   coefs: torch.Tensor) -> torch.Tensor:
+    """Σ_k coef_k · N(seed_k) for a dense-Gaussian leaf, accumulated in
+    message order as the JAX ``lax.scan`` does: (C, *shape) float32."""
+    C, K = message_seeds.shape
+    keys = seedlib.leaf_key(seedlib.message_key(message_seeds), path)
+    acc = torch.zeros((C,) + m.shape, dtype=torch.float32,
+                      device=coefs.device)
+    bshape = (C,) + (1,) * len(m.shape)
+    for k in range(K):
+        z = seedlib.gaussian_like(keys[:, k], m.shape)
+        acc = acc + coefs[:, k].reshape(bshape) * z
+    return acc
+
+
+def apply_messages(params: dict, meta: dict[str, LeafMeta],
+                   cfg: SubCGEConfig, subspace: dict,
+                   message_seeds: torch.Tensor, coefs: torch.Tensor) -> dict:
+    """Apply K seed-scalar messages per client, in place.
+
+    ``message_seeds`` (C, K) uint32 values (int64), ``coefs`` (C, K) float32
+    already carrying the -η·α/n convention.  Matrix leaves: one scatter and
+    one fused ``subcge_apply`` over every client and layer instance.
+    """
+    coords = sample_coords(meta, cfg, message_seeds)
+    cf = coefs.float()
+    for path in seedlib.path_order(meta):
+        m = meta[path]
+        if m.is_matrix:
+            i, j = coords[path]
+            A = scatter_A(i, j, cf, cfg.rank)
+            U, V = subspace[path]
+            kops.subcge_apply(params[path], U, A, V, inplace=True)
+        else:
+            params[path] += _vector_update(path, m, message_seeds, cf)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# epoch-correct replay: apply each message under ITS SENDER's subspace
+# ---------------------------------------------------------------------------
+
+#: Sentinel for unused epoch slots (matches no real refresh step).
+EPOCH_PAD = -1
+
+
+def epoch_slots(steps, cfg: SubCGEConfig, minimum: int = 1) -> np.ndarray:
+    """Host-side: the distinct refresh steps governing a batch of sender
+    steps, padded with :data:`EPOCH_PAD` to a power-of-two length.
+    Negative entries (payload padding) are ignored."""
+    steps = np.asarray(steps)
+    tau = int(cfg.refresh_period)
+    valid = steps[steps >= 0]
+    uniq = np.unique((valid // tau) * tau).astype(np.int32)
+    out = np.full(pad_pow2(uniq.size, minimum), EPOCH_PAD, np.int32)
+    out[:uniq.size] = uniq
+    return out
+
+
+def apply_messages_epoch(params: dict, meta: dict[str, LeafMeta],
+                         cfg: SubCGEConfig, global_seed: int,
+                         message_seeds: torch.Tensor, coefs: torch.Tensor,
+                         steps: torch.Tensor, epochs) -> dict:
+    """Apply K messages per client, each under the subspace of its SENDER's
+    τ-epoch, in place.
+
+    message_seeds, coefs, steps : (C, K); zero coefficients are exact no-ops
+    epochs : refresh-step slots from :func:`epoch_slots`; every live
+             message's epoch must appear there.  Padding slots carry no
+             message, so no subspace is generated for them.
+
+    Matrix leaves: one scatter per live epoch and ONE fused
+    ``subcge_apply_epochs`` visit of each weight for all epochs.  Dense
+    Gaussian leaves depend on the seed only and are applied once.
+    """
+    dev = coefs.device
+    coords = sample_coords(meta, cfg, message_seeds)
+    cf = coefs.float()
+    tau = cfg.refresh_period
+    msg_epoch = torch.div(steps.long(), tau, rounding_mode="floor") * tau
+    live = [int(e) for e in np.asarray(epochs) if int(e) != EPOCH_PAD]
+    slot_coefs = [torch.where(msg_epoch == e, cf, torch.zeros_like(cf))
+                  for e in live]
+    slot_subs = [make_subspace(meta, cfg, global_seed, e, dev) for e in live]
+    for path in seedlib.path_order(meta):
+        m = meta[path]
+        if m.is_matrix:
+            if not live:
+                continue
+            i, j = coords[path]
+            A = torch.stack([scatter_A(i, j, c_e, cfg.rank)
+                             for c_e in slot_coefs])
+            U = torch.stack([sub[path][0] for sub in slot_subs])
+            V = torch.stack([sub[path][1] for sub in slot_subs])
+            kops.subcge_apply_epochs(params[path], U, A, V, inplace=True)
+        else:
+            params[path] += _vector_update(path, m, message_seeds, cf)
+    return params

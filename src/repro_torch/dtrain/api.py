@@ -1,0 +1,132 @@
+"""Run scaffolding of the decentralized trainer (the SeedFlood subset of
+``repro/dtrain/api.py``): the tiny default arch, the per-run ``Setup``,
+``RunResult``, the method ``Outbox``, and the logging helpers.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, uniform_dense
+from repro_torch.core.subcge import SubCGEConfig
+from repro_torch.data import synthetic
+from repro_torch.models import params as plib
+from repro_torch.models import transformer as tf
+from repro_torch.topology import graphs
+
+
+def sim_arch(vocab: int = 256, d_model: int = 64, n_layers: int = 2,
+             n_heads: int = 4, d_ff: int = 128) -> ArchConfig:
+    """Tiny dense decoder for simulator experiments (the paper's OPT stand-in)."""
+    return uniform_dense("sim-tiny", n_layers=n_layers, d_model=d_model,
+                         n_heads=n_heads, n_kv=n_heads, d_ff=d_ff,
+                         vocab=vocab, tie_embeddings=True, max_seq=128)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device; asking for CUDA without a card is an error, never a
+    silent fall back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA device is available "
+                           "(pass device='cpu' to run the plain versions)")
+    return dev
+
+
+class Setup:
+    """Arch, data splits, topology and stacked params of one run."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.arch = cfg.arch or sim_arch()
+        self.task = cfg.task or synthetic.TaskConfig(vocab=self.arch.vocab)
+        self.train, _, self.test = synthetic.make_splits(self.task)
+        self.parts = synthetic.partition(self.train, cfg.n_clients,
+                                         seed=cfg.seed)
+        self.graph = graphs.make(cfg.topology, cfg.n_clients)
+        self.spec = tf.arch_spec(self.arch)
+        p0 = plib.init_params(self.spec, cfg.seed, self.device)
+        self.stacked = {}
+        for path in list(p0):
+            leaf = p0.pop(path)
+            self.stacked[path] = leaf.unsqueeze(0).repeat(
+                (cfg.n_clients,) + (1,) * leaf.ndim)
+        self.meta = plib.subcge_meta(self.spec)
+        self.scfg = SubCGEConfig(rank=cfg.subcge_rank,
+                                 refresh_period=cfg.subcge_tau, eps=cfg.eps)
+        self.n_params = plib.n_params(self.spec)
+
+    def batches(self, step: int) -> torch.Tensor:
+        toks = synthetic.stacked_batches(self.train, self.parts, step,
+                                         self.cfg.batch_size, self.cfg.seed)
+        return torch.as_tensor(toks, device=self.device)
+
+    def gmp(self, stacked: dict) -> float:
+        avg = {p: t.mean(dim=0) for p, t in stacked.items()}
+        return synthetic.accuracy(self.arch, avg, self.test,
+                                  forward_fn=tf.forward)
+
+
+@dataclasses.dataclass
+class RunResult:
+    method: str
+    gmp: float                      # final averaged-model accuracy
+    loss_curve: list[float]
+    acc_curve: list[tuple[int, float]]
+    bytes_per_edge: float
+    total_bytes: float
+    consensus_error: float
+    wall_s: float
+    compile_wall_s: float = 0.0     # the first step (kernel builds, warm-up)
+    extra: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Outbox:
+    """What one local step hands back: per-client losses and the payload of
+    ``(client, Message)`` pairs."""
+    losses: np.ndarray
+    payload: Any = None
+
+
+def log_step_loss(loss_curve: list[float], losses: np.ndarray,
+                  active: np.ndarray) -> None:
+    """Mean loss over online clients (carry the last value under a full
+    outage)."""
+    if active.any():
+        loss_curve.append(float(np.mean(losses[active])))
+    else:
+        loss_curve.append(loss_curve[-1] if loss_curve else float("nan"))
+
+
+_CHUNK = 1 << 22
+
+
+@torch.no_grad()
+def consensus_error(stacked: dict) -> float:
+    """(1/n) Σ_i ||θ_i − θ̄||² / ||θ̄||², summed in float64 over column
+    chunks so the float64 temporaries stay small beside the stacked params."""
+    num = den = 0.0
+    for leaf in stacked.values():
+        flat = leaf.reshape(leaf.shape[0], -1)
+        for c0 in range(0, flat.shape[1], _CHUNK):
+            x = flat[:, c0:c0 + _CHUNK].double()
+            mean = x.mean(dim=0, keepdim=True)
+            num += float(((x - mean) ** 2).sum())
+            den += float((mean ** 2).sum()) * leaf.shape[0]
+    return num / max(den, 1e-20)
+
+
+def active_consensus(stacked: dict, active: np.ndarray) -> float:
+    """Consensus error over online clients only."""
+    idx = np.flatnonzero(active)
+    if idx.size <= 1:
+        return 0.0
+    if idx.size == active.size:
+        return consensus_error(stacked)
+    sel = torch.as_tensor(idx, device=next(iter(stacked.values())).device)
+    return consensus_error({p: t[sel] for p, t in stacked.items()})

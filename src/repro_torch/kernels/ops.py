@@ -1,0 +1,17 @@
+"""Public dispatch layer for the port's kernels.
+
+The counterpart of ``repro/kernels/ops.py``.  There is no backend knob:
+each op dispatches on the device of its tensors.  A CPU tensor runs the
+kernel's plain PyTorch version (the CPU tests); a CUDA tensor launches the
+hand-written Hopper kernel or raises.  There is no fallback from a failed
+kernel to the plain version.
+
+Shapes carry an explicit leading client axis where JAX would ``vmap``.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.rank1_matmul import rank1_matmul, rank1_matmul_t
+from repro_torch.kernels.subcge_apply import subcge_apply, subcge_apply_epochs
+
+__all__ = ["rank1_matmul", "rank1_matmul_t", "subcge_apply",
+           "subcge_apply_epochs"]

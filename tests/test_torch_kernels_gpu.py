@@ -1,0 +1,75 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test carries the ``gpu`` marker and skips without a CUDA device (the
+kernels have no CPU mode); ``chip_smoke.py`` also holds them at the main
+path's Qwen1.5-0.5B shapes.  This file imports neither JAX nor the JAX
+package, so it runs on a machine without them:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerance: rtol 1e-5, atol 1e-5 (float32, different summation orders).
+Shapes are ragged on purpose: M, N and K off the tile sizes, W a strided
+view of stacked layers.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build, ops  # noqa: E402
+
+RTOL = ATOL = 1e-5
+
+
+def _f32(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans", [False, True])
+def test_rank1_kernel_matches_plain(cuda, trans):
+    rng = np.random.default_rng(5)
+    C, M, K, N = 3, 67, 50, 133
+    x = _f32(rng, C, M, K)
+    W = _f32(rng, C, N, K) if trans else _f32(rng, C, K, N)
+    u = _f32(rng, C, N if trans else K)
+    v = _f32(rng, C, K if trans else N)
+    s = np.array([1e-3, -1e-3, 0.5], np.float32)
+    t = [torch.from_numpy(a).to(cuda) for a in (x, W, u, v, s)]
+    Wst = torch.stack([t[1], t[1]], dim=1)[:, 1]          # (C, ., .) view
+    fn = ops.rank1_matmul_t if trans else ops.rank1_matmul
+    build.reset_launches()
+    got = fn(t[0], Wst, t[2], t[3], t[4])
+    torch.cuda.synchronize()
+    assert sum(build.LAUNCHES.values()) == 1
+    plain = fn(*(a.cpu() for a in t))
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [1, 2, 4])
+def test_subcge_kernels_match_plain(cuda, E):
+    rng = np.random.default_rng(6 + E)
+    W = _f32(rng, 2, 3, 70, 150)
+    U, V = _f32(rng, E, 70, 16), _f32(rng, E, 150, 16)
+    A = 0.1 * _f32(rng, E, 2, 3, 16, 16)
+    t = [torch.from_numpy(a).to(cuda) for a in (W, U, A, V)]
+    if E == 1:
+        got = ops.subcge_apply(t[0], t[1][0], t[2][0], t[3][0])
+    else:
+        got = ops.subcge_apply_epochs(*t)
+    ops.subcge_apply_epochs(t[0], *t[1:], inplace=True)
+    torch.cuda.synchronize()
+    plain = ops.subcge_apply_epochs(*(torch.from_numpy(a) for a in (W, U, A, V)))
+    for out in (got, t[0]):
+        np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(),
+                                   rtol=RTOL, atol=ATOL)
