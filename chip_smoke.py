@@ -1,31 +1,39 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for H100).
 
-    python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
+    python3 chip_smoke.py [--profile] [--out chiprun_out/chip_smoke.json]
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. setup   — build the hand-written CUDA kernels from ``src/repro_torch``
              (one nvcc per source, in parallel); TF32 off everywhere.
-2. kernels — every kernel of the main path at the Qwen1.5-0.5B shapes the
-             path gives it, held against its plain PyTorch version
-             (rtol 1e-5, atol 1e-5, float32) and timed with CUDA events
-             beside the plain version, one PyTorch library call computing
-             the same function, and the least time the card could take.
+2. kernels — every kernel of the main paths at the Qwen1.5-0.5B and Kimi K2
+             shapes the paths give it, held against its plain PyTorch
+             version (rtol 1e-5, atol 1e-5, float32) and timed with CUDA
+             events beside the plain version, one PyTorch library call
+             computing the same function, and the least time the card could
+             take; then ``prng.normal`` on the card held bitwise against the
+             CPU on 2^20 draws.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
              d1024, vocab 151936), random weights from seed 0.  Launch
              counters are zeroed just before and read just after.
 4. delayed — the same arch cut to 2 layers, flood_k=1, τ=2, drain, 6
              steps: replays cross τ-epochs, so the epoch kernel runs E >= 2.
-5. small   — the same code on a small input, on the card and on the CPU
-             (the kernels' plain versions); results must agree.
-6. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
+5. kimi    — the same entry point on Kimi K2's MoE layer at its published
+             widths (d7168, 64/8 heads of 128, expert ff 2048, top-8 + 1
+             shared expert, untied head), cut to 1 layer of 61, 32 routed
+             experts of 384 and vocab 20480 of 163840: 3 steps, ring of 8;
+             ``rank1_matmul_expert`` must launch 6 times per step.
+6. small   — the same code on small inputs (the dense sim arch and the
+             reduced Kimi K2), on the card and on the CPU (the kernels'
+             plain versions); results must agree.
+7. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-(host spans, device-busy time and share, top kernels).
+of each slice (host spans, device-busy time and share, top kernels).
 
 It needs a CUDA device and the repository's ``src/`` next to it.
 """
@@ -59,7 +67,14 @@ SOURCES = {
                      "src/repro/kernels/subcge_apply.py:53"),
     "subcge_apply_epochs": ("src/repro_torch/kernels/csrc/subcge_apply.cu",
                             "src/repro/kernels/subcge_apply.py:70"),
+    "rank1_matmul_expert": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
+                            "src/repro/kernels/rank1_matmul.py:191"),
 }
+# Kimi K2 cut to one chip's share (published: 61 layers, 384 experts, vocab
+# 163840): every layer is the same slot, 32 experts are what one of 12
+# expert-parallel chips holds (the router is cut with them), and the
+# vocabulary is cut to one eighth; every width stays as published
+KIMI_LAYERS, KIMI_EXPERTS, KIMI_VOCAB = 1, 32, 20_480
 
 
 def log(*a):
@@ -126,14 +141,57 @@ class Entry:
         self.nbytes += count * nbytes
         self.flops += count * flops
 
-    def record(self, launches: int) -> dict:
+    def summary(self) -> dict:
         b_ms, b_by = bound(self.nbytes, self.flops)
-        src, rep = SOURCES[self.name]
-        return {"name": self.name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches,
-                "max_abs_err": self.err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": self.library_ms}
+        return {"max_abs_err": self.err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": self.library_ms}
+
+
+def record(name: str, parts: list, launches: int) -> dict:
+    """One kernel's line of the report: its numbers summed over the units of
+    every path that runs it (``parts``), its launches over those runs."""
+    e = Entry(name)
+    for p in parts:
+        e.err = max(e.err, p.err)
+        for k in ("ms", "plain_ms", "library_ms", "nbytes", "flops"):
+            setattr(e, k, getattr(e, k) + getattr(p, k))
+    src, rep = SOURCES[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, **e.summary()}
+
+
+def kimi_cut(kimi):
+    """Kimi K2 at its published widths, cut to one chip's share."""
+    from repro_torch.configs.base import Group
+    slot = kimi.groups[0].slots[0]
+    moe = dataclasses.replace(slot.moe, n_experts=KIMI_EXPERTS)
+    return dataclasses.replace(
+        kimi, name=kimi.name + "-cut", vocab=KIMI_VOCAB,
+        groups=(Group((dataclasses.replace(slot, moe=moe),), KIMI_LAYERS),))
+
+
+def check_rank1(e: Entry, C: int, M: int, shapes, randn) -> None:
+    """rank1_matmul at (K, N) shapes, ``count`` uses each per unit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank1_matmul as r1
+    s = torch.tensor([1e-3, -1e-3] * (C // 2), device="cuda")
+    for (K, N), count in shapes:
+        x, W = randn(C, M, K), randn(C, K, N, scale=K ** -0.5)
+        u, v = randn(C, K), randn(C, N)
+        got = ops.rank1_matmul(x, W, u, v, s)
+        want = r1.rank1_matmul_plain(x, W, u, v, s)
+        R = (s[:, None, None] * torch.bmm(x, u[..., None])) * v[:, None, :]
+        ms = time_ms(lambda: ops.rank1_matmul(x, W, u, v, s))
+        p_ms = time_ms(lambda: r1.rank1_matmul_plain(x, W, u, v, s))
+        l_ms = time_ms(lambda: torch.baddbmm(R, x, W))
+        nbytes = 4 * (C * M * K + C * K * N + C * K + C * N + C + C * M * N)
+        flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
+        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
+              f"x({C},{M},{K}) W({C},{K},{N})", count)
+        del x, W, got, want, R
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(qwen, C: int, M: int) -> dict:
@@ -151,7 +209,7 @@ def phase_kernels(qwen, C: int, M: int) -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    entries = {n: Entry(n) for n in SOURCES}
+    entries = {n: Entry(n) for n in SOURCES if n != "rank1_matmul_expert"}
     # the delayed-flood shapes (E >= 2) are checked and printed, not summed
     # into the main path's entry
     extra = {E: Entry("subcge_apply_epochs") for E in (2, 4)}
@@ -161,21 +219,8 @@ def phase_kernels(qwen, C: int, M: int) -> dict:
     s = torch.tensor([1e-3, -1e-3] * (C // 2), device=dev)
 
     # rank1_matmul: the seven projections of one layer, all clients
-    e = entries["rank1_matmul"]
-    for (K, N), count in (((d, d), 4), ((d, ff), 2), ((ff, d), 1)):
-        x, W = randn(C, M, K), randn(C, K, N, scale=K ** -0.5)
-        u, v = randn(C, K), randn(C, N)
-        got = ops.rank1_matmul(x, W, u, v, s)
-        want = r1.rank1_matmul_plain(x, W, u, v, s)
-        R = (s[:, None, None] * torch.bmm(x, u[..., None])) * v[:, None, :]
-        ms = time_ms(lambda: ops.rank1_matmul(x, W, u, v, s))
-        p_ms = time_ms(lambda: r1.rank1_matmul_plain(x, W, u, v, s))
-        l_ms = time_ms(lambda: torch.baddbmm(R, x, W))
-        nbytes = 4 * (C * M * K + C * K * N + C * K + C * N + C + C * M * N)
-        flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
-        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
-              f"x({C},{M},{K}) W({C},{K},{N})", count)
-        del x, W, got, want, R
+    check_rank1(entries["rank1_matmul"], C, M,
+                (((d, d), 4), ((d, ff), 2), ((ff, d), 1)), randn)
 
     # rank1_matmul_t: the tied logits
     e = entries["rank1_matmul_t"]
@@ -231,6 +276,71 @@ def phase_kernels(qwen, C: int, M: int) -> dict:
             del W, got, want, UA, Vt, Wf
             torch.cuda.empty_cache()
     return entries
+
+
+def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
+    """rank1_matmul and rank1_matmul_expert at the Kimi K2 cut's shapes, each
+    summed over what one training step's forward gives it per layer: the
+    attention, router, shared-expert and head projections, and the three
+    expert products (w1, w3 of 7168 -> 2048, w2 of 2048 -> 7168) over the
+    capacity buffer of every client and expert."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank1_matmul as r1
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    slot = kimi.groups[0].slots[0]
+    a, mo, d = slot.attn, slot.moe, kimi.d_model
+    q, kv, fs = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim, \
+        mo.n_shared * mo.d_ff_expert
+    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_expert")}
+    check_rank1(entries["rank1_matmul"], C, M,
+                (((d, q), 1), ((d, kv), 2), ((q, d), 1), ((d, mo.n_experts), 1),
+                 ((d, fs), 2), ((fs, d), 1), ((d, kimi.vocab), 1)), randn)
+
+    E, ff = mo.n_experts, mo.d_ff_expert
+    cap = max(1, math.ceil(M * mo.top_k / E * mo.capacity_factor))
+    s = torch.tensor([1e-3, -1e-3] * (C // 2), device=dev)
+    e = entries["rank1_matmul_expert"]
+    for (K, N), count in (((d, ff), 2), ((ff, d), 1)):
+        x, W = randn(C, E, cap, K), randn(C, E, K, N, scale=K ** -0.5)
+        u, v = randn(C, E, K), randn(C, E, N)
+        got = ops.rank1_matmul_expert(x, W, u, v, s)
+        want = r1.rank1_matmul_expert_plain(x, W, u, v, s)
+        xb, Wb = x.reshape(C * E, cap, K), W.reshape(C * E, K, N)
+        R = ((s[:, None, None, None] * torch.matmul(x, u[..., None]))
+             * v[:, :, None, :]).reshape(C * E, cap, N)
+        ms = time_ms(lambda: ops.rank1_matmul_expert(x, W, u, v, s), 5)
+        p_ms = time_ms(lambda: r1.rank1_matmul_expert_plain(x, W, u, v, s), 5)
+        l_ms = time_ms(lambda: torch.baddbmm(R, xb, Wb), 5)
+        B = C * E
+        nbytes = 4 * (B * cap * K + B * K * N + B * K + B * N + C + B * cap * N)
+        flops = 2 * B * cap * K * (N + 1) + 3 * B * cap * N
+        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
+              f"x({C},{E},{cap},{K}) W({C},{E},{K},{N})", count)
+        del x, W, got, want, R, xb, Wb
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_prng(n: int = 1 << 20) -> None:
+    """prng.normal on the card, bitwise the CPU's (which is bitwise
+    ``jax.random.normal`` on the CPU, tests/test_torch_prng.py)."""
+    import torch
+    from repro_torch.core import prng
+    keys = prng.PRNGKey(torch.arange(16) * 65536 + 7)
+    want = prng.normal(keys, (n // 16,))
+    got = prng.normal(keys.cuda(), (n // 16,)).cpu()
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    log(f"  prng.normal card vs CPU on {n} draws: {bad} differ (must be 0)")
+    if bad:
+        raise AssertionError(f"prng.normal: {bad} of {n} draws differ between "
+                             "the card and the CPU")
 
 
 def phase_profile(arch, C: int, B: int, device: str, steps: int = 3) -> dict:
@@ -333,38 +443,55 @@ def main(argv=None) -> int:
         build.load(name)
     log(f"[1] kernels built in {build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
 
-    # 2. kernels at the main path's shapes
+    # 2. kernels at the main paths' shapes
     qwen = archs.get("qwen1.5-0.5b")
+    kimi = kimi_cut(archs.get("kimi-k2-1t-a32b"))
     C, B, T = 8, 8, 33           # clients, batch, 32 tokens + the label slot
     log(f"[2] kernels vs plain versions at Qwen1.5-0.5B shapes ({card})")
-    entries = phase_kernels(qwen, C, B * T)
+    entries = {"qwen": phase_kernels(qwen, C, B * T)}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-
-    # 3. the slice: 3 SeedFlood steps, ring of 8, full width
-    build.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = run(DTrainConfig(arch=qwen, n_clients=C, topology="ring", steps=3,
-                           batch_size=B, device="cuda"))
-    launches = dict(build.LAUNCHES)
-    wall = time.perf_counter() - t0
-    check_run(res, LEDGER_RING8_3STEPS, "slice")
-    for name in SOURCES:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"slice: kernel {name} never launched")
-    steady = res.extra["step_wall_s"]
-    step_ms = 1e3 * sum(steady) / len(steady)
-    log(f"[3] slice: qwen1.5-0.5b ({res.extra['n_params']} params) x {C} "
-        f"clients, ring, 3 steps in {wall:.1f} s; losses {res.loss_curve}; "
-        f"consensus {res.consensus_error:.3e}; gmp {res.gmp}; ledger "
-        f"{res.extra['n_messages']} msgs / {res.total_bytes} B; first step "
-        f"{1e3 * res.compile_wall_s:.1f} ms, steady step {step_ms:.1f} ms "
-        f"({steady}); peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{launches} ({card})")
-    del res
+    log(f"[2] kernels vs plain versions at Kimi K2 cut shapes ({card})")
+    entries["kimi"] = phase_kernels_kimi(kimi, C, B * T)
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    phase_prng()
+
+    def run_slice(arch, what, phase):
+        """3 SeedFlood steps, ring of 8, launch counters zeroed just before
+        and read just after; returns the launches and the run's numbers."""
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run(DTrainConfig(arch=arch, n_clients=C, topology="ring",
+                               steps=3, batch_size=B, device="cuda"))
+        launches = dict(build.LAUNCHES)
+        wall = time.perf_counter() - t0
+        check_run(res, LEDGER_RING8_3STEPS, what)
+        steady = res.extra["step_wall_s"]
+        out = {"step_ms": 1e3 * sum(steady) / len(steady),
+               "steady_step_s": steady, "first_step_ms": 1e3 * res.compile_wall_s,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "n_params": res.extra["n_params"], "losses": res.loss_curve,
+               "launches": launches}
+        log(f"[{phase}] {what}: {arch.name} ({out['n_params']} params) x {C} "
+            f"clients, ring, 3 steps in {wall:.1f} s; losses "
+            f"{res.loss_curve}; consensus {res.consensus_error:.3e}; gmp "
+            f"{res.gmp}; ledger {res.extra['n_messages']} msgs / "
+            f"{res.total_bytes} B; first step {out['first_step_ms']:.1f} ms, "
+            f"steady step {out['step_ms']:.1f} ms ({steady}); peak mem "
+            f"{out['peak_gib']:.2f} GiB; launches {launches} ({card})")
+        del res
+        torch.cuda.empty_cache()
+        return launches, out
+
+    # 3. the Qwen slice: full width
+    launches, details = {}, {}
+    launches["qwen"], details["qwen"] = run_slice(qwen, "slice", 3)
+    for name in ("rank1_matmul", "rank1_matmul_t", "subcge_apply",
+                 "subcge_apply_epochs"):
+        if launches["qwen"].get(name, 0) <= 0:
+            raise AssertionError(f"slice: kernel {name} never launched")
 
     # 4. delayed flooding across τ-epochs, 2 layers
     slot = qwen.groups[0].slots[0]
@@ -384,38 +511,59 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # 5. the same code on a small input, card against the CPU (the kernels'
+    # 5. the Kimi K2 slice: the MoE layer at its published widths
+    launches["kimi"], details["kimi"] = run_slice(kimi, "kimi", 5)
+    for name in ("rank1_matmul", "rank1_matmul_expert", "subcge_apply",
+                 "subcge_apply_epochs"):
+        if launches["kimi"].get(name, 0) <= 0:
+            raise AssertionError(f"kimi: kernel {name} never launched")
+    # w1, w3 and w2 of one layer in each of the two signed forwards
+    want = 6 * KIMI_LAYERS * 3
+    if launches["kimi"]["rank1_matmul_expert"] != want:
+        raise AssertionError(f"kimi: rank1_matmul_expert launched "
+                             f"{launches['kimi']['rank1_matmul_expert']} "
+                             f"times, not {want}")
+
+    # 6. the same code on small inputs, card against the CPU (the kernels'
     # plain versions): loss rtol 1e-4, params atol 1e-4 — the ZO
     # coefficient (L+ - L-) / 2 eps amplifies float32 summation-order
     # differences ~1e3-fold (tests/test_torch_slice.py sees 3e-5 between
     # the JAX package and the port)
     from repro_torch.dtrain.api import sim_arch
-    small = dict(arch=sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128),
-                 n_clients=4, steps=3, batch_size=2)
-    on_card = run(DTrainConfig(device="cuda", **small))
-    on_cpu = run(DTrainConfig(device="cpu", **small))
-    err = max(float((on_card.extra["final_stacked"][p].cpu() - t).abs().max())
-              for p, t in on_cpu.extra["final_stacked"].items())
-    lrel = max(abs(a - b) / abs(b) for a, b in zip(on_card.loss_curve,
-                                                   on_cpu.loss_curve))
-    log(f"[5] small input, card vs CPU: loss rel {lrel:.3e} (tol 1e-4), "
-        f"params max abs {err:.3e} (tol 1e-4)")
-    if not (lrel <= 1e-4 and err <= 1e-4):
-        raise AssertionError("small-input run on the card disagrees with the "
-                             "CPU run")
+    for arch in (sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128),
+                 archs.reduced(archs.get("kimi-k2-1t-a32b"))):
+        small = dict(arch=arch, n_clients=4, steps=3, batch_size=2)
+        on_card = run(DTrainConfig(device="cuda", **small))
+        on_cpu = run(DTrainConfig(device="cpu", **small))
+        err = max(float((on_card.extra["final_stacked"][p].cpu() - t).abs()
+                        .max())
+                  for p, t in on_cpu.extra["final_stacked"].items())
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(on_card.loss_curve,
+                                                       on_cpu.loss_curve))
+        log(f"[6] small input {arch.name}, card vs CPU: loss rel {lrel:.3e} "
+            f"(tol 1e-4), params max abs {err:.3e} (tol 1e-4)")
+        if not (lrel <= 1e-4 and err <= 1e-4):
+            raise AssertionError(f"small-input run of {arch.name} on the card "
+                                 "disagrees with the CPU run")
 
-    details = {}
     if args.profile:
-        details["profile"] = phase_profile(qwen, C, B, "cuda")
-        log(f"[p] one steady step ({card}): {details['profile']}")
+        for key, arch in (("qwen", qwen), ("kimi", kimi)):
+            details[key]["profile"] = phase_profile(arch, C, B, "cuda")
+            torch.cuda.empty_cache()
+            log(f"[p] one steady {arch.name} step ({card}): "
+                f"{details[key]['profile']}")
 
-    # 6. report
-    report = {"kernels": [entries[n].record(launches[n]) for n in SOURCES]}
+    # 7. report: each kernel over the paths that run it
+    report = {"kernels": [
+        record(n, [e[n] for e in entries.values() if n in e],
+               sum(ln.get(n, 0) for ln in launches.values()))
+        for n in SOURCES]}
     if args.out:
+        for key, es in entries.items():
+            details[key]["kernels"] = {n: e.summary() for n, e in es.items()}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {**report, "card": card, "step_ms": step_ms,
-             "steady_step_s": steady, **details}, indent=1))
+            {**report, "card": card, **details}, indent=1))
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
-"""Architectures the port runs (the dense subset of ``repro/configs/archs.py``).
+"""Architectures the port runs (the dense and MoE subset of
+``repro/configs/archs.py``).
 
-``reduced`` mirrors the JAX package's smoke variant for the dense family:
-one layer per distinct slot, d_model 64, at most 4 heads, d_ff 2·d,
-vocab 256.
+``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
+slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; an MoE slot keeps 4
+experts, top-min(2, k), expert width 2·d, at most one shared expert and
+capacity factor 8 (drop-free).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ArchConfig, AttnCfg, Group, LayerCfg, \
-    uniform_dense
+    MoECfg, uniform_dense
 
 QWEN15_05B = uniform_dense(
     "qwen1.5-0.5b", n_layers=24, d_model=1024, n_heads=16, n_kv=16,
@@ -17,7 +19,17 @@ QWEN15_05B = uniform_dense(
     rope_theta=1e6,
     source="[hf:Qwen/Qwen1.5-0.5B] 24L d1024 16H(kv16) ff2816 v151936, QKV bias")
 
-REGISTRY: dict[str, ArchConfig] = {c.name: c for c in [QWEN15_05B]}
+KIMI_K2 = ArchConfig(
+    name="kimi-k2-1t-a32b", family="moe", d_model=7168, vocab=163_840,
+    groups=(Group((LayerCfg(
+        mixer="attn", attn=AttnCfg(n_heads=64, n_kv_heads=8, head_dim=128),
+        ffn="moe", moe=MoECfg(n_experts=384, top_k=8, d_ff_expert=2048,
+                              n_shared=1, router_aux=0.001)),), 61),),
+    rope_theta=5e4,
+    source="[arXiv:2501.kimi2] 61L d7168 64H(kv8) MoE 384e top-8 +1 shared, "
+           "expert ff2048, v163840 — 1T total / ~32B active")
+
+REGISTRY: dict[str, ArchConfig] = {c.name: c for c in [QWEN15_05B, KIMI_K2]}
 
 
 def get(name: str) -> ArchConfig:
@@ -32,6 +44,16 @@ def _shrink_attn(a: AttnCfg, d: int) -> AttnCfg:
     return AttnCfg(h, kv, max(8, d // h), a.qkv_bias)
 
 
+def _shrink_slot(s: LayerCfg, d: int) -> LayerCfg:
+    moe = None
+    if s.moe is not None:
+        moe = MoECfg(n_experts=4, top_k=min(2, s.moe.top_k), d_ff_expert=2 * d,
+                     n_shared=min(1, s.moe.n_shared), capacity_factor=8.0,
+                     router_aux=s.moe.router_aux)
+    return LayerCfg(mixer=s.mixer, attn=_shrink_attn(s.attn, d), ffn=s.ffn,
+                    d_ff=2 * d if s.ffn == "dense" else 0, moe=moe)
+
+
 def reduced(cfg: ArchConfig, d_model: int = 64, max_slots: int = 2) -> ArchConfig:
     """≤2-layer, tiny-width smoke variant with the same layer types."""
     slots = [s for g in cfg.groups for s in g.slots]
@@ -40,8 +62,7 @@ def reduced(cfg: ArchConfig, d_model: int = 64, max_slots: int = 2) -> ArchConfi
         for s in slots:
             seen.setdefault((s.mixer, s.ffn), s)
         slots = list(seen.values())[:max_slots]
-    slots = [LayerCfg(mixer=s.mixer, attn=_shrink_attn(s.attn, d_model),
-                      ffn=s.ffn, d_ff=2 * d_model) for s in slots]
+    slots = [_shrink_slot(s, d_model) for s in slots]
     return dataclasses.replace(
         cfg, name=cfg.name + "-reduced", d_model=d_model, vocab=256,
         groups=(Group(tuple(slots), 1),), max_seq=128)

@@ -1,10 +1,13 @@
-"""Architecture configuration dataclasses (the dense subset).
+"""Architecture configuration dataclasses (the dense and MoE subset).
 
 The counterpart of ``repro/configs/base.py`` for the layer types the port
-runs so far: attention (GQA, optional QKV bias) and a dense MLP, stacked as
-groups of repeating slots.  Fields the port cannot run yet are kept out
-rather than silently ignored; ``models.transformer.arch_spec`` rejects
-settings outside rmsnorm / silu / gated MLP / rope / tied embeddings.
+runs so far: attention (GQA, optional QKV bias), a dense MLP or a top-k
+capacity-dispatch MoE, stacked as groups of repeating slots.  Fields the
+port cannot run yet are kept out rather than silently ignored;
+``models.transformer.arch_spec`` rejects settings outside rmsnorm / silu /
+gated MLP / rope.  The JAX package's ``sharding_policy`` and
+``moe_gather_weights`` are mesh hints and stay out too: the port has no
+mesh.
 """
 from __future__ import annotations
 
@@ -20,11 +23,22 @@ class AttnCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0                  # shared (always-on) experts
+    capacity_factor: float = 1.25
+    router_aux: float = 0.0            # load-balance aux loss coefficient
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerCfg:
     mixer: str = "attn"                # "attn"
     attn: AttnCfg | None = None
-    ffn: str = "dense"                 # "dense"
+    ffn: str = "dense"                 # "dense" | "moe"
     d_ff: int = 0
+    moe: MoECfg | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +50,7 @@ class Group:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                        # dense
+    family: str                        # dense | moe
     d_model: int
     vocab: int
     groups: tuple[Group, ...]

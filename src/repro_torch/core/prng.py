@@ -22,7 +22,14 @@ Semantics follow ``jax/_src/prng.py`` and ``jax/_src/random.py`` with
 * ``randint``      = two bit draws from ``split(k)``, combined as in
   ``random._randint`` (not ``bits % span``)
 * ``normal``       = ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))`` with
-  XLA's float32 ``ErfInv`` polynomial (Giles), not ``torch.erfinv``.
+  XLA's float32 ``ErfInv`` polynomial (Giles), not ``torch.erfinv``, over
+  XLA CPU's float32 ``log1p`` (:func:`log1p_xla`), not ``torch.log1p``.
+
+The reference is JAX on the CPU: XLA on a GPU or TPU lowers ``log1p`` with
+other polynomials and rounds differently again.  The same code runs on any
+torch device and gives the same bits there (float64 emulates each fused
+multiply-add exactly; every other step is one correctly rounded float32
+operation).
 """
 from __future__ import annotations
 
@@ -34,8 +41,9 @@ import torch
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
-# random_bits works on at most this many counters at once (bounds the int64
-# temporaries of a 155M-element embedding draw to a few hundred MB)
+# random_bits, uniform and normal work on at most this many elements at once
+# (bounds the temporaries of a 470M-element expert-weight draw to a few
+# hundred MB)
 _CHUNK = 1 << 24
 
 
@@ -85,19 +93,35 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit random words, shape ``key.shape[:-1] + shape`` (int64)."""
+def _bits_range(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """The words of flat counters ``start .. stop - 1``: (..., stop - start).
+    Under ``jax_threefry_partitionable`` a word depends on its own counter
+    only, so any split of the counter range gives the same bits."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None], idx >> 32,
+                          idx & M32)
+    return b1 ^ b2
+
+
+def _map_bits(key: torch.Tensor, shape, fn, dtype) -> torch.Tensor:
+    """``fn(words)`` over the flat counter range of ``shape``, a chunk of at
+    most :data:`_CHUNK` elements (all keys together) at a time, written into
+    one output of shape ``key.shape[:-1] + shape``: the int64 and float64
+    temporaries stay a few hundred MB for a draw of any size."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    k1, k2 = key[..., 0, None], key[..., 1, None]
-    parts = []
-    for start in range(0, max(n, 1), _CHUNK):
-        idx = torch.arange(start, min(n, start + _CHUNK), dtype=torch.int64,
-                           device=key.device)
-        b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & M32)
-        parts.append(b1 ^ b2)
-    bits = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-    return bits.reshape(key.shape[:-1] + shape)
+    batch = tuple(key.shape[:-1])
+    out = torch.empty(batch + (n,), dtype=dtype, device=key.device)
+    step = max(1, _CHUNK // max(1, math.prod(batch)))
+    for start in range(0, n, step):
+        stop = min(n, start + step)
+        out[..., start:stop] = fn(_bits_range(key, start, stop))
+    return out.reshape(batch + shape)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """32-bit random words, shape ``key.shape[:-1] + shape`` (int64)."""
+    return _map_bits(key, shape, lambda b: b, torch.int64)
 
 
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
@@ -106,12 +130,17 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
+def _unit_to_range(u: torch.Tensor, minval: float, maxval: float):
+    """``max(lo, u * (hi - lo) + lo)`` in float32, with Python scalars (a
+    device scalar would cost a host-to-device copy per call)."""
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp(u * float(span) + float(lo), min=float(lo))
+
+
 def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
-    dev = key.device
-    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
-    u = _bits_to_unit(random_bits(key, shape))
-    return torch.maximum(lo, u * (hi - lo) + lo)
+    return _map_bits(key, shape, lambda b: _unit_to_range(
+        _bits_to_unit(b), minval, maxval), torch.float32)
 
 
 def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -133,6 +162,92 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     return (minval + off).to(torch.int32)
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 fused multiply-add ``a*b + c`` with one rounding, for float32
+    values (tensors, float64 copies of them, or Python floats): the float64
+    product of two float32 values is exact, and so is its sum with a float32
+    value except in rare double-rounding cases that none of the inputs
+    ``erf_inv`` feeds here hit (tests/test_torch_prng.py checks 2^20)."""
+    def f64(v):
+        return v.double() if isinstance(v, torch.Tensor) else v
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+# XLA's float32 log1p for |y| < sqrt(2) - 1 (ElementalIrEmitter::EmitLog1p):
+# a Cephes rational, numerator and denominator by Horner with fused
+# multiply-adds, coefficients rounded to float32.
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_NUM = tuple(_f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_DEN = tuple(_f32(c) for c in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+# XLA CPU's float32 log (the Cephes/Eigen plog polynomial, p0 .. p8)
+_LOG_P = tuple(_f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
+_SQRTHF = _f32(0.707106781186547524)
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _horner(y: torch.Tensor, coefs) -> torch.Tensor:
+    """``((c0*y + c1)*y + c2) ...`` with every step one fused multiply-add
+    (XLA starts from 0*y + c0 = c0)."""
+    y64 = y.double()
+    p = torch.full_like(y, coefs[0])
+    for c in coefs[1:]:
+        p = _fma(p, y64, c)
+    return p
+
+
+def log_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``log`` (Cephes/Eigen ``plog``), bitwise: split x
+    into exponent e and mantissa m in [0.5, 1) (below sqrt(1/2) one octave
+    up), a degree-8 polynomial in three Horner chains joined through m^3,
+    then ``+ e*q1 - m^2/2 + e*q2`` in XLA's order and fusion."""
+    xc = torch.clamp(x, min=_TINY)
+    bits = xc.view(torch.int32).to(torch.int64)
+    e = ((bits >> 23) - 126).to(torch.float32)
+    m = ((bits & 0x807FFFFF) | 0x3F000000).to(torch.int32).view(torch.float32)
+    low = m < _SQRTHF
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.to(torch.float32)
+    x2 = t * t
+    x3 = (x2 * t).double()
+    p, t = _LOG_P, t.double()
+    y = _fma(_fma(t, p[0], p[1]), t, p[2])
+    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
+    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _LOG_Q1 * e)
+    t = t.float()
+    out = ((t - 0.5 * x2) + y) + _LOG_Q2 * e
+    out = torch.where(x == math.inf, x, out)
+    out = torch.where(x == 0, torch.full_like(out, -math.inf), out)
+    return torch.where(x >= 0, out, torch.full_like(out, math.nan))
+
+
+def log1p_xla(y: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``log1p``, bitwise ``jnp.log1p`` on the CPU: the
+    Cephes rational ``y + (-y^2/2 + y^3 N(y)/D(y))`` for |y| < sqrt(2) - 1,
+    else ``log_xla(1 + y)``."""
+    y = torch.where(y.abs() < _TINY, y * 0.0, y)     # XLA CPU flushes denormals
+    y2 = y * y
+    small = y + (-0.5 * y2 + (y * y2) * (_horner(y, _LOG1P_NUM)
+                                         / _horner(y, _LOG1P_DEN)))
+    return torch.where(y.abs() < _LOG1P_SMALL, small, log_xla(1.0 + y))
+
+
 # XLA's float32 ErfInv (Giles' single-precision approximation); the
 # coefficients are XLA's, in Horner order from the highest power.
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -144,21 +259,21 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """float32 inverse error function with XLA's rounding sequence (every
-    multiply and add rounded separately, as the HLO spells it)."""
-    w = -torch.log1p(-x * x)
+    """float32 inverse error function, bitwise XLA CPU's ``ErfInv``: its
+    ``log1p``, a correctly rounded square root (``torch.sqrt`` on the CPU is
+    not), and the Horner steps ``c + p*w`` fused into multiply-adds as XLA
+    CPU's LLVM backend contracts them."""
+    w = -log1p_xla(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    w = w.double()
 
     def coef(i):
-        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype,
-                                            device=x.device),
-                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype,
-                                        device=x.device))
+        return torch.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i])
 
     p = coef(0)
     for i in range(1, 9):
-        p = coef(i) + p * w
+        p = _fma(p, w, coef(i))
     res = p * x
     return torch.where(x.abs() == 1.0, x * math.inf, res)
 
@@ -169,5 +284,5 @@ _SQRT2 = float(np.float32(np.sqrt(2)))
 
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return erf_inv(u) * _SQRT2
+    return _map_bits(key, shape, lambda b: erf_inv(_unit_to_range(
+        _bits_to_unit(b), _NORMAL_LO, 1.0)) * _SQRT2, torch.float32)

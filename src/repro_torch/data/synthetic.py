@@ -83,7 +83,7 @@ def stacked_batches(ds: Dataset, parts: list[np.ndarray], step: int,
 def accuracy(cfg, params: dict, ds: Dataset, *, forward_fn,
              batch_size: int = 128) -> float:
     """Accuracy of the label position restricted to the class tokens.
-    ``params`` has no client axis."""
+    ``params`` has no client axis; ``forward_fn`` returns (logits, aux)."""
     task = ds.task
     n_cls = task.n_classes
     dev = next(iter(params.values())).device
@@ -91,7 +91,7 @@ def accuracy(cfg, params: dict, ds: Dataset, *, forward_fn,
     correct = 0
     for i in range(0, len(ds), batch_size):
         toks = torch.as_tensor(ds.tokens[i:i + batch_size], device=dev)
-        last = forward_fn(cfg, one, toks[None, :, :-1])[0, :, -1]
+        last = forward_fn(cfg, one, toks[None, :, :-1])[0][0, :, -1]
         pred = torch.argmax(last[:, task.vocab - n_cls:], dim=-1) \
             + (task.vocab - n_cls)
         labels = torch.as_tensor(ds.labels[i:i + batch_size], device=dev)

@@ -43,7 +43,9 @@ _L = ctypes.c_longlong
 #: C entry points per source file: name -> argtypes.
 _SIGNATURES = {
     "rank1_matmul": {"rank1_matmul_f32": [_P] * 6 + [_I] * 4 + [_L] * 5
-                     + [_I, _P]},
+                     + [_I, _P],
+                     "rank1_matmul_expert_f32": [_P] * 6 + [_I] * 5
+                     + [_L] * 10 + [_P]},
     "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 5 + [_L] * 2
                      + [_P]},
 }

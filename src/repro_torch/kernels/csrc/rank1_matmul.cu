@@ -1,27 +1,35 @@
-// Fused rank-1-perturbed matmul for Hopper (sm_90a), float32 CUDA cores.
+// Fused rank-1-perturbed matmuls for Hopper (sm_90a), float32 CUDA cores.
 //
-// Replaces the Pallas TPU kernels src/repro/kernels/rank1_matmul.py
-// rank1_matmul (y = x W + s (x u) v^T, W stored (K, N)) and rank1_matmul_t
+// Replaces the Pallas TPU kernels of src/repro/kernels/rank1_matmul.py:
+// rank1_matmul (y = x W + s (x u) v^T, W stored (K, N)), rank1_matmul_t
 // (y = x W^T + s (x v) u^T, W stored output-major (O, K) and never
-// transposed in memory), batched over a leading client axis: every client
-// has its own W, u, v and s.
+// transposed in memory), both batched over a leading client axis, and
+// rank1_matmul_expert (y[c,e] = x[c,e] W[c,e] + s[c] (x[c,e] u[c,e])
+// v[c,e]^T), batched over clients and experts: every client has its own W,
+// u, v and s, and every expert its own W, u and v.
 //
-// Bound on this card: at the main path's shapes (M = 264 rows per client,
-// K, N in {1024, 2816}, O = 151936) the work is 2 M K N flops against
-// 4 (K N + M K + M N) bytes, roughly 130 flops per byte, so a float32
-// product is bounded by the CUDA-core rate (67 TFLOP/s), not by HBM.
-// TF32 tensor cores are deliberately not used: they keep ~3 decimal digits,
-// and the ZO coefficient (L+ - L-) / 2 eps amplifies that error.
+// Bound on this card: at the main paths' shapes (M = 264 rows per client,
+// or 83 capacity rows per expert; K, N from 1024 to 8192, O = 151936 or
+// N = 20480 for a head) the work is 2 M K N flops against
+// 4 (K N + M K + M N) bytes, 40 to 130 flops per byte, so a float32 product
+// is bounded by the CUDA-core rate (67 TFLOP/s), not by HBM.  TF32 tensor
+// cores are deliberately not used: they keep ~3 decimal digits, and the ZO
+// coefficient (L+ - L-) / 2 eps amplifies that error.
 //
-// Design: a classic shared-memory SGEMM tile (64 rows x 128 columns per
-// block, k-slab of 16, 256 threads each owning a 4 x 8 register tile),
-// with the rank-1 term riding the same k loop: the first 64 threads keep
-// the row dot product x . cvec from the x slab already in shared memory, so
-// W is streamed exactly once and the perturbation costs M K extra FMAs.
-// The epilogue adds s * (x . cvec)[row] * ovec[col].  The transposed
-// variant loads W rows along the contraction axis (coalesced) and stores
-// them transposed into shared memory.  Ragged edges (M = 264, any N) are
-// masked.  wgmma/TMA pipelines are later work.
+// Design: one shared-memory SGEMM tile (64 rows x 128 columns per block,
+// k-slab of 16, 256 threads each owning a 4 x 8 register tile) as a device
+// function, with the rank-1 term riding the same k loop: the first 64
+// threads keep the row dot product x . cvec from the x slab already in
+// shared memory, so W is streamed exactly once and the perturbation costs
+// M K extra FMAs.  The epilogue adds s * (x . cvec)[row] * ovec[col].  The
+// transposed variant loads W rows along the contraction axis (coalesced)
+// and stores them transposed into shared memory.  Ragged edges (M = 264 or
+// 83, any N) are masked.  The Pallas expert kernel carries its accumulators
+// across a sequential k grid axis; here the k loop lives inside the block,
+// and the (client, expert) pair is the grid's z axis, each entry point
+// computing its operands' offsets from its own batch strides (W is a view
+// of the stacked (clients, layers, experts, K, N) parameters at one layer).
+// wgmma/TMA pipelines are later work.
 
 #include <cuda_runtime.h>
 
@@ -34,23 +42,14 @@ constexpr int TM = 4;
 constexpr int TN = 8;
 constexpr int NT = 256;   // (BM / TM) * (BN / TN)
 
+// One 64 x 128 output tile at (row0, col0) of y = x W + sb (x . cvec) ovec^T
+// (W^T when TRANS); every pointer already offset to its batch entry.
 template <bool TRANS>
-__global__ void __launch_bounds__(NT)
-rank1_matmul_kernel(const float* __restrict__ x, const float* __restrict__ W,
-                    const float* __restrict__ cvec,
-                    const float* __restrict__ ovec,
-                    const float* __restrict__ s, float* __restrict__ y,
-                    int M, int N, int K, long long sx, long long sw,
-                    long long sc, long long so, long long sy) {
-  const long long b = blockIdx.z;
-  x += b * sx;
-  W += b * sw;
-  cvec += b * sc;
-  ovec += b * so;
-  y += b * sy;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
+__device__ __forceinline__ void rank1_tile(
+    const float* __restrict__ x, const float* __restrict__ W,
+    const float* __restrict__ cvec, const float* __restrict__ ovec,
+    const float sb, float* __restrict__ y, const int M, const int N,
+    const int K, const int row0, const int col0) {
   __shared__ __align__(16) float As[BK][BM + 4];   // x slab, transposed
   __shared__ __align__(16) float Bs[BK][BN + 4];   // W slab, [k][col]
   __shared__ float Cs[BK];                         // cvec slab
@@ -113,7 +112,6 @@ rank1_matmul_kernel(const float* __restrict__ x, const float* __restrict__ W,
   if (tid < BM) XC[tid] = xc;
   __syncthreads();
 
-  const float sb = s[b];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = row0 + tr * TM + i;
@@ -125,6 +123,39 @@ rank1_matmul_kernel(const float* __restrict__ x, const float* __restrict__ W,
       if (gn < N) y[(long long)gm * N + gn] = acc[i][j] + sx_row * ovec[gn];
     }
   }
+}
+
+template <bool TRANS>
+__global__ void __launch_bounds__(NT)
+rank1_matmul_kernel(const float* __restrict__ x, const float* __restrict__ W,
+                    const float* __restrict__ cvec,
+                    const float* __restrict__ ovec,
+                    const float* __restrict__ s, float* __restrict__ y,
+                    int M, int N, int K, long long sx, long long sw,
+                    long long sc, long long so, long long sy) {
+  const long long b = blockIdx.z;
+  rank1_tile<TRANS>(x + b * sx, W + b * sw, cvec + b * sc, ovec + b * so,
+                    s[b], y + b * sy, M, N, K, blockIdx.y * BM,
+                    blockIdx.x * BN);
+}
+
+// blockIdx.z = c * E + e; each operand has a client and an expert stride.
+__global__ void __launch_bounds__(NT)
+rank1_matmul_expert_kernel(const float* __restrict__ x,
+                           const float* __restrict__ W,
+                           const float* __restrict__ u,
+                           const float* __restrict__ v,
+                           const float* __restrict__ s, float* __restrict__ y,
+                           int E, int M, int N, int K, long long sx_c,
+                           long long sx_e, long long sw_c, long long sw_e,
+                           long long su_c, long long su_e, long long sv_c,
+                           long long sv_e, long long sy_c, long long sy_e) {
+  const long long c = blockIdx.z / E;
+  const long long e = blockIdx.z % E;
+  rank1_tile<false>(x + c * sx_c + e * sx_e, W + c * sw_c + e * sw_e,
+                    u + c * su_c + e * su_e, v + c * sv_c + e * sv_e, s[c],
+                    y + c * sy_c + e * sy_e, M, N, K, blockIdx.y * BM,
+                    blockIdx.x * BN);
 }
 
 }  // namespace
@@ -153,5 +184,26 @@ extern "C" int rank1_matmul_f32(const void* x, const void* W, const void* cvec,
     rank1_matmul_kernel<false><<<grid, block, 0, st>>>(
         xf, wf, cf, of, sf, yf, M, N, K, sx, sw, sc, so, sy);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y[c, e] = x[c, e] W[c, e] + s[c] (x[c, e] . u[c, e]) v[c, e]^T for C
+// clients and E experts; x[c, e] (M, K), W[c, e] (K, N), u[c, e] (K),
+// v[c, e] (N), y[c, e] (M, N), each float32 with contiguous rows, placed at
+// c * stride_c + e * stride_e.  Returns cudaGetLastError().
+extern "C" int rank1_matmul_expert_f32(
+    const void* x, const void* W, const void* u, const void* v, const void* s,
+    void* y, int C, int E, int M, int N, int K, long long sx_c,
+    long long sx_e, long long sw_c, long long sw_e, long long su_c,
+    long long su_e, long long sv_c, long long sv_e, long long sy_c,
+    long long sy_e, void* stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, C * E);
+  dim3 block(NT);
+  rank1_matmul_expert_kernel<<<grid, block, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(W),
+      static_cast<const float*>(u), static_cast<const float*>(v),
+      static_cast<const float*>(s), static_cast<float*>(y), E, M, N, K, sx_c,
+      sx_e, sw_c, sw_e, su_c, su_e, sv_c, sv_e, sy_c, sy_e);
   return static_cast<int>(cudaGetLastError());
 }

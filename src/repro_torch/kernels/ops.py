@@ -10,8 +10,9 @@ Shapes carry an explicit leading client axis where JAX would ``vmap``.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.rank1_matmul import rank1_matmul, rank1_matmul_t
+from repro_torch.kernels.rank1_matmul import rank1_matmul, \
+    rank1_matmul_expert, rank1_matmul_t
 from repro_torch.kernels.subcge_apply import subcge_apply, subcge_apply_epochs
 
-__all__ = ["rank1_matmul", "rank1_matmul_t", "subcge_apply",
-           "subcge_apply_epochs"]
+__all__ = ["rank1_matmul", "rank1_matmul_expert", "rank1_matmul_t",
+           "subcge_apply", "subcge_apply_epochs"]

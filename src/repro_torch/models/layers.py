@@ -1,9 +1,10 @@
-"""Layers of the dense decoder, perturbation-aware (the dense subset of
+"""Layers of the decoder, perturbation-aware (the dense and MoE subset of
 ``repro/models/layers.py``).
 
-Activations carry a leading client axis: ``x (C, B, T, D)``.  Attention is
-plain PyTorch, as the JAX package computes it outside any Pallas kernel;
-the perturbed projections go through ``Bundle.dense`` (the fused kernels).
+Activations carry a leading client axis: ``x (C, B, T, D)``.  Attention,
+routing, dispatch and combine are plain PyTorch, as the JAX package
+computes them outside any Pallas kernel; the perturbed projections go
+through ``Bundle.dense`` and ``Bundle.expert_dense`` (the fused kernels).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import AttnCfg
+from repro_torch.configs.base import AttnCfg, MoECfg
 from repro_torch.models.perturb import Bundle
 
 _NEG_INF = -1e30
@@ -89,3 +90,83 @@ def mlp(b: Bundle, x: torch.Tensor) -> torch.Tensor:
     """Gated SiLU MLP."""
     h = F.silu(b.dense("w1", x)) * b.dense("w3", x)
     return b.dense("w2", h)
+
+
+def _dispatch_indices(idx: torch.Tensor, n_experts: int, capacity: int):
+    """Position of every (token, slot) assignment inside its expert's buffer.
+    idx (C, T, k) -> pos (C, T, k) int64 and keep-mask (pos < capacity).
+    Slot-major and sequential over the k slots, as the JAX ``lax.scan``:
+    which assignments a full expert drops is exactly the JAX package's."""
+    C, T, K = idx.shape
+    counts = torch.zeros((C, 1, n_experts), dtype=torch.int64,
+                         device=idx.device)
+    pos = []
+    for s in range(K):
+        oh = F.one_hot(idx[..., s].long(), n_experts)                # (C,T,E)
+        pos_all = counts + torch.cumsum(oh, dim=1) - oh
+        pos.append(torch.gather(pos_all, 2, idx[..., s, None].long())[..., 0])
+        counts = counts + oh.sum(dim=1, keepdim=True)
+    pos = torch.stack(pos, dim=-1)
+    return pos, pos < capacity
+
+
+def route(b: Bundle, xt: torch.Tensor, mcfg: MoECfg):
+    """Router of :func:`moe`: xt (C, T, D) -> probs (C, T, E) float32 and
+    the renormalised top-k (top_p, top_i), each (C, T, k), best first."""
+    probs = torch.softmax(b.dense("router", xt).float(), dim=-1)
+    top_p, top_i = torch.topk(probs, mcfg.top_k, dim=-1, sorted=True)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_i
+
+
+def moe(b: Bundle, x: torch.Tensor, mcfg: MoECfg):
+    """Top-k capacity-dispatch MoE with gated SiLU experts, per client.
+    x (C, B, T, D) -> (y (C, B, T, D), aux (C,)).
+
+    Deterministic on the card: dispatch records each kept assignment's
+    token in its own slot (dropped ones share a dump slot that is never
+    read) and gathers the slots' rows; the combine gathers each token's kept
+    slots and sums them in ascending expert order from 0.0 — the order of
+    the JAX scatter-add over slot index ``e * capacity + pos``.  No atomics.
+    """
+    C, B, T, D = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    n_tok = B * T
+    xt = x.reshape(C, n_tok, D)
+    probs, top_p, top_i = route(b, xt, mcfg)
+    capacity = max(1, int(math.ceil(n_tok * K / E * mcfg.capacity_factor)))
+    pos, keep = _dispatch_indices(top_i, E, capacity)
+    dest = torch.where(keep, top_i * capacity + pos,
+                       torch.full_like(pos, E * capacity))          # (C,T,k)
+    # dispatch as a gather: each slot's token (n_tok, a zero row, if empty);
+    # every kept assignment owns its slot, dropped ones share the dump slot
+    cidx = torch.arange(C, device=x.device)[:, None]
+    slot_tok = torch.full((C, E * capacity + 1), n_tok, dtype=torch.int64,
+                          device=x.device)
+    tok = torch.arange(n_tok, device=x.device).repeat_interleave(K)
+    slot_tok[cidx, dest.reshape(C, -1)] = tok.expand(C, -1)
+    xz = torch.cat([xt, xt.new_zeros((C, 1, D))], dim=1)
+    xe = xz[cidx, slot_tok[:, :E * capacity]].reshape(C, E, capacity, D)
+
+    h = F.silu(b.expert_dense("w1", xe)) * b.expert_dense("w3", xe)
+    ye = b.expert_dense("w2", h).reshape(C, E * capacity, D)
+
+    # combine: each token's kept slots, in ascending expert order
+    order = torch.argsort(top_i, dim=-1)
+    kept = torch.gather(keep, 2, order)                             # (C,T,k)
+    src = torch.gather(dest, 2, order).clamp(max=E * capacity - 1)
+    w = torch.gather(top_p, 2, order)
+    part = ye[cidx, src.reshape(C, -1)].reshape(C, n_tok, K, D) * w[..., None]
+    y = torch.zeros((C, n_tok, D), dtype=ye.dtype, device=x.device)
+    for s in range(K):
+        y = torch.where(kept[..., s, None], y + part[:, :, s], y)
+
+    if mcfg.n_shared > 0:
+        hs = F.silu(b.dense("sw1", xt)) * b.dense("sw3", xt)
+        y = y + b.dense("sw2", hs)
+
+    # load-balance auxiliary (Switch-style): E * sum_e f_e * mean p_e
+    me = F.one_hot(top_i[..., 0], E).float().mean(dim=1)
+    ce = probs.mean(dim=1)
+    aux = mcfg.router_aux * E * (me * ce).sum(dim=-1)
+    return y.reshape(C, B, T, D), aux

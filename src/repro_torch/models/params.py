@@ -47,8 +47,8 @@ def vector(dim: int, stack: tuple[int, ...] = (), init: str = "zeros",
 
 def init_params(specs: dict[str, LeafSpec], seed: int,
                 device="cpu") -> dict[str, torch.Tensor]:
-    """Float32 weights, equal to the JAX package's ``init_params`` (same
-    threefry streams; Gaussians within the ulp gap of ``prng.normal``)."""
+    """Float32 weights, bitwise the JAX package's ``init_params`` on the CPU
+    (same threefry streams, same float32 rounding)."""
     key = prng.PRNGKey(seed, device)
     out: dict[str, torch.Tensor] = {}
     for path in seedlib.path_order(specs):

@@ -75,15 +75,17 @@ class Bundle:
         return t if self.layer is None else t[:, self.layer]
 
     def _rank1(self, k: str):
-        """(u (C, rows), v (C, cols), s (C,)) for a perturbed leaf, else None:
-        each client's canonical columns gathered from the shared subspace."""
+        """(u (C, *inst, rows), v (C, *inst, cols), s (C,)) for a perturbed
+        leaf, else None: each client's canonical columns gathered from the
+        shared subspace.  Residual instance dims (experts) come before the
+        row, where the JAX package puts them last (``u (rows, E)``)."""
         path = self.prefix + k
         if self.pert is None or self.sub is None or path not in self.pert.ij:
             return None
         i, j = (self._leaf(c) for c in self.pert.ij[path])
         U, V = self.sub[path]
-        u = U[:, i.long()].t().contiguous()
-        v = V[:, j.long()].t().contiguous()
+        u = U.t()[i.long()]
+        v = V.t()[j.long()]
         s = torch.full((u.shape[0],), self.pert.scale, dtype=torch.float32,
                        device=u.device)
         return u, v, s
@@ -117,6 +119,18 @@ class Bundle:
         else:
             y = torch.bmm(xf, W.transpose(1, 2))
         return y.reshape(x.shape[:-1] + (W.shape[-2],))
+
+    def expert_dense(self, k: str, x: torch.Tensor):
+        """y[c, e] = x[c, e] @ W[c, e] with per-expert rank-1 perturbations;
+        x (C, E, cap, n), W the (C, E, n, m) view of the stacked leaf at this
+        layer.  Perturbed: one ``rank1_matmul_expert`` launch for all
+        clients and experts; unperturbed: a plain batched matmul (the JAX
+        package leaves it to XLA outside any kernel)."""
+        W = self._leaf(self.p[self.prefix + k])
+        r1 = self._rank1(k)
+        if r1 is not None:
+            return kops.rank1_matmul_expert(x, W, *r1)
+        return torch.matmul(x, W)
 
     def embed(self, k: str, ids: torch.Tensor):
         """(E + s u v^T)[ids] = E[ids] + s·u[ids]·v^T; ids (C, B, T)."""

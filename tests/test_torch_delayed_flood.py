@@ -3,7 +3,8 @@
 boundaries, so the replay must run under each sender's subspace.
 
 Tolerances (each side draws its own weights and subspaces from the seed;
-those Gaussians differ by a few ulp, see test_torch_prng):
+those Gaussians are bitwise equal, see test_torch_prng, so the gaps below
+come from float32 summation order in the two forwards):
 
 * byte ledger and message count: equal (host-side flood, same protocol);
 * loss curve: rtol 1e-4;

@@ -2,7 +2,7 @@
 
 Every test carries the ``gpu`` marker and skips without a CUDA device (the
 kernels have no CPU mode); ``chip_smoke.py`` also holds them at the main
-path's Qwen1.5-0.5B shapes.  This file imports neither JAX nor the JAX
+path's shapes.  This file imports neither JAX nor the JAX
 package, so it runs on a machine without them:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -73,3 +73,34 @@ def test_subcge_kernels_match_plain(cuda, E):
     for out in (got, t[0]):
         np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_rank1_expert_kernel_matches_plain(cuda):
+    """W is the strided (C, E, K, N) view of stacked (C, L, E, K, N) params
+    at layer 1; M = 83 (a Kimi capacity) masks the row edge."""
+    rng = np.random.default_rng(8)
+    C, L, E, M, K, N = 2, 2, 3, 83, 50, 133
+    x = torch.from_numpy(_f32(rng, C, E, M, K)).to(cuda)
+    Wst = torch.from_numpy(_f32(rng, C, L, E, K, N)).to(cuda)
+    u = torch.from_numpy(_f32(rng, C, E, K)).to(cuda)
+    v = torch.from_numpy(_f32(rng, C, E, N)).to(cuda)
+    s = torch.tensor([1e-3, -0.5], device=cuda)
+    build.reset_launches()
+    got = ops.rank1_matmul_expert(x, Wst[:, 1], u, v, s)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rank1_matmul_expert"] == 1
+    plain = ops.rank1_matmul_expert(*(a.cpu() for a in (x, Wst[:, 1], u, v, s)))
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_normal_on_card_is_bitwise_the_cpu(cuda):
+    """The XLA-CPU rounding of prng.normal (float64-emulated fused
+    multiply-adds, correctly rounded sqrt) holds on the card too."""
+    from repro_torch.core import prng
+    keys = prng.PRNGKey(torch.tensor([0, 7, 2**32 - 1]))
+    want = prng.normal(keys, (1 << 14,))
+    got = prng.normal(keys.to(cuda), (1 << 14,)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

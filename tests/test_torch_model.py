@@ -3,12 +3,12 @@ weights (carried across with ``params.from_numpy``).
 
 * ``lm_loss`` without a perturbation and at ±ε, on the small ``sim_arch``
   and on the reduced Qwen1.5-0.5B (QKV bias): rtol 1e-5 — float32 matmuls
-  summed in different orders, and each side's own Gaussian subspace, which
-  differ by a few ulp (test_torch_prng).
+  summed in different orders (each side's own Gaussian subspace is bitwise
+  the other's, test_torch_prng).
 * ``apply_messages`` and ``apply_messages_epoch`` with seeds, coefficients
   and sender steps made for the JAX side, crossing a τ boundary: params
-  allclose at atol 1e-6 — an update is coef·U A V^T with coef ~1e-2, so a
-  few-ulp gap in U, V stays far below it.
+  allclose at atol 1e-6 — an update is coef·U A V^T with coef ~1e-2, summed
+  in a different order on each side.
 """
 import numpy as np
 import pytest
