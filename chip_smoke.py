@@ -8,13 +8,13 @@ no result line):
 
 1. setup   — build the hand-written CUDA kernels from ``src/repro_torch``
              (one nvcc per source, in parallel); TF32 off everywhere.
-2. kernels — every kernel of the main paths at the Qwen1.5-0.5B and Kimi K2
-             shapes the paths give it, held against its plain PyTorch
-             version (rtol 1e-5, atol 1e-5, float32) and timed with CUDA
-             events beside the plain version, one PyTorch library call
-             computing the same function, and the least time the card could
-             take; then ``prng.normal`` on the card held bitwise against the
-             CPU on 2^20 draws.
+2. kernels — every kernel of the main paths at the Qwen1.5-0.5B, Kimi K2
+             and Falcon Mamba 7B shapes the paths give it, held against its
+             plain PyTorch version (rtol 1e-5, atol 1e-5, float32) and timed
+             with CUDA events beside the plain version, one PyTorch library
+             call computing the same function (none for the scan), and the
+             least time the card could take; then ``prng.normal`` on the
+             card held bitwise against the CPU on 2^20 draws.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
              d1024, vocab 151936), random weights from seed 0.  Launch
@@ -26,10 +26,15 @@ no result line):
              shared expert, untied head), cut to 1 layer of 61, 32 routed
              experts of 384 and vocab 20480 of 163840: 3 steps, ring of 8;
              ``rank1_matmul_expert`` must launch 6 times per step.
-6. small   — the same code on small inputs (the dense sim arch and the
-             reduced Kimi K2), on the card and on the CPU (the kernels'
-             plain versions); results must agree.
-7. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
+6. falcon  — the same entry point on Falcon Mamba 7B's Mamba-1 layer at its
+             published widths (d4096, d_inner 8192, state 16, conv 4,
+             dt_rank 256, vocab 65024, untied head), cut to 4 layers of 64:
+             3 steps, ring of 8; ``selective_scan`` must launch exactly
+             once per layer in every forward.
+7. small   — the same code on small inputs (the dense sim arch, the
+             reduced Kimi K2 and the reduced Falcon Mamba), on the card and
+             on the CPU (the kernels' plain versions); results must agree.
+8. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
@@ -69,12 +74,19 @@ SOURCES = {
                             "src/repro/kernels/subcge_apply.py:70"),
     "rank1_matmul_expert": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                             "src/repro/kernels/rank1_matmul.py:191"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:67"),
 }
 # Kimi K2 cut to one chip's share (published: 61 layers, 384 experts, vocab
 # 163840): every layer is the same slot, 32 experts are what one of 12
 # expert-parallel chips holds (the router is cut with them), and the
 # vocabulary is cut to one eighth; every width stays as published
 KIMI_LAYERS, KIMI_EXPERTS, KIMI_VOCAB = 1, 32, 20_480
+# Falcon Mamba 7B cut in depth only (published: 64 layers): every layer is
+# the same slot; 64 layers x 8 client replicas would be 232.7 GB
+FALCON_LAYERS = 4
+# batch of the final accuracy pass (``data.synthetic.accuracy``)
+EVAL_BATCH = 128
 
 
 def log(*a):
@@ -116,8 +128,13 @@ class Entry:
     def __init__(self, name):
         self.name = name
         self.err = 0.0
-        self.ms = self.plain_ms = self.library_ms = 0.0
+        self.ms = self.plain_ms = 0.0
+        self.library_ms = 0.0           # None: no PyTorch call computes it
         self.nbytes = self.flops = 0.0
+
+    def add_library(self, ms):
+        self.library_ms = None if ms is None or self.library_ms is None \
+            else self.library_ms + ms
 
     def add(self, got, want, ms, plain_ms, library_ms, nbytes, flops, what,
             count=1):
@@ -127,17 +144,18 @@ class Entry:
         err = float(diff.max())
         ok = bool(torch.all(diff <= ATOL + RTOL * want.abs()))
         b_ms, b_by = bound(nbytes, flops)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"  {self.name:20s} {what:36s} x{count} max_abs {err:.3e} "
             f"(|want| max {float(want.abs().max()):.3e}; tol rtol {RTOL} atol "
             f"{ATOL}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-            f"{library_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+            f"{lib} bound {b_ms:.4f} ms ({b_by})")
         if not ok:
             raise AssertionError(f"{self.name} {what}: kernel disagrees with "
                                  f"its plain version (max abs {err})")
         self.err = max(self.err, err)
         self.ms += count * ms
         self.plain_ms += count * plain_ms
-        self.library_ms += count * library_ms
+        self.add_library(None if library_ms is None else count * library_ms)
         self.nbytes += count * nbytes
         self.flops += count * flops
 
@@ -154,7 +172,8 @@ def record(name: str, parts: list, launches: int) -> dict:
     e = Entry(name)
     for p in parts:
         e.err = max(e.err, p.err)
-        for k in ("ms", "plain_ms", "library_ms", "nbytes", "flops"):
+        e.add_library(p.library_ms)
+        for k in ("ms", "plain_ms", "nbytes", "flops"):
             setattr(e, k, getattr(e, k) + getattr(p, k))
     src, rep = SOURCES[name]
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -169,6 +188,14 @@ def kimi_cut(kimi):
     return dataclasses.replace(
         kimi, name=kimi.name + "-cut", vocab=KIMI_VOCAB,
         groups=(Group((dataclasses.replace(slot, moe=moe),), KIMI_LAYERS),))
+
+
+def falcon_cut(falcon):
+    """Falcon Mamba 7B at its published widths, cut in depth."""
+    from repro_torch.configs.base import Group
+    return dataclasses.replace(
+        falcon, name=falcon.name + "-cut",
+        groups=(Group(falcon.groups[0].slots, FALCON_LAYERS),))
 
 
 def check_rank1(e: Entry, C: int, M: int, shapes, randn) -> None:
@@ -209,7 +236,8 @@ def phase_kernels(qwen, C: int, M: int) -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    entries = {n: Entry(n) for n in SOURCES if n != "rank1_matmul_expert"}
+    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_t",
+                                     "subcge_apply", "subcge_apply_epochs")}
     # the delayed-flood shapes (E >= 2) are checked and printed, not summed
     # into the main path's entry
     extra = {E: Entry("subcge_apply_epochs") for E in (2, 4)}
@@ -328,6 +356,55 @@ def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
     return entries
 
 
+def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
+    """rank1_matmul and selective_scan at the Falcon Mamba cut's shapes, each
+    summed over what one layer of one signed forward gives it: in_proj,
+    x_proj (N = 288 and dt_proj K = 256 are ragged against the tiles),
+    dt_proj, out_proj and the head; one scan over the C·B folded batch.
+    The scan is also held at a small odd shape (T off the 8-step prefetch,
+    D·N off the 256-thread block), printed but not summed."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    m, d = falcon.groups[0].slots[0].mamba, falcon.d_model
+    Di, N = m.d_inner, m.d_state
+    dtr = m.dt_rank or -(-d // 16)
+    entries = {n: Entry(n) for n in ("rank1_matmul", "selective_scan")}
+    check_rank1(entries["rank1_matmul"], C, B * T,
+                (((d, 2 * Di), 1), ((Di, dtr + 2 * N), 1), ((dtr, Di), 1),
+                 ((Di, d), 1), ((d, falcon.vocab), 1)), randn)
+
+    for (Bs, Ts, D, Ns), summed in (((C * B, T, Di, N), True),
+                                    ((3, 37, 200, N), False)):
+        # the JAX kernel test's inputs: decays in (0, 1), small drives
+        a = torch.sigmoid(randn(Bs, Ts, D, Ns))
+        bx, c, h0 = randn(Bs, Ts, D, Ns, scale=0.1), randn(Bs, Ts, Ns), \
+            randn(Bs, D, Ns)
+        # y and h_last held together
+        got = torch.cat([t.flatten() for t in ops.selective_scan(a, bx, c, h0)])
+        want = torch.cat([t.flatten()
+                          for t in ss.selective_scan_plain(a, bx, c, h0)])
+        ms = time_ms(lambda: ops.selective_scan(a, bx, c, h0))
+        p_ms = time_ms(lambda: ss.selective_scan_plain(a, bx, c, h0))
+        nbytes = 4 * (2 * Bs * Ts * D * Ns + Bs * Ts * Ns + 2 * Bs * D * Ns
+                      + Bs * Ts * D)
+        flops = 4 * Bs * Ts * D * Ns
+        e = entries["selective_scan"] if summed else Entry("selective_scan")
+        e.add(got, want, ms, p_ms, None, nbytes, flops,
+              f"a({Bs},{Ts},{D},{Ns}) y+h_last" + ("" if summed else
+                                                    " (not summed)"))
+        del a, bx, c, h0, got, want
+        torch.cuda.empty_cache()
+    return entries
+
+
 def phase_prng(n: int = 1 << 20) -> None:
     """prng.normal on the card, bitwise the CPU's (which is bitwise
     ``jax.random.normal`` on the CPU, tests/test_torch_prng.py)."""
@@ -427,6 +504,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import archs
     from repro_torch.configs.base import Group
+    from repro_torch.data import synthetic
     from repro_torch.dtrain.runner import DTrainConfig, run
     from repro_torch.kernels import build
 
@@ -439,13 +517,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build_s = build.build_all()
-    for name in ("rank1_matmul", "subcge_apply"):
+    for name in ("rank1_matmul", "subcge_apply", "selective_scan"):
         build.load(name)
     log(f"[1] kernels built in {build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
 
     # 2. kernels at the main paths' shapes
     qwen = archs.get("qwen1.5-0.5b")
     kimi = kimi_cut(archs.get("kimi-k2-1t-a32b"))
+    falcon = falcon_cut(archs.get("falcon-mamba-7b"))
     C, B, T = 8, 8, 33           # clients, batch, 32 tokens + the label slot
     log(f"[2] kernels vs plain versions at Qwen1.5-0.5B shapes ({card})")
     entries = {"qwen": phase_kernels(qwen, C, B * T)}
@@ -453,6 +532,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"[2] kernels vs plain versions at Kimi K2 cut shapes ({card})")
     entries["kimi"] = phase_kernels_kimi(kimi, C, B * T)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[2] kernels vs plain versions at Falcon Mamba 7B cut shapes ({card})")
+    entries["falcon"] = phase_kernels_falcon(falcon, C, B, T)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase_prng()
@@ -524,14 +607,30 @@ def main(argv=None) -> int:
                              f"{launches['kimi']['rank1_matmul_expert']} "
                              f"times, not {want}")
 
-    # 6. the same code on small inputs, card against the CPU (the kernels'
+    # 6. the Falcon Mamba 7B slice: the Mamba-1 layer at its published widths
+    launches["falcon"], details["falcon"] = run_slice(falcon, "falcon", 6)
+    for name in ("rank1_matmul", "subcge_apply", "subcge_apply_epochs"):
+        if launches["falcon"].get(name, 0) <= 0:
+            raise AssertionError(f"falcon: kernel {name} never launched")
+    # one scan per Mamba layer in every forward: the two signed forwards of
+    # each of the 3 steps, and the final accuracy pass of the averaged model
+    # (``RunResult.gmp``) over the 1000-sample test split in batches of 128
+    n_eval = -(-synthetic.TaskConfig().n_test // EVAL_BATCH)
+    want = FALCON_LAYERS * (2 * 3 + n_eval)
+    if launches["falcon"].get("selective_scan", 0) != want:
+        raise AssertionError(f"falcon: selective_scan launched "
+                             f"{launches['falcon'].get('selective_scan', 0)} "
+                             f"times, not {want}")
+
+    # 7. the same code on small inputs, card against the CPU (the kernels'
     # plain versions): loss rtol 1e-4, params atol 1e-4 — the ZO
     # coefficient (L+ - L-) / 2 eps amplifies float32 summation-order
     # differences ~1e3-fold (tests/test_torch_slice.py sees 3e-5 between
     # the JAX package and the port)
     from repro_torch.dtrain.api import sim_arch
     for arch in (sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128),
-                 archs.reduced(archs.get("kimi-k2-1t-a32b"))):
+                 archs.reduced(archs.get("kimi-k2-1t-a32b")),
+                 archs.reduced(archs.get("falcon-mamba-7b"))):
         small = dict(arch=arch, n_clients=4, steps=3, batch_size=2)
         on_card = run(DTrainConfig(device="cuda", **small))
         on_cpu = run(DTrainConfig(device="cpu", **small))
@@ -540,20 +639,20 @@ def main(argv=None) -> int:
                   for p, t in on_cpu.extra["final_stacked"].items())
         lrel = max(abs(a - b) / abs(b) for a, b in zip(on_card.loss_curve,
                                                        on_cpu.loss_curve))
-        log(f"[6] small input {arch.name}, card vs CPU: loss rel {lrel:.3e} "
+        log(f"[7] small input {arch.name}, card vs CPU: loss rel {lrel:.3e} "
             f"(tol 1e-4), params max abs {err:.3e} (tol 1e-4)")
         if not (lrel <= 1e-4 and err <= 1e-4):
             raise AssertionError(f"small-input run of {arch.name} on the card "
                                  "disagrees with the CPU run")
 
     if args.profile:
-        for key, arch in (("qwen", qwen), ("kimi", kimi)):
+        for key, arch in (("qwen", qwen), ("kimi", kimi), ("falcon", falcon)):
             details[key]["profile"] = phase_profile(arch, C, B, "cuda")
             torch.cuda.empty_cache()
             log(f"[p] one steady {arch.name} step ({card}): "
                 f"{details[key]['profile']}")
 
-    # 7. report: each kernel over the paths that run it
+    # 8. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

@@ -1,17 +1,18 @@
-"""Architectures the port runs (the dense and MoE subset of
+"""Architectures the port runs (the dense, MoE and SSM subset of
 ``repro/configs/archs.py``).
 
 ``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
 slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; an MoE slot keeps 4
 experts, top-min(2, k), expert width 2·d, at most one shared expert and
-capacity factor 8 (drop-free).
+capacity factor 8 (drop-free); a Mamba slot gets d_inner 2·d, state 4,
+conv 4 and dt_rank 8.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ArchConfig, AttnCfg, Group, LayerCfg, \
-    MoECfg, uniform_dense
+    MambaCfg, MoECfg, uniform_dense
 
 QWEN15_05B = uniform_dense(
     "qwen1.5-0.5b", n_layers=24, d_model=1024, n_heads=16, n_kv=16,
@@ -29,7 +30,17 @@ KIMI_K2 = ArchConfig(
     source="[arXiv:2501.kimi2] 61L d7168 64H(kv8) MoE 384e top-8 +1 shared, "
            "expert ff2048, v163840 — 1T total / ~32B active")
 
-REGISTRY: dict[str, ArchConfig] = {c.name: c for c in [QWEN15_05B, KIMI_K2]}
+FALCON_MAMBA_7B = ArchConfig(
+    name="falcon-mamba-7b", family="ssm", d_model=4096, vocab=65_024,
+    groups=(Group((LayerCfg(
+        mixer="mamba", mamba=MambaCfg(d_inner=8192, d_state=16, d_conv=4),
+        ffn="none"),), 64),),
+    pos="none",
+    source="[arXiv:2410.05355] 64L d4096 mamba1 (d_inner 8192, state 16, "
+           "conv 4), attention-free, v65024")
+
+REGISTRY: dict[str, ArchConfig] = {
+    c.name: c for c in [QWEN15_05B, KIMI_K2, FALCON_MAMBA_7B]}
 
 
 def get(name: str) -> ArchConfig:
@@ -38,20 +49,25 @@ def get(name: str) -> ArchConfig:
     return REGISTRY[name]
 
 
-def _shrink_attn(a: AttnCfg, d: int) -> AttnCfg:
+def _shrink_attn(a: AttnCfg | None, d: int) -> AttnCfg | None:
+    if a is None:
+        return None
     h = max(2, min(a.n_heads, 4))
     kv = 1 if a.n_kv_heads < a.n_heads else h
     return AttnCfg(h, kv, max(8, d // h), a.qkv_bias)
 
 
 def _shrink_slot(s: LayerCfg, d: int) -> LayerCfg:
+    mam = None
+    if s.mamba is not None:
+        mam = MambaCfg(d_inner=2 * d, d_state=4, d_conv=4, dt_rank=8)
     moe = None
     if s.moe is not None:
         moe = MoECfg(n_experts=4, top_k=min(2, s.moe.top_k), d_ff_expert=2 * d,
                      n_shared=min(1, s.moe.n_shared), capacity_factor=8.0,
                      router_aux=s.moe.router_aux)
-    return LayerCfg(mixer=s.mixer, attn=_shrink_attn(s.attn, d), ffn=s.ffn,
-                    d_ff=2 * d if s.ffn == "dense" else 0, moe=moe)
+    return LayerCfg(mixer=s.mixer, attn=_shrink_attn(s.attn, d), mamba=mam,
+                    ffn=s.ffn, d_ff=2 * d if s.ffn == "dense" else 0, moe=moe)
 
 
 def reduced(cfg: ArchConfig, d_model: int = 64, max_slots: int = 2) -> ArchConfig:

@@ -1,13 +1,16 @@
-"""Architecture configuration dataclasses (the dense and MoE subset).
+"""Architecture configuration dataclasses (the dense, MoE and Mamba-1 subset).
 
 The counterpart of ``repro/configs/base.py`` for the layer types the port
-runs so far: attention (GQA, optional QKV bias), a dense MLP or a top-k
-capacity-dispatch MoE, stacked as groups of repeating slots.  Fields the
-port cannot run yet are kept out rather than silently ignored;
-``models.transformer.arch_spec`` rejects settings outside rmsnorm / silu /
-gated MLP / rope.  The JAX package's ``sharding_policy`` and
+runs so far: attention (GQA, optional QKV bias) followed by a dense MLP or a
+top-k capacity-dispatch MoE, or a Mamba-1 mixer with no FFN, stacked as
+groups of repeating slots.  Fields the port cannot run yet are kept out
+rather than silently ignored; ``models.transformer.arch_spec`` rejects
+settings outside rmsnorm / silu / gated MLP / rope (or no positions for an
+attention-free stack).  The JAX package's ``sharding_policy`` and
 ``moe_gather_weights`` are mesh hints and stay out too: the port has no
-mesh.
+mesh.  ``MambaCfg`` leaves out the JAX ``chunk``: it sizes the chunks of the
+associative scan in jnp, a memory knob with no consumer here, where the
+recurrence runs through the ``selective_scan`` kernel in one pass over T.
 """
 from __future__ import annotations
 
@@ -23,6 +26,14 @@ class AttnCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaCfg:
+    d_inner: int
+    d_state: int = 16
+    d_conv: int = 4
+    dt_rank: int = 0                   # 0 -> ceil(d_model/16)
+
+
+@dataclasses.dataclass(frozen=True)
 class MoECfg:
     n_experts: int
     top_k: int
@@ -34,9 +45,10 @@ class MoECfg:
 
 @dataclasses.dataclass(frozen=True)
 class LayerCfg:
-    mixer: str = "attn"                # "attn"
+    mixer: str = "attn"                # "attn" | "mamba"
     attn: AttnCfg | None = None
-    ffn: str = "dense"                 # "dense" | "moe"
+    mamba: MambaCfg | None = None
+    ffn: str = "dense"                 # "dense" | "moe" | "none"
     d_ff: int = 0
     moe: MoECfg | None = None
 
@@ -50,14 +62,14 @@ class Group:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                        # dense | moe
+    family: str                        # dense | moe | ssm
     d_model: int
     vocab: int
     groups: tuple[Group, ...]
     norm: str = "rmsnorm"
     act: str = "silu"
     gated_mlp: bool = True
-    pos: str = "rope"
+    pos: str = "rope"                  # rope | none
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     max_seq: int = 131_072

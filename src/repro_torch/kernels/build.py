@@ -48,6 +48,7 @@ _SIGNATURES = {
                      + [_L] * 10 + [_P]},
     "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 5 + [_L] * 2
                      + [_P]},
+    "selective_scan": {"selective_scan_f32": [_P] * 6 + [_I] * 4 + [_P]},
 }
 
 

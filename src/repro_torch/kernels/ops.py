@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.rank1_matmul import rank1_matmul, \
     rank1_matmul_expert, rank1_matmul_t
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.subcge_apply import subcge_apply, subcge_apply_epochs
 
 __all__ = ["rank1_matmul", "rank1_matmul_expert", "rank1_matmul_t",
-           "subcge_apply", "subcge_apply_epochs"]
+           "selective_scan", "subcge_apply", "subcge_apply_epochs"]

@@ -1,10 +1,12 @@
-"""Layers of the decoder, perturbation-aware (the dense and MoE subset of
-``repro/models/layers.py``).
+"""Layers of the decoder, perturbation-aware (the dense, MoE and Mamba-1
+subset of ``repro/models/layers.py``).
 
 Activations carry a leading client axis: ``x (C, B, T, D)``.  Attention,
-routing, dispatch and combine are plain PyTorch, as the JAX package
-computes them outside any Pallas kernel; the perturbed projections go
-through ``Bundle.dense`` and ``Bundle.expert_dense`` (the fused kernels).
+routing, dispatch and combine, the causal conv and the SSM's gates are
+plain PyTorch, as the JAX package computes them outside any Pallas kernel;
+the perturbed projections go through ``Bundle.dense`` and
+``Bundle.expert_dense`` (the fused kernels), the Mamba recurrence through
+``kernels.ops.selective_scan``.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import AttnCfg, MoECfg
+from repro_torch.configs.base import AttnCfg, MambaCfg, MoECfg
+from repro_torch.kernels import ops as kops
 from repro_torch.models.perturb import Bundle
 
 _NEG_INF = -1e30
@@ -84,6 +87,52 @@ def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float):
     k = rope(k, pos, rope_theta)
     out = attn_core(q, k, v, pos, pos)
     return b.dense("wo", out)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """Depthwise causal conv1d per client.  x (C, B, T, Di), w (C, Di, Kc),
+    bias (C, Di).  The Kc shifted products are summed in the JAX order
+    (``F.conv1d`` sums in another)."""
+    T, Kc = x.shape[2], w.shape[-1]
+    xp = F.pad(x, (0, 0, Kc - 1, 0))
+    out = sum(xp[:, :, k:k + T] * _per_client(w[..., k], x.ndim)
+              for k in range(Kc))
+    return out + _per_client(bias, x.ndim)
+
+
+def mamba(b: Bundle, x: torch.Tensor, mcfg: MambaCfg) -> torch.Tensor:
+    """Mamba-1 block, training forward (no cache, h0 = 0).
+    x (C, B, T, D) -> (C, B, T, D).  The clients fold into the scan's batch
+    axis; ``a`` and ``bx`` (C·B, T, Di, N) float32 are freed before
+    ``out_proj``."""
+    C, B, T, D = x.shape
+    Di, N = mcfg.d_inner, mcfg.d_state
+    dtr = mcfg.dt_rank or -(-D // 16)
+
+    xz = b.dense("in_proj", x)                            # (C,B,T,2Di)
+    xin, z = torch.split(xz, Di, dim=-1)
+    xc = F.silu(_causal_conv(xin, b.matw("conv_w"), b.vec("conv_b")))
+
+    xdb = b.dense("x_proj", xc)                           # (C,B,T,dtr+2N)
+    dt_in, B_in, C_in = torch.split(xdb, [dtr, N, N], dim=-1)
+    dt = b.dense("dt_proj", dt_in) + _per_client(b.vec("dt_bias"), x.ndim)
+    # jax.nn.softplus: logaddexp(x, 0), with no threshold (F.softplus
+    # switches to x above 20)
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))
+    A = -torch.exp(b.matw("A_log").float())               # (C,Di,N)
+
+    a = (dt.float()[..., None] * A[:, None, None]).exp_()
+    bx = (dt * xc).float()[..., None] * B_in.float()[..., None, :]
+    h0 = torch.zeros((C * B, Di, N), dtype=torch.float32, device=x.device)
+    y, _ = kops.selective_scan(a.reshape(C * B, T, Di, N),
+                               bx.reshape(C * B, T, Di, N),
+                               C_in.float().reshape(C * B, T, N).contiguous(),
+                               h0)
+    del a, bx, h0
+
+    y = y.reshape(C, B, T, Di) + _per_client(b.vec("D_skip"), x.ndim) * xc
+    y = y * F.silu(z)
+    return b.dense("out_proj", y)
 
 
 def mlp(b: Bundle, x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,7 @@ from repro_torch.core.subcge import LeafMeta
 class LeafSpec:
     shape: tuple[int, ...]
     n_batch_dims: int = 0                 # leading scan/instance dims
-    init: str = "normal"                  # normal | zeros
+    init: str = "normal"                  # normal | zeros | ones | dt_bias | s4d
     scale: float | None = None            # None -> 1/sqrt(fan_in)
 
     @property
@@ -55,6 +55,17 @@ def init_params(specs: dict[str, LeafSpec], seed: int,
         spec = specs[path]
         if spec.init == "zeros":
             out[path] = torch.zeros(spec.shape, device=device)
+        elif spec.init == "ones":
+            out[path] = torch.ones(spec.shape, device=device)
+        elif spec.init == "dt_bias":
+            # softplus^-1(0.01) ≈ -4.6: small initial step sizes
+            out[path] = torch.full(spec.shape, -4.6, device=device)
+        elif spec.init == "s4d":
+            # Mamba A_log: log(1..N) broadcast over channels, through XLA
+            # CPU's float32 log (torch.log rounds some of them differently)
+            row = prng.log_xla(torch.arange(1, spec.shape[-1] + 1,
+                                            dtype=torch.float32, device=device))
+            out[path] = row.expand(spec.shape).contiguous()
         elif spec.init == "normal":
             scale = (spec.scale if spec.scale is not None
                      else 1.0 / math.sqrt(spec.fan_in))

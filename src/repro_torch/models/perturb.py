@@ -147,6 +147,19 @@ class Bundle:
             out = out + (sb * u[cidx, ids][..., None]) * vb
         return out
 
+    def matw(self, k: str) -> torch.Tensor:
+        """Materialised perturbed weight ``W + s·u v^T`` per client,
+        (C, rows, cols), for the small leaves (conv kernel, ``A_log``) that
+        the JAX package does not fuse into a matmul either; plain PyTorch in
+        the JAX order: the outer product first, then its scale."""
+        W = self._leaf(self.p[self.prefix + k])
+        r1 = self._rank1(k)
+        if r1 is None:
+            return W
+        u, v, s = r1
+        z = u[..., :, None] * v[..., None, :]
+        return W + s.reshape((-1,) + (1,) * (z.ndim - 1)) * z
+
     def vec(self, k: str) -> torch.Tensor:
         """Vector leaf (C, dim) with its dense-Gaussian perturbation."""
         path = self.prefix + k

@@ -1,38 +1,65 @@
-"""Decoder: spec builder, forward and loss (the dense and MoE part of
-``repro/models/transformer.py``).
+"""Decoder: spec builder, forward and loss (the dense, MoE and Mamba-1 part
+of ``repro/models/transformer.py``).
 
 ``arch_spec`` produces the same leaf paths and shapes as the JAX package
 (``embed/tok``, ``embed/out`` when untied, ``embed/ln_f_scale``,
-``g{i}/s{j}/{wq,...}`` stacked over the group's reps, expert weights
-stacked over (reps, experts)).  The ``lax.scan`` over a group's periods
-becomes a Python loop over the stacked layer axis; activations and
-parameters carry a leading client axis.
+``g{i}/s{j}/{wq,...}`` or ``g{i}/s{j}/{in_proj,...}`` stacked over the
+group's reps, expert weights stacked over (reps, experts)).  The
+``lax.scan`` over a group's periods becomes a Python loop over the stacked
+layer axis; activations and parameters carry a leading client axis.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, LayerCfg
+from repro_torch.configs.base import ArchConfig, LayerCfg, MambaCfg
 from repro_torch.models import layers as L
 from repro_torch.models import params as plib
 from repro_torch.models.params import LeafSpec, matrix, vector
 from repro_torch.models.perturb import Bundle, Pert
 
 
+def _slot_ok(s: LayerCfg) -> bool:
+    if s.mixer == "mamba":
+        return s.mamba is not None and s.ffn == "none" and s.moe is None
+    return (s.mixer == "attn" and s.attn is not None and s.mamba is None
+            and s.ffn in ("dense", "moe")
+            and (s.ffn == "dense") == (s.moe is None))
+
+
 def _check_supported(cfg: ArchConfig) -> None:
+    slots = [s for g in cfg.groups for s in g.slots]
     ok = (cfg.norm == "rmsnorm" and cfg.act == "silu" and cfg.gated_mlp
-          and cfg.pos == "rope")
-    slots_ok = all(s.mixer == "attn" and s.ffn in ("dense", "moe")
-                   and (s.ffn == "dense") == (s.moe is None)
-                   for g in cfg.groups for s in g.slots)
-    if not (ok and slots_ok):
+          and cfg.pos in ("rope", "none"))
+    if not (ok and all(_slot_ok(s) for s in slots)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs rmsnorm / silu gated / rope "
-            "decoders with attention and dense or MoE FFNs only")
+            f"{cfg.name}: the port runs rmsnorm / silu gated decoders with "
+            "attention and a dense or MoE FFN, or a Mamba-1 mixer and no FFN")
+    if cfg.pos == "none" and any(s.mixer == "attn" for s in slots):
+        raise NotImplementedError(
+            f"{cfg.name}: attention without positions is not ported (the "
+            "port's attention always applies rope)")
+
+
+def _mamba_spec(m: MambaCfg, d: int, st: tuple) -> dict[str, LeafSpec]:
+    Di, N, Kc = m.d_inner, m.d_state, m.d_conv
+    dtr = m.dt_rank or -(-d // 16)
+    return {"ln_attn_scale": vector(d, stack=st),
+            "in_proj": matrix(d, 2 * Di, stack=st),
+            "conv_w": matrix(Di, Kc, stack=st),
+            "conv_b": vector(Di, stack=st),
+            "x_proj": matrix(Di, dtr + 2 * N, stack=st),
+            "dt_proj": matrix(dtr, Di, stack=st),
+            "dt_bias": vector(Di, stack=st, init="dt_bias"),
+            "A_log": matrix(Di, N, stack=st, init="s4d"),
+            "D_skip": vector(Di, stack=st, init="ones"),
+            "out_proj": matrix(Di, d, stack=st)}
 
 
 def _slot_spec(slot: LayerCfg, d: int, reps: int) -> dict[str, LeafSpec]:
     st = (reps,)
+    if slot.mixer == "mamba":
+        return _mamba_spec(slot.mamba, d, st)
     a = slot.attn
     H, KV, hd = a.n_heads, a.n_kv_heads, a.head_dim
     s = {"ln_attn_scale": vector(d, stack=st),
@@ -89,15 +116,17 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         for layer in range(g.reps):
             for si, slot in enumerate(g.slots):
                 b = Bundle(params, sub, pert, f"g{gi}/s{si}/", layer)
-                x = x + L.attention(b, L.norm(b, "ln_attn", x), slot.attn,
-                                    cfg.rope_theta)
-                h = L.norm(b, "ln_mlp", x)
+                h = L.norm(b, "ln_attn", x)
+                if slot.mixer == "mamba":
+                    x = x + L.mamba(b, h, slot.mamba)
+                else:
+                    x = x + L.attention(b, h, slot.attn, cfg.rope_theta)
                 if slot.ffn == "moe":
-                    y, a = L.moe(b, h, slot.moe)
+                    y, a = L.moe(b, L.norm(b, "ln_mlp", x), slot.moe)
                     x = x + y
                     aux = aux + a
-                else:
-                    x = x + L.mlp(b, h)
+                elif slot.ffn == "dense":
+                    x = x + L.mlp(b, L.norm(b, "ln_mlp", x))
     x = L.norm(emb, "ln_f", x)
     if cfg.tie_embeddings:
         return emb.dense_t("tok", x), aux

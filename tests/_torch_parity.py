@@ -1,0 +1,49 @@
+"""Shared inputs of the port's parity tests (``tests/test_torch_*.py``):
+the same random weights on both sides, matching SubCGE settings, and the
+JAX Bundle of one layer.  Import it after ``pytest.importorskip("torch")``.
+"""
+import jax
+import numpy as np
+import torch
+
+from repro.core import subcge as jsub
+from repro.models import params as jplib, transformer as jtf
+from repro.models.perturb import Bundle as JBundle, _child
+from repro.models.perturb import sample_pert as jsample_pert
+from repro_torch.core import subcge as tsub
+from repro_torch.models import params as tplib, transformer as ttf
+
+
+def weights(arch_j, C, seed=0):
+    """Random numpy weights of the arch's shapes, one tree per client, and
+    the port's stacked tensors of the same values."""
+    rng = np.random.default_rng(seed)
+    trees = [jax.tree.map(lambda spec: (0.1 * rng.standard_normal(spec.shape)
+                                        ).astype(np.float32),
+                          jtf.arch_spec(arch_j))
+             for _ in range(C)]
+    flat = [tplib.from_numpy(t) for t in trees]
+    return trees, {p: torch.stack([f[p] for f in flat]) for p in flat[0]}
+
+
+def subcge_pair(arch_j, arch_t, eps, rank=4):
+    """(meta_j, meta_t, cfg_j, cfg_t): the two packages' SubCGE metadata and
+    the same config (τ = 3; the JAX side on its ``jnp`` kernels)."""
+    meta_j = jplib.subcge_meta(jtf.arch_spec(arch_j))
+    meta_t = tplib.subcge_meta(ttf.arch_spec(arch_t))
+    cfg_j = jsub.SubCGEConfig(rank=rank, refresh_period=3, eps=eps,
+                              kernel_backend="jnp")
+    cfg_t = tsub.SubCGEConfig(rank=rank, refresh_period=3, eps=eps)
+    return meta_j, meta_t, cfg_j, cfg_t
+
+
+def jax_slot_bundle(tree, meta_j, cfg_j, sub_j, seed, scale):
+    """The JAX Bundle of layer 0, slot 0 of one client (what the scan body
+    of ``transformer.forward`` builds); ``seed=None`` is unperturbed."""
+    first = lambda t: jax.tree.map(lambda a: a[0], t)  # noqa: E731
+    if seed is None:
+        return JBundle(first(tree["g0"])["s0"], kb="jnp")
+    pert = jsample_pert(meta_j, cfg_j, seed, scale)
+    return JBundle(first(tree["g0"])["s0"], _child(_child(sub_j, "g0"), "s0"),
+                   first(_child(pert.ij, "g0"))["s0"],
+                   first(_child(pert.zv, "g0"))["s0"], pert.scale, "jnp")

@@ -104,3 +104,40 @@ def test_normal_on_card_is_bitwise_the_cpu(cuda):
     want = prng.normal(keys, (1 << 14,))
     got = prng.normal(keys.to(cuda), (1 << 14,)).cpu()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("btdn", [(2, 37, 96, 4), (3, 33, 160, 8),
+                                  (2, 70, 72, 16), (8, 33, 8192, 16)],
+                         ids=["N4", "N8", "N16", "falcon-B8"])
+def test_selective_scan_kernel_matches_plain(cuda, btdn):
+    """N ∈ {4, 8, 16}, T off the kernel's 8-step prefetch, D·N off its
+    256-thread block; the last case is Falcon Mamba 7B's layer with the
+    folded client-batch axis cut from 64 to 8."""
+    B, T, D, N = btdn
+    rng = np.random.default_rng(sum(btdn))
+    a = 1.0 / (1.0 + np.exp(-_f32(rng, B, T, D, N)))
+    t = [torch.from_numpy(x.astype(np.float32)).to(cuda)
+         for x in (a, 0.1 * _f32(rng, B, T, D, N), _f32(rng, B, T, N),
+                   _f32(rng, B, D, N))]
+    build.reset_launches()
+    y, h = ops.selective_scan(*t)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["selective_scan"] == 1
+    want_y, want_h = ops.selective_scan(*(x.cpu() for x in t))
+    np.testing.assert_allclose(y.cpu().numpy(), want_y.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(h.cpu().numpy(), want_h.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_selective_scan_refuses_unsupported_state(cuda):
+    """N = 12 is not a power of two: the kernel raises, never falls back."""
+    a = torch.zeros((1, 4, 8, 12), device=cuda)
+    c, h0 = torch.zeros((1, 4, 12), device=cuda), torch.zeros((1, 8, 12),
+                                                               device=cuda)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="d_state"):
+        ops.selective_scan(a, a, c, h0)
+    assert build.LAUNCHES["selective_scan"] == 0

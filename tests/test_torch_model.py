@@ -30,6 +30,8 @@ from repro_torch.dtrain.api import sim_arch as tsim_arch  # noqa: E402
 from repro_torch.models import params as tplib, transformer as ttf  # noqa: E402
 from repro_torch.models.perturb import epoch_subspace, sample_pert  # noqa: E402
 
+from _torch_parity import subcge_pair, weights  # noqa: E402
+
 EPS = 1e-3
 SEEDS = np.array([12345, 4294967295], np.uint32)
 
@@ -42,19 +44,6 @@ def _archs(name):
             tarchs.reduced(tarchs.get("qwen1.5-0.5b")))
 
 
-def _weights(arch_j, C):
-    """Random numpy weights of the arch's shapes, different per client:
-    (numpy tree per client, the port's stacked tensors)."""
-    rng = np.random.default_rng(0)
-    trees = [jax.tree.map(lambda spec: (0.1 * rng.standard_normal(spec.shape)
-                                        ).astype(np.float32),
-                          jtf.arch_spec(arch_j))
-             for _ in range(C)]
-    flat = [tplib.from_numpy(t) for t in trees]
-    stacked = {p: torch.stack([f[p] for f in flat]) for p in flat[0]}
-    return trees, stacked
-
-
 def _stack(trees):
     return jax.tree.map(lambda *ls: jnp.stack(ls), *trees)
 
@@ -63,14 +52,10 @@ def _stack(trees):
 def test_lm_loss_matches_jax(name):
     arch_j, arch_t = _archs(name)
     C = len(SEEDS)
-    trees, stacked = _weights(arch_j, C)
+    trees, stacked = weights(arch_j, C)
     toks = np.random.default_rng(1).integers(0, arch_j.vocab, (C, 2, 9),
                                              dtype=np.int32)
-    meta_j = jplib.subcge_meta(jtf.arch_spec(arch_j))
-    meta_t = tplib.subcge_meta(ttf.arch_spec(arch_t))
-    cfg_j = jsub.SubCGEConfig(rank=4, refresh_period=3, eps=EPS,
-                              kernel_backend="jnp")
-    cfg_t = tsub.SubCGEConfig(rank=4, refresh_period=3, eps=EPS)
+    meta_j, meta_t, cfg_j, cfg_t = subcge_pair(arch_j, arch_t, EPS)
     sub_t = epoch_subspace(meta_t, cfg_t, 5, 4)
     pert_t = sample_pert(meta_t, cfg_t, torch.as_tensor(SEEDS.astype(np.int64)),
                          EPS)
@@ -103,7 +88,7 @@ def test_lm_loss_matches_jax(name):
 def test_apply_messages_match_jax():
     arch_j, arch_t = _archs("sim")
     C, K, tau = 2, 4, 2
-    trees, stacked = _weights(arch_j, C)
+    trees, stacked = weights(arch_j, C)
     # one leaf of each kind: matrix / vector, unstacked / stacked over layers
     keep = ("embed/tok", "embed/ln_f_scale", "g0/s0/wq", "g0/s0/ln_attn_scale")
     trees = [tplib.nest({p: tplib.flatten(t)[p] for p in keep}) for t in trees]

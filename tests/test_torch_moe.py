@@ -34,8 +34,7 @@ from repro.data.synthetic import TaskConfig as JTask  # noqa: E402
 from repro.dtrain.runner import DTrainConfig as JConfig, run as jrun  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
-from repro.models import params as jplib, transformer as jtf  # noqa: E402
-from repro.models.perturb import Bundle as JBundle, _child  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
 from repro.models.perturb import epoch_subspace as jepoch_subspace  # noqa: E402
 from repro.models.perturb import sample_pert as jsample_pert  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
@@ -47,6 +46,8 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import params as tplib, transformer as ttf  # noqa: E402
 from repro_torch.models.perturb import Bundle, epoch_subspace, sample_pert  # noqa: E402
 
+from _torch_parity import jax_slot_bundle, subcge_pair, weights  # noqa: E402
+
 KIMI = "kimi-k2-1t-a32b"
 RTOL = ATOL = 1e-5
 EPS = 1e-3
@@ -55,27 +56,6 @@ SEEDS = np.array([12345, 4294967295], np.uint32)
 
 def _archs():
     return jarchs.reduced(jarchs.get(KIMI)), tarchs.reduced(tarchs.get(KIMI))
-
-
-def _weights(arch_j, C, seed=0):
-    """Random numpy weights of the arch's shapes, one tree per client, and
-    the port's stacked tensors of the same values."""
-    rng = np.random.default_rng(seed)
-    trees = [jax.tree.map(lambda spec: (0.1 * rng.standard_normal(spec.shape)
-                                        ).astype(np.float32),
-                          jtf.arch_spec(arch_j))
-             for _ in range(C)]
-    flat = [tplib.from_numpy(t) for t in trees]
-    return trees, {p: torch.stack([f[p] for f in flat]) for p in flat[0]}
-
-
-def _subcge(arch_j, arch_t):
-    meta_j = jplib.subcge_meta(jtf.arch_spec(arch_j))
-    meta_t = tplib.subcge_meta(ttf.arch_spec(arch_t))
-    cfg_j = jsub.SubCGEConfig(rank=4, refresh_period=3, eps=EPS,
-                              kernel_backend="jnp")
-    cfg_t = tsub.SubCGEConfig(rank=4, refresh_period=3, eps=EPS)
-    return meta_j, meta_t, cfg_j, cfg_t
 
 
 @pytest.mark.parametrize("full", [False, True], ids=["reduced", "full"])
@@ -111,7 +91,7 @@ def test_init_params_bitwise_and_numpy_round_trip():
 
 def test_expert_coordinates_are_bitwise():
     arch_j, arch_t = _archs()
-    meta_j, meta_t, cfg_j, cfg_t = _subcge(arch_j, arch_t)
+    meta_j, meta_t, cfg_j, cfg_t = subcge_pair(arch_j, arch_t, EPS)
     seeds = np.array([0, 65536, 4294967295, 777], np.uint32)
     # K = 2 messages per client, as the replay samples them: (C, K, L, E)
     st = torch.as_tensor(seeds.astype(np.int64)).reshape(2, 2)
@@ -141,27 +121,15 @@ def test_rank1_matmul_expert_plain_matches_jax(backend):
         np.testing.assert_allclose(got[c], want, rtol=RTOL, atol=ATOL)
 
 
-def _jax_slot_bundle(tree, meta_j, cfg_j, sub_j, seed, scale):
-    """The JAX Bundle of layer 0, slot 0 of one client (what the scan body
-    of ``transformer.forward`` builds)."""
-    first = lambda t: jax.tree.map(lambda a: a[0], t)  # noqa: E731
-    if seed is None:
-        return JBundle(first(tree["g0"])["s0"], kb="jnp")
-    pert = jsample_pert(meta_j, cfg_j, seed, scale)
-    return JBundle(first(tree["g0"])["s0"], _child(_child(sub_j, "g0"), "s0"),
-                   first(_child(pert.ij, "g0"))["s0"],
-                   first(_child(pert.zv, "g0"))["s0"], pert.scale, "jnp")
-
-
 @pytest.mark.parametrize("cf", [8.0, 0.5], ids=["no-drops", "drops"])
 @pytest.mark.parametrize("scale", [None, EPS, -EPS])
 def test_moe_matches_jax(cf, scale):
     arch_j, arch_t = _archs()
     mj = dataclasses.replace(arch_j.groups[0].slots[0].moe, capacity_factor=cf)
     mt = dataclasses.replace(arch_t.groups[0].slots[0].moe, capacity_factor=cf)
-    meta_j, meta_t, cfg_j, cfg_t = _subcge(arch_j, arch_t)
+    meta_j, meta_t, cfg_j, cfg_t = subcge_pair(arch_j, arch_t, EPS)
     C = len(SEEDS)
-    trees, stacked = _weights(arch_j, C)
+    trees, stacked = weights(arch_j, C)
     x = np.random.default_rng(3).standard_normal(
         (C, 2, 9, arch_j.d_model)).astype(np.float32)
     if scale is None:
@@ -180,7 +148,7 @@ def test_moe_matches_jax(cf, scale):
 
     sub_j = jepoch_subspace(meta_j, cfg_j, 5, 4)
     for c in range(C):
-        jb = _jax_slot_bundle(trees[c], meta_j, cfg_j, sub_j,
+        jb = jax_slot_bundle(trees[c], meta_j, cfg_j, sub_j,
                               None if scale is None else SEEDS[c], scale)
         xc = jnp.asarray(x[c])
         probs = jax.nn.softmax(jb.dense("router", xc.reshape(18, -1))
@@ -199,9 +167,9 @@ def test_moe_matches_jax(cf, scale):
 def test_lm_loss_untied_head_matches_jax():
     arch_j, arch_t = _archs()
     assert not arch_t.tie_embeddings
-    meta_j, meta_t, cfg_j, cfg_t = _subcge(arch_j, arch_t)
+    meta_j, meta_t, cfg_j, cfg_t = subcge_pair(arch_j, arch_t, EPS)
     C = len(SEEDS)
-    trees, stacked = _weights(arch_j, C, seed=4)
+    trees, stacked = weights(arch_j, C, seed=4)
     toks = np.random.default_rng(1).integers(0, arch_j.vocab, (C, 2, 9),
                                              dtype=np.int32)
     sub_t = epoch_subspace(meta_t, cfg_t, 5, 4)
