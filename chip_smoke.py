@@ -7,14 +7,19 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. setup   — build the hand-written CUDA kernels from ``src/repro_torch``
-             (one nvcc per source, in parallel); TF32 off everywhere.
+             (one nvcc per source, in parallel); log each kernel's
+             registers, spills and shared memory from the ``ptxas``
+             report; TF32 off everywhere.
 2. kernels — every kernel of the main paths at the Qwen1.5-0.5B, Kimi K2
              and Falcon Mamba 7B shapes the paths give it, held against its
              plain PyTorch version (rtol 1e-5, atol 1e-5, float32) and timed
              with CUDA events beside the plain version, one PyTorch library
              call computing the same function (none for the scan), and the
-             least time the card could take; then ``prng.normal`` on the
-             card held bitwise against the CPU on 2^20 draws.
+             least time the card could take (each shape's ratio to the
+             library call and share of the bound are printed, and each
+             unit's sums); ``rank1_matmul`` and ``rank1_matmul_expert`` are
+             also held bitwise equal across two calls; then ``prng.normal``
+             on the card held bitwise against the CPU on 2^20 draws.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
              d1024, vocab 151936), random weights from seed 0.  Launch
@@ -48,6 +53,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +128,41 @@ def bound(nbytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def speed(ms, plain_ms, library_ms, b_ms, b_by) -> str:
+    """A kernel's times, its ratio to the library call and its share of the
+    bound, as one log fragment."""
+    lib = "none" if library_ms is None else \
+        f"{library_ms:.4f} ms (kernel/library {ms / library_ms:.2f}x)"
+    return (f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib} bound "
+            f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} reached)")
+
+
+def ptxas_report(name: str) -> list:
+    """Registers, spills and static shared memory of each kernel in
+    ``csrc/<name>.cu``, from the ``ptxas -v`` report of its build."""
+    from repro_torch.kernels import build
+    path = build.log_path(name)
+    if not path.exists():
+        return []
+    out, cur = [], None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 class Entry:
     """Accumulates one kernel's numbers over the shapes the path gives it."""
 
@@ -144,11 +185,9 @@ class Entry:
         err = float(diff.max())
         ok = bool(torch.all(diff <= ATOL + RTOL * want.abs()))
         b_ms, b_by = bound(nbytes, flops)
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"  {self.name:20s} {what:36s} x{count} max_abs {err:.3e} "
             f"(|want| max {float(want.abs().max()):.3e}; tol rtol {RTOL} atol "
-            f"{ATOL}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-            f"{lib} bound {b_ms:.4f} ms ({b_by})")
+            f"{ATOL}) | {speed(ms, plain_ms, library_ms, b_ms, b_by)}")
         if not ok:
             raise AssertionError(f"{self.name} {what}: kernel disagrees with "
                                  f"its plain version (max abs {err})")
@@ -158,6 +197,13 @@ class Entry:
         self.add_library(None if library_ms is None else count * library_ms)
         self.nbytes += count * nbytes
         self.flops += count * flops
+
+    def line(self) -> str:
+        """The unit's sums: times, ratio to the library, share of the
+        bound."""
+        b_ms, b_by = bound(self.nbytes, self.flops)
+        return f"{self.name} unit: " + speed(self.ms, self.plain_ms,
+                                             self.library_ms, b_ms, b_by)
 
     def summary(self) -> dict:
         b_ms, b_by = bound(self.nbytes, self.flops)
@@ -198,6 +244,13 @@ def falcon_cut(falcon):
         groups=(Group(falcon.groups[0].slots, FALCON_LAYERS),))
 
 
+def same_bits(a, b, what: str) -> None:
+    """Two calls on the same inputs must give the same bits (no atomics)."""
+    import torch
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+
+
 def check_rank1(e: Entry, C: int, M: int, shapes, randn) -> None:
     """rank1_matmul at (K, N) shapes, ``count`` uses each per unit."""
     import torch
@@ -208,6 +261,7 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn) -> None:
         x, W = randn(C, M, K), randn(C, K, N, scale=K ** -0.5)
         u, v = randn(C, K), randn(C, N)
         got = ops.rank1_matmul(x, W, u, v, s)
+        same_bits(got, ops.rank1_matmul(x, W, u, v, s), "rank1_matmul")
         want = r1.rank1_matmul_plain(x, W, u, v, s)
         R = (s[:, None, None] * torch.bmm(x, u[..., None])) * v[:, None, :]
         ms = time_ms(lambda: ops.rank1_matmul(x, W, u, v, s))
@@ -339,6 +393,8 @@ def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
         x, W = randn(C, E, cap, K), randn(C, E, K, N, scale=K ** -0.5)
         u, v = randn(C, E, K), randn(C, E, N)
         got = ops.rank1_matmul_expert(x, W, u, v, s)
+        same_bits(got, ops.rank1_matmul_expert(x, W, u, v, s),
+                  "rank1_matmul_expert")
         want = r1.rank1_matmul_expert_plain(x, W, u, v, s)
         xb, Wb = x.reshape(C * E, cap, K), W.reshape(C * E, K, N)
         R = ((s[:, None, None, None] * torch.matmul(x, u[..., None]))
@@ -520,6 +576,11 @@ def main(argv=None) -> int:
     for name in ("rank1_matmul", "subcge_apply", "selective_scan"):
         build.load(name)
     log(f"[1] kernels built in {build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
+    ptxas = {n: ptxas_report(n) for n in ("rank1_matmul", "subcge_apply",
+                                          "selective_scan")}
+    for name, reports in ptxas.items():
+        for r in reports:
+            log(f"    ptxas {name}: {r}")
 
     # 2. kernels at the main paths' shapes
     qwen = archs.get("qwen1.5-0.5b")
@@ -538,6 +599,9 @@ def main(argv=None) -> int:
     entries["falcon"] = phase_kernels_falcon(falcon, C, B, T)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    for key, es in entries.items():
+        for e in es.values():
+            log(f"[2] {key} {e.line()}")
     phase_prng()
 
     def run_slice(arch, what, phase):
@@ -662,7 +726,7 @@ def main(argv=None) -> int:
             details[key]["kernels"] = {n: e.summary() for n, e in es.items()}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {**report, "card": card, **details}, indent=1))
+            {**report, "card": card, "ptxas": ptxas, **details}, indent=1))
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

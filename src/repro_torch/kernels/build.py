@@ -42,10 +42,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: C entry points per source file: name -> argtypes.
 _SIGNATURES = {
-    "rank1_matmul": {"rank1_matmul_f32": [_P] * 6 + [_I] * 4 + [_L] * 5
-                     + [_I, _P],
-                     "rank1_matmul_expert_f32": [_P] * 6 + [_I] * 5
-                     + [_L] * 10 + [_P]},
+    "rank1_matmul": {"rank1_matmul_f32": [_P] * 7 + [_I] * 7 + [_L] * 10
+                     + [_P],
+                     "rank1_matmul_t_f32": [_P] * 6 + [_I] * 4 + [_L] * 5
+                     + [_P]},
     "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 5 + [_L] * 2
                      + [_P]},
     "selective_scan": {"selective_scan_f32": [_P] * 6 + [_I] * 4 + [_P]},
@@ -71,6 +71,11 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's report (``ptxas -v``) of ``csrc/<name>.cu``'s build."""
+    return _lib_path(name).with_suffix(".log")
+
+
 def build_all() -> float:
     """Compile every source whose library is missing, one nvcc per source,
     all in parallel.  Returns the wall seconds spent; raises on failure."""
@@ -91,7 +96,7 @@ def build_all() -> float:
     errors = []
     for name, final, tmp, proc in procs:
         log, _ = proc.communicate()
-        final.with_suffix(".log").write_text(log)
+        log_path(name).write_text(log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:

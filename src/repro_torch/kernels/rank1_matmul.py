@@ -16,19 +16,81 @@ The expert axis of u and v comes before the row, where the JAX kernel takes
 ``u (K, E)`` and ``v (N, E)`` with the expert last: each (client, expert)
 pair then reads one contiguous column of its subspace.
 
-Bound on the H100: float32 CUDA-core FLOPs (see the source note in the
-``.cu`` file); no TF32.  W may be a strided view of the stacked parameters
-(its client and expert strides are passed to the kernel); the inner (K, N)
-/ (O, K) matrix must be contiguous.
+Bound on the H100: the float32 FMA rate of the CUDA cores (67 TFLOP/s); at
+the main paths' shapes a product does 40 to 130 flops per byte it must
+move.  No TF32: the ZO coefficient (L+ − L−) / 2ε amplifies its ~3-digit
+error.  ``rank1_matmul`` and ``rank1_matmul_expert`` run one kernel (the
+plain product is the expert product with E = 1): an 88 × 128 output tile
+per 128-thread block, 11 × 8 float32 accumulators per thread, slabs of 16 k
+streamed through a 4-stage ``cp.async`` ring in shared memory, and the
+rank-1 dot x·u spread over the whole block on the same slabs, so W is read
+once per output tile.  Where the output tiles are too few to fill the card,
+:func:`split_plan` cuts K into ranges whose partial sums a second kernel
+adds in a fixed order (no atomics: the same inputs give the same bits).
+``rank1_matmul_t`` keeps its older 64 × 128 tile with synchronous loads.
+W may be a strided view of the stacked parameters (its client and expert
+strides are passed to the kernel); the inner (K, N) / (O, K) matrix must be
+contiguous.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
+
+#: output tile (rows, columns) and k-slab of ``rank1_gemm`` in the .cu file
+TILE_M, TILE_N, TILE_K = 88, 128, 16
+#: output tile of ``rank1_matmul_t``'s older kernel
+TILE_M_T = 64
+#: streaming multiprocessors of an H100 SXM, and the blocks of ``rank1_gemm``
+#: one holds at a time (its registers allow two)
+SMS, BLOCKS_PER_SM = 132, 2
+SLOTS = SMS * BLOCKS_PER_SM
+#: the split plan's clock, from the kernel's times on an H100 SXM at 700 W:
+#: one slab of one block beside another on its SM, and alone; a wave's
+#: fill and drain; the rate at which partial sums are written and re-read
+T_SLAB_US, T_ALONE_US, T_WAVE_US, PARTIAL_BYTES_PER_US = 2.32, 1.55, 12.0, 2.5e6
+MAX_SPLITS = 64
+#: CUDA's limit on a grid's y and z extents
+GRID_YZ = 65535
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(batch: int, M: int, N: int, K: int) -> tuple[int, int]:
+    """(splits, k per split) of ``rank1_gemm`` for ``batch`` products
+    (clients, or clients × experts) of x (M, K) by W (K, N).
+
+    A pure function of the shape.  Output tiles that fill two waves of the
+    card's block slots take one split.  Fewer are cut into ranges of whole
+    16-k slabs, as many as the clock above says run fastest, the partial
+    sums' traffic counted: every split is non-empty and together they cover
+    K exactly."""
+    tiles = batch * _cdiv(M, TILE_M) * _cdiv(N, TILE_N)
+    slabs = _cdiv(K, TILE_K)
+    if tiles >= 2 * SLOTS:
+        return 1, slabs * TILE_K
+    best = None
+    for want in range(1, min(slabs, MAX_SPLITS) + 1):
+        per = _cdiv(slabs, want)
+        splits = _cdiv(slabs, per)
+        full, rest = divmod(tiles * splits, SLOTS)
+        us = full * (per * T_SLAB_US + T_WAVE_US)
+        if rest:
+            us += per * (T_ALONE_US if rest <= SMS else T_SLAB_US) + T_WAVE_US
+        if splits > 1:
+            us += (2 * splits + 1) * 4 * batch * M * N / PARTIAL_BYTES_PER_US
+        if best is None or us < best[0]:
+            best = (us, splits, per)
+    return best[1], best[2] * TILE_K
 
 
 def rank1_matmul_plain(x, W, u, v, s):
@@ -59,34 +121,32 @@ def _check_f32_cuda(**tensors):
                              f"{t.dtype} on {t.device}")
 
 
-def _check(x, W, cvec, ovec, s, n_out, trans):
-    C, M, K = x.shape
-    wshape = (C, n_out, K) if trans else (C, K, n_out)
-    if tuple(W.shape) != wshape:
-        raise ValueError(f"W shape {tuple(W.shape)} != {wshape}")
-    _check_f32_cuda(x=x, W=W, cvec=cvec, ovec=ovec, s=s)
-    if W.stride(-1) != 1 or W.stride(-2) != W.shape[-1]:
-        raise ValueError("W: inner matrix must be contiguous")
-    if x.stride(-1) != 1 or x.stride(-2) != K:
-        raise ValueError("x: inner matrix must be contiguous")
-    if cvec.shape != (C, K) or ovec.shape != (C, n_out) or s.shape != (C,):
-        raise ValueError("u/v/s shapes do not match x and W")
-    if cvec.stride(-1) != 1 or ovec.stride(-1) != 1 or s.stride(0) != 1:
+def _check_inner(x, W, u, v, s):
+    """Contiguity the kernels need: x's and W's inner matrices, u's and v's
+    last axis, s."""
+    for t, name in ((x, "x"), (W, "W")):
+        if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+            raise ValueError(f"{name}: inner matrix must be contiguous")
+    if u.stride(-1) != 1 or v.stride(-1) != 1 or s.stride(0) != 1:
         raise ValueError("u/v/s must be contiguous along their last axis")
-    if (M + 63) // 64 > 65535 or C > 65535:
+
+
+def _gemm(name, x, W, u, v, s, y, E, strides):
+    """Launch ``rank1_matmul_f32`` for x (C, [E,] M, K) and W (C, [E,] K, N)
+    into y (C, [E,] M, N); ``strides`` are the client and expert strides of
+    x, W, u, v and y (an expert stride of 0 for ``rank1_matmul``)."""
+    C, M, K, N = x.shape[0], x.shape[-2], x.shape[-1], W.shape[-1]
+    splits, kper = split_plan(C * E, M, N, K)
+    if _cdiv(N, TILE_N) > GRID_YZ or C * E * splits > GRID_YZ:
         raise ValueError("grid too large")
-
-
-def _launch(x, W, cvec, ovec, s, n_out, trans, name):
-    _check(x, W, cvec, ovec, s, n_out, trans)
     lib = build.load("rank1_matmul")
-    C, M, K = x.shape
-    y = torch.empty((C, M, n_out), dtype=torch.float32, device=x.device)
+    # partial tiles, then partial x·u, of every split (freed in stream order)
+    part = None if splits == 1 else torch.empty(
+        splits * C * E * M * (N + 1), dtype=torch.float32, device=x.device)
     err = lib.rank1_matmul_f32(
-        x.data_ptr(), W.data_ptr(), cvec.data_ptr(), ovec.data_ptr(),
-        s.data_ptr(), y.data_ptr(), C, M, n_out, K, x.stride(0), W.stride(0),
-        cvec.stride(0), ovec.stride(0), y.stride(0), int(trans),
-        build.stream_of(x))
+        x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
+        y.data_ptr(), None if part is None else part.data_ptr(), C, E, M, N, K,
+        splits, kper, *strides, build.stream_of(x))
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return y
@@ -95,13 +155,42 @@ def _launch(x, W, cvec, ovec, s, n_out, trans, name):
 def rank1_matmul(x, W, u, v, s):
     if x.device.type == "cpu":
         return rank1_matmul_plain(x, W, u, v, s)
-    return _launch(x, W, u, v, s, W.shape[-1], False, "rank1_matmul")
+    C, M, K = x.shape
+    N = W.shape[-1]
+    if tuple(W.shape) != (C, K, N):
+        raise ValueError(f"W shape {tuple(W.shape)} != {(C, K, N)}")
+    _check_f32_cuda(x=x, W=W, u=u, v=v, s=s)
+    if u.shape != (C, K) or v.shape != (C, N) or s.shape != (C,):
+        raise ValueError("u/v/s shapes do not match x and W")
+    _check_inner(x, W, u, v, s)
+    y = torch.empty((C, M, N), dtype=torch.float32, device=x.device)
+    return _gemm("rank1_matmul", x, W, u, v, s, y, 1,
+                 (x.stride(0), 0, W.stride(0), 0, u.stride(0), 0, v.stride(0),
+                  0, M * N, 0))
 
 
 def rank1_matmul_t(x, W, u, v, s):
     if x.device.type == "cpu":
         return rank1_matmul_t_plain(x, W, u, v, s)
-    return _launch(x, W, v, u, s, W.shape[-2], True, "rank1_matmul_t")
+    C, M, K = x.shape
+    O = W.shape[-2]
+    if tuple(W.shape) != (C, O, K):
+        raise ValueError(f"W shape {tuple(W.shape)} != {(C, O, K)}")
+    _check_f32_cuda(x=x, W=W, u=u, v=v, s=s)
+    if u.shape != (C, O) or v.shape != (C, K) or s.shape != (C,):
+        raise ValueError("u/v/s shapes do not match x and W")
+    _check_inner(x, W, u, v, s)
+    if _cdiv(M, TILE_M_T) > GRID_YZ or C > GRID_YZ:
+        raise ValueError("grid too large")
+    lib = build.load("rank1_matmul")
+    y = torch.empty((C, M, O), dtype=torch.float32, device=x.device)
+    err = lib.rank1_matmul_t_f32(
+        x.data_ptr(), W.data_ptr(), v.data_ptr(), u.data_ptr(), s.data_ptr(),
+        y.data_ptr(), C, M, O, K, x.stride(0), W.stride(0), v.stride(0),
+        u.stride(0), y.stride(0), build.stream_of(x))
+    build.check(err, "rank1_matmul_t")
+    build.LAUNCHES["rank1_matmul_t"] += 1
+    return y
 
 
 def rank1_matmul_expert(x, W, u, v, s):
@@ -115,19 +204,8 @@ def rank1_matmul_expert(x, W, u, v, s):
         raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, W "
                          f"{tuple(W.shape)}, u {tuple(u.shape)}, v "
                          f"{tuple(v.shape)}, s {tuple(s.shape)}")
-    for t, name, row in ((x, "x", K), (W, "W", N)):
-        if t.stride(-1) != 1 or t.stride(-2) != row:
-            raise ValueError(f"{name}: inner matrix must be contiguous")
-    if u.stride(-1) != 1 or v.stride(-1) != 1 or s.stride(0) != 1:
-        raise ValueError("u/v/s must be contiguous along their last axis")
-    if (M + 63) // 64 > 65535 or C * E > 65535:
-        raise ValueError("grid too large")
-    lib = build.load("rank1_matmul")
+    _check_inner(x, W, u, v, s)
     y = torch.empty((C, E, M, N), dtype=torch.float32, device=x.device)
-    err = lib.rank1_matmul_expert_f32(
-        x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
-        y.data_ptr(), C, E, M, N, K, *x.stride()[:2], *W.stride()[:2],
-        *u.stride()[:2], *v.stride()[:2], *y.stride()[:2], build.stream_of(x))
-    build.check(err, "rank1_matmul_expert")
-    build.LAUNCHES["rank1_matmul_expert"] += 1
-    return y
+    return _gemm("rank1_matmul_expert", x, W, u, v, s, y, E,
+                 (*x.stride()[:2], *W.stride()[:2], *u.stride()[:2],
+                  *v.stride()[:2], E * M * N, M * N))

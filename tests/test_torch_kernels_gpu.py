@@ -9,7 +9,7 @@ package, so it runs on a machine without them:
 
 Tolerance: rtol 1e-5, atol 1e-5 (float32, different summation orders).
 Shapes are ragged on purpose: M, N and K off the tile sizes, W a strided
-view of stacked layers.
+view of stacked layers; the narrow outputs take the split-K path.
 """
 import numpy as np
 import pytest
@@ -33,21 +33,45 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("trans", [False, True])
-def test_rank1_kernel_matches_plain(cuda, trans):
-    rng = np.random.default_rng(5)
-    C, M, K, N = 3, 67, 50, 133
+# (M, K, N): ragged against the 88 x 128 tile and the 16-k slab, the Kimi
+# router (N = 32) and Falcon's x_proj (N = 288), which split K, a single
+# row and column, and Falcon's dt_proj (K = 256), which fills the card
+RANK1_SHAPES = [(67, 50, 133), (264, 7168, 32), (264, 8192, 288), (1, 7, 1),
+                (264, 256, 8192)]
+
+
+def _rank1_inputs(cuda, seed, C, M, K, N, trans=False):
+    """x (C, M, K), W the strided (C, ., .) view of stacked (C, 2, ., .)
+    params at layer 1, u, v, s; W and the contracted vector are scaled by
+    K^-1/2, so that x W and s (x·u) v stay near 1 at any K."""
+    rng = np.random.default_rng(seed)
     x = _f32(rng, C, M, K)
-    W = _f32(rng, C, N, K) if trans else _f32(rng, C, K, N)
+    W = _f32(rng, C, 2, N, K) if trans else _f32(rng, C, 2, K, N)
     u = _f32(rng, C, N if trans else K)
     v = _f32(rng, C, K if trans else N)
-    s = np.array([1e-3, -1e-3, 0.5], np.float32)
-    t = [torch.from_numpy(a).to(cuda) for a in (x, W, u, v, s)]
-    Wst = torch.stack([t[1], t[1]], dim=1)[:, 1]          # (C, ., .) view
+    if trans:
+        v = v * K ** -0.5
+    else:
+        u = u * K ** -0.5
+    s = np.array([1e-3, -1e-3, 0.5] * 3, np.float32)[:C]
+    t = [torch.from_numpy(a).to(cuda) for a in (x, W * K ** -0.5, u, v, s)]
+    t[1] = t[1][:, 1]
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans,mkn",
+                         [(True, RANK1_SHAPES[0])]
+                         + [(False, mkn) for mkn in RANK1_SHAPES],
+                         ids=lambda a: "x".join(map(str, a))
+                         if isinstance(a, tuple) else ("t" if a else "n"))
+def test_rank1_kernel_matches_plain(cuda, trans, mkn):
+    M, K, N = mkn
+    C = 3 if M == 67 else 8
+    t = _rank1_inputs(cuda, 5 + K, C, M, K, N, trans)
     fn = ops.rank1_matmul_t if trans else ops.rank1_matmul
     build.reset_launches()
-    got = fn(t[0], Wst, t[2], t[3], t[4])
+    got = fn(*t)
     torch.cuda.synchronize()
     assert sum(build.LAUNCHES.values()) == 1
     plain = fn(*(a.cpu() for a in t))
@@ -75,24 +99,51 @@ def test_subcge_kernels_match_plain(cuda, E):
                                    rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.gpu
-def test_rank1_expert_kernel_matches_plain(cuda):
+def _expert_inputs(cuda, seed, M, K, N):
     """W is the strided (C, E, K, N) view of stacked (C, L, E, K, N) params
-    at layer 1; M = 83 (a Kimi capacity) masks the row edge."""
-    rng = np.random.default_rng(8)
-    C, L, E, M, K, N = 2, 2, 3, 83, 50, 133
+    at layer 1; C = 2 clients, E = 3 experts; W and u scaled by K^-1/2."""
+    rng = np.random.default_rng(seed)
+    C, L, E = 2, 2, 3
     x = torch.from_numpy(_f32(rng, C, E, M, K)).to(cuda)
-    Wst = torch.from_numpy(_f32(rng, C, L, E, K, N)).to(cuda)
-    u = torch.from_numpy(_f32(rng, C, E, K)).to(cuda)
+    Wst = torch.from_numpy(_f32(rng, C, L, E, K, N) * K ** -0.5).to(cuda)
+    u = torch.from_numpy(_f32(rng, C, E, K) * K ** -0.5).to(cuda)
     v = torch.from_numpy(_f32(rng, C, E, N)).to(cuda)
     s = torch.tensor([1e-3, -0.5], device=cuda)
+    return x, Wst[:, 1], u, v, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", [(83, 50, 133), (83, 2048, 7168), (1, 7, 1)],
+                         ids=lambda a: "x".join(map(str, a)))
+def test_rank1_expert_kernel_matches_plain(cuda, mkn):
+    """M = 83 (a Kimi capacity) masks the row edge; (83, 50, 133) splits K,
+    (83, 2048, 7168) is Kimi's w2 with 3 of its 32 experts."""
+    t = _expert_inputs(cuda, 8 + mkn[1], *mkn)
     build.reset_launches()
-    got = ops.rank1_matmul_expert(x, Wst[:, 1], u, v, s)
+    got = ops.rank1_matmul_expert(*t)
     torch.cuda.synchronize()
     assert build.LAUNCHES["rank1_matmul_expert"] == 1
-    plain = ops.rank1_matmul_expert(*(a.cpu() for a in (x, Wst[:, 1], u, v, s)))
+    plain = ops.rank1_matmul_expert(*(a.cpu() for a in t))
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("expert,mkn", [(False, (264, 7168, 32)),
+                                        (False, (264, 256, 8192)),
+                                        (True, (83, 50, 133)),
+                                        (True, (83, 2048, 7168))],
+                         ids=["router-split", "dt_proj", "expert-split",
+                              "expert-w2"])
+def test_rank1_kernels_are_deterministic(cuda, expert, mkn):
+    """No atomics: two calls on the same inputs give the same bits, with
+    and without the split-K reduction."""
+    t = (_expert_inputs(cuda, 1, *mkn) if expert
+         else _rank1_inputs(cuda, 1, 8, *mkn))
+    fn = ops.rank1_matmul_expert if expert else ops.rank1_matmul
+    a, b = fn(*t), fn(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -1,0 +1,122 @@
+"""The split-K plan of ``rank1_matmul`` and ``rank1_matmul_expert`` (CPU).
+
+``split_plan`` is the pure function of the shape that decides how the
+kernel's K loop is cut; it runs here for every shape the three slices'
+main paths give the two kernels: Qwen1.5-0.5B, the Kimi K2 cut (32 of 384
+experts, the router cut with them, vocab 20480) and the Falcon Mamba 7B
+cut, 8 clients × 264 rows (8 sequences of 33 tokens), and a Kimi expert's
+capacity of 83 rows.
+"""
+import math
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.configs import archs  # noqa: E402
+from repro_torch.kernels import rank1_matmul as r1  # noqa: E402
+
+C, M = 8, 8 * 33
+KIMI_EXPERTS, KIMI_VOCAB = 32, 20_480
+
+
+def _main_path_shapes():
+    """name -> (batch, M, N, K) of every rank1 product on the main paths."""
+    q = archs.get("qwen1.5-0.5b")
+    d, ff = q.d_model, q.groups[0].slots[0].d_ff
+    shapes = {"qwen/attn": (C, M, d, d), "qwen/up": (C, M, ff, d),
+              "qwen/down": (C, M, d, ff)}
+    k = archs.get("kimi-k2-1t-a32b")
+    slot = k.groups[0].slots[0]
+    a, mo, d = slot.attn, slot.moe, k.d_model
+    cap = math.ceil(M * mo.top_k / KIMI_EXPERTS * mo.capacity_factor)
+    shapes.update({
+        "kimi/q": (C, M, a.n_heads * a.head_dim, d),
+        "kimi/kv": (C, M, a.n_kv_heads * a.head_dim, d),
+        "kimi/o": (C, M, d, a.n_heads * a.head_dim),
+        "kimi/router": (C, M, KIMI_EXPERTS, d),
+        "kimi/shared_up": (C, M, mo.n_shared * mo.d_ff_expert, d),
+        "kimi/shared_down": (C, M, d, mo.n_shared * mo.d_ff_expert),
+        "kimi/head": (C, M, KIMI_VOCAB, d),
+        "kimi/expert_up": (C * KIMI_EXPERTS, cap, mo.d_ff_expert, d),
+        "kimi/expert_down": (C * KIMI_EXPERTS, cap, d, mo.d_ff_expert),
+    })
+    f = archs.get("falcon-mamba-7b")
+    m, d = f.groups[0].slots[0].mamba, f.d_model
+    dtr = m.dt_rank or -(-d // 16)
+    shapes.update({
+        "falcon/in_proj": (C, M, 2 * m.d_inner, d),
+        "falcon/x_proj": (C, M, dtr + 2 * m.d_state, m.d_inner),
+        "falcon/dt_proj": (C, M, m.d_inner, dtr),
+        "falcon/out_proj": (C, M, d, m.d_inner),
+        "falcon/head": (C, M, f.vocab, d),
+    })
+    return shapes
+
+
+SHAPES = _main_path_shapes()
+
+
+def _tiles(batch, M, N, K):
+    return batch * -(-M // r1.TILE_M) * -(-N // r1.TILE_N)
+
+
+def test_shapes_are_the_published_ones():
+    """The table above reads the registry: spot-check the widths the plan
+    is for (Kimi's router and Falcon's x_proj are the narrow outputs)."""
+    assert SHAPES["kimi/router"] == (8, 264, 32, 7168)
+    assert SHAPES["falcon/x_proj"] == (8, 264, 288, 8192)
+    assert SHAPES["kimi/expert_up"] == (256, 83, 2048, 7168)
+    assert SHAPES["falcon/head"] == (8, 264, 65024, 4096)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_splits_cover_k_in_whole_slabs(name):
+    batch, M, N, K = SHAPES[name]
+    splits, kper = r1.split_plan(batch, M, N, K)
+    assert splits >= 1 and kper % r1.TILE_K == 0
+    # the last split starts inside K and ends at or past it: every split
+    # is non-empty and together they cover K exactly once
+    assert (splits - 1) * kper < K <= splits * kper
+    assert r1.split_plan(batch, M, N, K) == (splits, kper)   # pure
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_shapes_that_fill_the_card_take_one_split(name):
+    """Two waves of output tiles over the card's block slots take one
+    split; no shape is cut into more than MAX_SPLITS."""
+    batch, M, N, K = SHAPES[name]
+    splits, _ = r1.split_plan(batch, M, N, K)
+    if _tiles(batch, M, N, K) >= 2 * r1.SLOTS:
+        assert splits == 1
+    assert splits <= r1.MAX_SPLITS
+
+
+@pytest.mark.parametrize("name", ["kimi/router", "falcon/x_proj"])
+def test_narrow_outputs_get_two_waves(name):
+    """The router (N = 32) and x_proj (N = 288) leave most of the 132 SMs
+    idle unsplit; split, they launch at least two blocks per SM."""
+    batch, M, N, K = SHAPES[name]
+    splits, _ = r1.split_plan(batch, M, N, K)
+    tiles = _tiles(batch, M, N, K)
+    assert tiles < r1.SMS
+    assert tiles * splits >= 2 * r1.SMS
+
+
+def test_wide_outputs_split_only_where_the_clock_gains():
+    """Of the main paths' shapes, only those whose tiles leave block slots
+    idle and whose K is long enough to pay for the partial sums split."""
+    split = sorted(n for n, sh in SHAPES.items() if r1.split_plan(*sh)[0] > 1)
+    assert split == ["falcon/x_proj", "kimi/kv", "kimi/router",
+                     "kimi/shared_up", "qwen/down"]
+
+
+@pytest.mark.parametrize("shape", [(3, 67, 133, 50), (6, 83, 133, 50),
+                                   (1, 1, 1, 7), (1, 1, 1, 16 * 300)])
+def test_ragged_shapes(shape):
+    """The gpu tests' ragged shapes: K not a multiple of the slab, or a
+    single row and column; splits never exceed the slabs."""
+    batch, M, N, K = shape
+    splits, kper = r1.split_plan(*shape)
+    assert splits <= -(-K // r1.TILE_K)
+    assert (splits - 1) * kper < K <= splits * kper
