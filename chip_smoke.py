@@ -17,9 +17,11 @@ no result line):
              call computing the same function (none for the scan), and the
              least time the card could take (each shape's ratio to the
              library call and share of the bound are printed, and each
-             unit's sums); ``rank1_matmul`` and ``rank1_matmul_expert`` are
-             also held bitwise equal across two calls; then ``prng.normal``
-             on the card held bitwise against the CPU on 2^20 draws.
+             unit's sums); the rank-1 products and the update kernel (E <= 2)
+             are also held bitwise equal across two calls; the update kernel
+             runs at every matrix leaf of all three slices, beside a
+             ``copy_`` of the same W; then ``prng.normal`` on the card held
+             bitwise against the CPU on 2^20 draws.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
              d1024, vocab 151936), random weights from seed 0.  Launch
@@ -43,7 +45,8 @@ no result line):
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-of each slice (host spans, device-busy time and share, top kernels).
+of each slice (host spans, device-busy time and share, top kernels, and the
+hand-written kernels that ran, by name).
 
 It needs a CUDA device and the repository's ``src/`` next to it.
 """
@@ -83,16 +86,11 @@ SOURCES = {
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:67"),
 }
-# Kimi K2 cut to one chip's share (published: 61 layers, 384 experts, vocab
-# 163840): every layer is the same slot, 32 experts are what one of 12
-# expert-parallel chips holds (the router is cut with them), and the
-# vocabulary is cut to one eighth; every width stays as published
-KIMI_LAYERS, KIMI_EXPERTS, KIMI_VOCAB = 1, 32, 20_480
-# Falcon Mamba 7B cut in depth only (published: 64 layers): every layer is
-# the same slot; 64 layers x 8 client replicas would be 232.7 GB
-FALCON_LAYERS = 4
 # batch of the final accuracy pass (``data.synthetic.accuracy``)
 EVAL_BATCH = 128
+# the update check compares the kernel's result with the plain version on
+# slices of W of at most this many bytes (the kernel runs on the whole leaf)
+CHECK_SLICE_BYTES = 2 * 2**30
 
 
 def log(*a):
@@ -177,20 +175,32 @@ class Entry:
         self.library_ms = None if ms is None or self.library_ms is None \
             else self.library_ms + ms
 
-    def add(self, got, want, ms, plain_ms, library_ms, nbytes, flops, what,
-            count=1):
-        """Check one shape (``count`` uses of it per unit) and add it."""
+    def check(self, got, want, what) -> tuple:
+        """(max |got - want|, max |want|); raises unless every element of
+        ``got`` is within tolerance of ``want``."""
         import torch
         diff = (got - want).abs()
         err = float(diff.max())
-        ok = bool(torch.all(diff <= ATOL + RTOL * want.abs()))
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"  {self.name:20s} {what:36s} x{count} max_abs {err:.3e} "
-            f"(|want| max {float(want.abs().max()):.3e}; tol rtol {RTOL} atol "
-            f"{ATOL}) | {speed(ms, plain_ms, library_ms, b_ms, b_by)}")
-        if not ok:
+        if not bool(torch.all(diff <= ATOL + RTOL * want.abs())):
             raise AssertionError(f"{self.name} {what}: kernel disagrees with "
                                  f"its plain version (max abs {err})")
+        return err, float(want.abs().max())
+
+    def add(self, got, want, ms, plain_ms, library_ms, nbytes, flops, what,
+            count=1):
+        """Check one shape (``count`` uses of it per unit) and add it."""
+        self.add_checked(self.check(got, want, what), ms, plain_ms,
+                         library_ms, nbytes, flops, what, count)
+
+    def add_checked(self, checked, ms, plain_ms, library_ms, nbytes, flops,
+                    what, count=1):
+        """Add one shape whose result ``check`` passed: ``checked`` is its
+        (max abs error, max |want|)."""
+        err, want_max = checked
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"  {self.name:20s} {what:36s} x{count} max_abs {err:.3e} "
+            f"(|want| max {want_max:.3e}; tol rtol {RTOL} atol "
+            f"{ATOL}) | {speed(ms, plain_ms, library_ms, b_ms, b_by)}")
         self.err = max(self.err, err)
         self.ms += count * ms
         self.plain_ms += count * plain_ms
@@ -226,24 +236,6 @@ def record(name: str, parts: list, launches: int) -> dict:
             "launches": launches, **e.summary()}
 
 
-def kimi_cut(kimi):
-    """Kimi K2 at its published widths, cut to one chip's share."""
-    from repro_torch.configs.base import Group
-    slot = kimi.groups[0].slots[0]
-    moe = dataclasses.replace(slot.moe, n_experts=KIMI_EXPERTS)
-    return dataclasses.replace(
-        kimi, name=kimi.name + "-cut", vocab=KIMI_VOCAB,
-        groups=(Group((dataclasses.replace(slot, moe=moe),), KIMI_LAYERS),))
-
-
-def falcon_cut(falcon):
-    """Falcon Mamba 7B at its published widths, cut in depth."""
-    from repro_torch.configs.base import Group
-    return dataclasses.replace(
-        falcon, name=falcon.name + "-cut",
-        groups=(Group(falcon.groups[0].slots, FALCON_LAYERS),))
-
-
 def same_bits(a, b, what: str) -> None:
     """Two calls on the same inputs must give the same bits (no atomics)."""
     import torch
@@ -251,27 +243,114 @@ def same_bits(a, b, what: str) -> None:
         raise AssertionError(f"{what}: two calls on the same inputs differ")
 
 
-def check_rank1(e: Entry, C: int, M: int, shapes, randn) -> None:
-    """rank1_matmul at (K, N) shapes, ``count`` uses each per unit."""
+def check_rank1(e: Entry, C: int, M: int, shapes, randn,
+                trans: bool = False) -> None:
+    """rank1_matmul (rank1_matmul_t when ``trans``) at (K, N) shapes,
+    ``count`` uses each per unit; each also held bitwise equal across two
+    calls.  W and the contracted vector are scaled by K^-1/2."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rank1_matmul as r1
     s = torch.tensor([1e-3, -1e-3] * (C // 2), device="cuda")
+    fn = ops.rank1_matmul_t if trans else ops.rank1_matmul
+    plain = r1.rank1_matmul_t_plain if trans else r1.rank1_matmul_plain
     for (K, N), count in shapes:
-        x, W = randn(C, M, K), randn(C, K, N, scale=K ** -0.5)
-        u, v = randn(C, K), randn(C, N)
-        got = ops.rank1_matmul(x, W, u, v, s)
-        same_bits(got, ops.rank1_matmul(x, W, u, v, s), "rank1_matmul")
-        want = r1.rank1_matmul_plain(x, W, u, v, s)
-        R = (s[:, None, None] * torch.bmm(x, u[..., None])) * v[:, None, :]
-        ms = time_ms(lambda: ops.rank1_matmul(x, W, u, v, s))
-        p_ms = time_ms(lambda: r1.rank1_matmul_plain(x, W, u, v, s))
-        l_ms = time_ms(lambda: torch.baddbmm(R, x, W))
+        x = randn(C, M, K)
+        W = randn(C, N, K, scale=K ** -0.5) if trans else \
+            randn(C, K, N, scale=K ** -0.5)
+        u, v = (randn(C, N), randn(C, K, scale=K ** -0.5)) if trans else \
+            (randn(C, K, scale=K ** -0.5), randn(C, N))
+        got = fn(x, W, u, v, s)
+        same_bits(got, fn(x, W, u, v, s), e.name)
+        want = plain(x, W, u, v, s)
+        cvec, ovec = (v, u) if trans else (u, v)
+        R = (s[:, None, None] * torch.bmm(x, cvec[..., None])) * ovec[:, None, :]
+        Wn = W.transpose(1, 2) if trans else W
+        ms = time_ms(lambda: fn(x, W, u, v, s))
+        p_ms = time_ms(lambda: plain(x, W, u, v, s))
+        l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn))
         nbytes = 4 * (C * M * K + C * K * N + C * K + C * N + C + C * M * N)
         flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
+        splits = r1.split_plan(C, M, N, K)[0]
+        shape = f"W({C},{N},{K})" if trans else f"W({C},{K},{N})"
         e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
-              f"x({C},{M},{K}) W({C},{K},{N})", count)
-        del x, W, got, want, R
+              f"x({C},{M},{K}) {shape} S={splits}", count)
+        del x, W, got, want, R, Wn
+        torch.cuda.empty_cache()
+
+
+def update_leaves(arch, C: int) -> list:
+    """(batch, n, m, count) of every matrix leaf one update of ``arch``'s
+    stacked C-client params visits."""
+    from repro_torch.core.subcge import update_shapes
+    from repro_torch.models.params import subcge_meta
+    from repro_torch.models.transformer import arch_spec
+    return update_shapes(subcge_meta(arch_spec(arch)), C)
+
+
+def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
+    """The update kernel through ``e.name``'s wrapper (``subcge_apply``, or
+    ``subcge_apply_epochs`` with E epochs) at each leaf, launched on the
+    whole leaf as the main path launches it: held against the plain version
+    on every instance (in slices of W of at most CHECK_SLICE_BYTES), bitwise
+    across two calls at E <= 2, and timed beside the plain version,
+    ``baddbmm`` (the library call) and a ``copy_`` of W (the rate at which
+    this card streams the same bytes)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import subcge_apply as sa
+    for batch, n, m, count in leaves:
+        nb = math.prod(batch)
+        W = randn(nb, n, m, scale=0.05)
+        U, Vm = randn(E, n, r), randn(E, m, r)
+        # coefficients of a few messages: deltas comparable to W itself
+        A = randn(E, nb, r, r, scale=1e-2)
+        if e.name == "subcge_apply":
+            def fn():
+                return ops.subcge_apply(W, U[0], A[0], Vm[0])
+
+            def plain(lo=0, hi=nb):
+                return sa.subcge_apply_plain(W[lo:hi], U[0], A[0, lo:hi],
+                                             Vm[0])
+        else:
+            def fn():
+                return ops.subcge_apply_epochs(W, U, A, Vm)
+
+            def plain(lo=0, hi=nb):
+                return sa.subcge_apply_epochs_plain(W[lo:hi], U, A[:, lo:hi],
+                                                    Vm)
+        plan = sa.update_plan(nb, n, m, r, E)
+        shape = (f"E={E} W({','.join(map(str, batch))},{n},{m}) r={r} "
+                 f"bc={plan.bc}")
+        got = fn()
+        if E <= 2:
+            same_bits(got, fn(), e.name)
+        step = max(1, CHECK_SLICE_BYTES // (4 * n * m))
+        err = want_max = 0.0
+        for lo in range(0, nb, step):
+            hi = min(nb, lo + step)
+            want = plain(lo, hi)
+            se, sw = e.check(got[lo:hi], want, f"{shape} [{lo}:{hi}]")
+            err, want_max = max(err, se), max(want_max, sw)
+            del want
+        ms = time_ms(fn, 5)
+        c_ms = time_ms(lambda: got.copy_(W), 5)   # got is checked: reuse it
+        del got
+        torch.cuda.empty_cache()
+        p_ms = time_ms(plain, 5)
+        UA = torch.einsum("enr,ebrs->bnes", U, A).reshape(nb, n, E * r)
+        Vt = Vm.permute(0, 2, 1).reshape(E * r, m).expand(nb, E * r, m)
+        l_ms = time_ms(lambda: torch.baddbmm(W, UA, Vt), 5)
+        nbytes = 4 * (2 * nb * n * m + E * (n * r + m * r + nb * r * r))
+        flops = 2 * E * nb * (n * m * r + n * r * r)
+        e.add_checked((err, want_max), ms, p_ms, l_ms, nbytes, flops, shape,
+                      count)
+        gbs = 2 * nb * n * m * 4 / ms / 1e6   # W read + written, per second
+        log(f"    update {shape}: {gbs:.1f} GB/s = "
+            f"{gbs * 1e9 / PEAK_HBM_BYTES:.1%} of 3.35 TB/s; kernel/baddbmm "
+            f"{ms / l_ms:.3f}x; copy_ of W {c_ms:.4f} ms (kernel/copy_ "
+            f"{ms / c_ms:.3f}x); checked in {-(-nb // step)} slice(s)")
+        del W, UA, Vt
         torch.cuda.empty_cache()
 
 
@@ -280,9 +359,6 @@ def phase_kernels(qwen, C: int, M: int) -> dict:
     shapes one training step gives it (one layer's seven projections, the
     logits, one update of every matrix leaf)."""
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import rank1_matmul as r1
-    from repro_torch.kernels import subcge_apply as sa
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -295,74 +371,32 @@ def phase_kernels(qwen, C: int, M: int) -> dict:
     # the delayed-flood shapes (E >= 2) are checked and printed, not summed
     # into the main path's entry
     extra = {E: Entry("subcge_apply_epochs") for E in (2, 4)}
-    d, ff, V, L = qwen.d_model, qwen.groups[0].slots[0].d_ff, qwen.vocab, \
-        qwen.n_layers
-    r = 16
-    s = torch.tensor([1e-3, -1e-3] * (C // 2), device=dev)
+    d, ff, V = qwen.d_model, qwen.groups[0].slots[0].d_ff, qwen.vocab
 
     # rank1_matmul: the seven projections of one layer, all clients
     check_rank1(entries["rank1_matmul"], C, M,
                 (((d, d), 4), ((d, ff), 2), ((ff, d), 1)), randn)
 
     # rank1_matmul_t: the tied logits
-    e = entries["rank1_matmul_t"]
-    x, W = randn(C, M, d), randn(C, V, d, scale=0.02)
-    u, v = randn(C, V), randn(C, d)
-    got = ops.rank1_matmul_t(x, W, u, v, s)
-    want = r1.rank1_matmul_t_plain(x, W, u, v, s)
-    R = (s[:, None, None] * torch.bmm(x, v[..., None])) * u[:, None, :]
-    e.add(got, want, time_ms(lambda: ops.rank1_matmul_t(x, W, u, v, s), 5),
-          time_ms(lambda: r1.rank1_matmul_t_plain(x, W, u, v, s), 5),
-          time_ms(lambda: torch.baddbmm(R, x, W.transpose(1, 2)), 5),
-          4 * (C * M * d + C * V * d + C * V + C * d + C + C * M * V),
-          2 * C * M * d * (V + 1) + 3 * C * M * V, f"x({C},{M},{d}) W({C},{V},{d})")
-    del x, W, got, want, R
-    torch.cuda.empty_cache()
+    check_rank1(entries["rank1_matmul_t"], C, M, (((d, V), 1),), randn,
+                trans=True)
 
     # subcge_apply (own update) and subcge_apply_epochs (replay, E = 2, 4):
     # every matrix leaf of the stacked client params
-    leaves = [((C,), V, d, 1)] + [((C, L), d, d, 4), ((C, L), d, ff, 2),
-                                  ((C, L), ff, d, 1)]
+    leaves = update_leaves(qwen, C)
     for name, E in (("subcge_apply", 1), ("subcge_apply_epochs", 1),
                     ("subcge_apply_epochs", 2), ("subcge_apply_epochs", 4)):
-        e = entries[name] if E == 1 else extra[E]
-        for batch, n, m, count in leaves:
-            nb = math.prod(batch)
-            W = randn(*batch, n, m, scale=0.05)
-            U, Vm = randn(E, n, r), randn(E, m, r)
-            # coefficients of a few messages: deltas comparable to W itself
-            A = randn(E, *batch, r, r, scale=1e-2)
-            if name == "subcge_apply":
-                def fn():
-                    return ops.subcge_apply(W, U[0], A[0], Vm[0])
-
-                def plain():
-                    return sa.subcge_apply_plain(W, U[0], A[0], Vm[0])
-            else:
-                def fn():
-                    return ops.subcge_apply_epochs(W, U, A, Vm)
-
-                def plain():
-                    return sa.subcge_apply_epochs_plain(W, U, A, Vm)
-            got, want = fn(), plain()
-            UA = torch.einsum("enr,ebrs->bnes", U,
-                              A.reshape(E, nb, r, r)).reshape(nb, n, E * r)
-            Vt = Vm.permute(0, 2, 1).reshape(E * r, m).expand(nb, E * r, m)
-            Wf = W.reshape(nb, n, m)
-            ms, p_ms = time_ms(fn, 5), time_ms(plain, 5)
-            l_ms = time_ms(lambda: torch.baddbmm(Wf, UA, Vt), 5)
-            nbytes = 4 * (2 * nb * n * m + E * (n * r + m * r + nb * r * r))
-            flops = 2 * E * nb * (n * m * r + n * r * r)
-            shape = f"E={E} W({','.join(map(str, batch))},{n},{m}) r={r}"
-            e.add(got, want, ms, p_ms, l_ms, nbytes, flops, shape, count)
-            del W, got, want, UA, Vt, Wf
-            torch.cuda.empty_cache()
+        check_update(entries[name] if E == 1 else extra[E], leaves, E, randn)
+    for E, ex in extra.items():
+        log(f"[2] qwen E={E} (delayed replay, not summed) {ex.line()}")
     return entries
 
 
 def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
-    """rank1_matmul and rank1_matmul_expert at the Kimi K2 cut's shapes, each
-    summed over what one training step's forward gives it per layer: the
+    """rank1_matmul, rank1_matmul_expert and the update kernel at the Kimi
+    K2 cut's shapes.  The update: one update of every matrix leaf.  The
+    products: each summed over what one training step's forward gives it
+    per layer: the
     attention, router, shared-expert and head projections, and the three
     expert products (w1, w3 of 7168 -> 2048, w2 of 2048 -> 7168) over the
     capacity buffer of every client and expert."""
@@ -380,7 +414,9 @@ def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
     a, mo, d = slot.attn, slot.moe, kimi.d_model
     q, kv, fs = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim, \
         mo.n_shared * mo.d_ff_expert
-    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_expert")}
+    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_expert",
+                                     "subcge_apply")}
+    check_update(entries["subcge_apply"], update_leaves(kimi, C), 1, randn)
     check_rank1(entries["rank1_matmul"], C, M,
                 (((d, q), 1), ((d, kv), 2), ((q, d), 1), ((d, mo.n_experts), 1),
                  ((d, fs), 2), ((fs, d), 1), ((d, kimi.vocab), 1)), randn)
@@ -413,8 +449,9 @@ def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
 
 
 def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
-    """rank1_matmul and selective_scan at the Falcon Mamba cut's shapes, each
-    summed over what one layer of one signed forward gives it: in_proj,
+    """rank1_matmul, selective_scan and the update kernel at the Falcon Mamba
+    cut's shapes.  The update: one update of every matrix leaf.  The others:
+    each summed over what one layer of one signed forward gives it: in_proj,
     x_proj (N = 288 and dt_proj K = 256 are ragged against the tiles),
     dt_proj, out_proj and the head; one scan over the C·B folded batch.
     The scan is also held at a small odd shape (T off the 8-step prefetch,
@@ -432,7 +469,9 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
     m, d = falcon.groups[0].slots[0].mamba, falcon.d_model
     Di, N = m.d_inner, m.d_state
     dtr = m.dt_rank or -(-d // 16)
-    entries = {n: Entry(n) for n in ("rank1_matmul", "selective_scan")}
+    entries = {n: Entry(n) for n in ("rank1_matmul", "selective_scan",
+                                     "subcge_apply")}
+    check_update(entries["subcge_apply"], update_leaves(falcon, C), 1, randn)
     check_rank1(entries["rank1_matmul"], C, B * T,
                 (((d, 2 * Di), 1), ((Di, dtr + 2 * N), 1), ((dtr, Di), 1),
                  ((Di, d), 1), ((d, falcon.vocab), 1)), randn)
@@ -527,11 +566,19 @@ def phase_profile(arch, C: int, B: int, device: str, steps: int = 3) -> dict:
     top = sorted(((k[:90], ms, n) for k, (ms, n) in kernels.items()),
                  key=lambda k: -k[1])
     busy_ms = sum(ms for ms, _ in kernels.values())
+    # the hand-written kernels that ran, by name: rank1_matmul_t runs
+    # rank1_gemm, and the older transposed tile (rank1_matmul_kernel) must
+    # not appear
+    ours = {k.split("namespace)::")[-1].split("(")[0]: (ms, n)
+            for k, (ms, n) in kernels.items()
+            if any(w in k for w in ("rank1_", "subcge_", "selective_scan"))}
+    if any("rank1_matmul_kernel" in k for k in ours):
+        raise AssertionError(f"profile: the old rank-1 tile still runs: {ours}")
     del state, setup
     return {"wall_ms": wall_ms, "spans_ms": spans, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "device_launches": sum(n for _, n in kernels.values()),
-            "top_kernels": top[:12]}
+            "top_kernels": top[:12], "hand_written_kernels": ours}
 
 
 def check_run(res, ledger, what: str) -> None:
@@ -584,8 +631,7 @@ def main(argv=None) -> int:
 
     # 2. kernels at the main paths' shapes
     qwen = archs.get("qwen1.5-0.5b")
-    kimi = kimi_cut(archs.get("kimi-k2-1t-a32b"))
-    falcon = falcon_cut(archs.get("falcon-mamba-7b"))
+    kimi, falcon = archs.kimi_cut(), archs.falcon_cut()
     C, B, T = 8, 8, 33           # clients, batch, 32 tokens + the label slot
     log(f"[2] kernels vs plain versions at Qwen1.5-0.5B shapes ({card})")
     entries = {"qwen": phase_kernels(qwen, C, B * T)}
@@ -665,7 +711,7 @@ def main(argv=None) -> int:
         if launches["kimi"].get(name, 0) <= 0:
             raise AssertionError(f"kimi: kernel {name} never launched")
     # w1, w3 and w2 of one layer in each of the two signed forwards
-    want = 6 * KIMI_LAYERS * 3
+    want = 6 * archs.KIMI_LAYERS * 3
     if launches["kimi"]["rank1_matmul_expert"] != want:
         raise AssertionError(f"kimi: rank1_matmul_expert launched "
                              f"{launches['kimi']['rank1_matmul_expert']} "
@@ -680,7 +726,7 @@ def main(argv=None) -> int:
     # each of the 3 steps, and the final accuracy pass of the averaged model
     # (``RunResult.gmp``) over the 1000-sample test split in batches of 128
     n_eval = -(-synthetic.TaskConfig().n_test // EVAL_BATCH)
-    want = FALCON_LAYERS * (2 * 3 + n_eval)
+    want = archs.FALCON_LAYERS * (2 * 3 + n_eval)
     if launches["falcon"].get("selective_scan", 0) != want:
         raise AssertionError(f"falcon: selective_scan launched "
                              f"{launches['falcon'].get('selective_scan', 0)} "

@@ -6,6 +6,10 @@ slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; an MoE slot keeps 4
 experts, top-min(2, k), expert width 2·d, at most one shared expert and
 capacity factor 8 (drop-free); a Mamba slot gets d_inner 2·d, state 4,
 conv 4 and dt_rank 8.
+
+``kimi_cut`` and ``falcon_cut`` are the one-card cuts of Kimi K2 and Falcon
+Mamba 7B that ``chip_smoke.py`` trains: every width as published, depth and
+experts cut (``KIMI_*``, ``FALCON_LAYERS``).
 """
 from __future__ import annotations
 
@@ -47,6 +51,32 @@ def get(name: str) -> ArchConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch '{name}' (have {sorted(REGISTRY)})")
     return REGISTRY[name]
+
+
+#: Kimi K2 cut to one card's share (published: 61 layers, 384 experts, vocab
+#: 163840): every layer is the same slot, 32 experts are what one of 12
+#: expert-parallel cards holds (the router is cut with them), and the
+#: vocabulary is cut to one eighth; every width stays as published
+KIMI_LAYERS, KIMI_EXPERTS, KIMI_VOCAB = 1, 32, 20_480
+#: Falcon Mamba 7B cut in depth only (published: 64 layers): every layer is
+#: the same slot; 64 layers x 8 client replicas would be 232.7 GB
+FALCON_LAYERS = 4
+
+
+def kimi_cut(cfg: ArchConfig = KIMI_K2) -> ArchConfig:
+    """Kimi K2 at its published widths, cut to one card's share."""
+    slot = cfg.groups[0].slots[0]
+    moe = dataclasses.replace(slot.moe, n_experts=KIMI_EXPERTS)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-cut", vocab=KIMI_VOCAB,
+        groups=(Group((dataclasses.replace(slot, moe=moe),), KIMI_LAYERS),))
+
+
+def falcon_cut(cfg: ArchConfig = FALCON_MAMBA_7B) -> ArchConfig:
+    """Falcon Mamba 7B at its published widths, cut in depth."""
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-cut",
+        groups=(Group(cfg.groups[0].slots, FALCON_LAYERS),))
 
 
 def _shrink_attn(a: AttnCfg | None, d: int) -> AttnCfg | None:

@@ -45,6 +45,19 @@ class LeafMeta:
         return len(self.inst_shape) == 2
 
 
+def update_shapes(meta: dict[str, LeafMeta], n_clients: int) -> list:
+    """(batch, n, m, count) of every matrix leaf that one update of the
+    stacked ``n_clients``-client params visits (``apply_messages``,
+    ``apply_messages_epoch``): batch is (clients, *layer instances), and
+    ``count`` leaves of the same shape are merged into one entry."""
+    out: dict[tuple, int] = {}
+    for m in meta.values():
+        if m.is_matrix:
+            key = ((n_clients,) + m.batch_shape, *m.inst_shape)
+            out[key] = out.get(key, 0) + 1
+    return [(b, n, mm, k) for (b, n, mm), k in out.items()]
+
+
 @dataclasses.dataclass(frozen=True)
 class SubCGEConfig:
     rank: int = 32

@@ -42,11 +42,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: C entry points per source file: name -> argtypes.
 _SIGNATURES = {
-    "rank1_matmul": {"rank1_matmul_f32": [_P] * 7 + [_I] * 7 + [_L] * 10
-                     + [_P],
-                     "rank1_matmul_t_f32": [_P] * 6 + [_I] * 4 + [_L] * 5
+    "rank1_matmul": {"rank1_matmul_f32": [_P] * 7 + [_I] * 8 + [_L] * 10
                      + [_P]},
-    "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 5 + [_L] * 2
+    "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 11 + [_L] * 2
                      + [_P]},
     "selective_scan": {"selective_scan_f32": [_P] * 6 + [_I] * 4 + [_P]},
 }

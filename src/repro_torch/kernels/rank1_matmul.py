@@ -19,15 +19,16 @@ pair then reads one contiguous column of its subspace.
 Bound on the H100: the float32 FMA rate of the CUDA cores (67 TFLOP/s); at
 the main paths' shapes a product does 40 to 130 flops per byte it must
 move.  No TF32: the ZO coefficient (L+ − L−) / 2ε amplifies its ~3-digit
-error.  ``rank1_matmul`` and ``rank1_matmul_expert`` run one kernel (the
-plain product is the expert product with E = 1): an 88 × 128 output tile
-per 128-thread block, 11 × 8 float32 accumulators per thread, slabs of 16 k
-streamed through a 4-stage ``cp.async`` ring in shared memory, and the
-rank-1 dot x·u spread over the whole block on the same slabs, so W is read
-once per output tile.  Where the output tiles are too few to fill the card,
+error.  All three run one kernel, ``rank1_gemm`` (the plain product is the
+expert product with E = 1; the transposed product is a template flag that
+copies W's rows along K, as x's are, and stores them [n][k]): an
+88 × 128 output tile per 128-thread block, 11 × 8 float32 accumulators
+per thread, slabs of 16 k streamed through a 4-stage ``cp.async`` ring in
+shared memory, and the rank-1 dot (x·u, or x·v for ``rank1_matmul_t``)
+spread over the whole block on the same slabs, so W is read once per
+output tile.  Where the output tiles are too few to fill the card,
 :func:`split_plan` cuts K into ranges whose partial sums a second kernel
 adds in a fixed order (no atomics: the same inputs give the same bits).
-``rank1_matmul_t`` keeps its older 64 × 128 tile with synchronous loads.
 W may be a strided view of the stacked parameters (its client and expert
 strides are passed to the kernel); the inner (K, N) / (O, K) matrix must be
 contiguous.
@@ -45,8 +46,6 @@ from repro_torch.kernels import build
 
 #: output tile (rows, columns) and k-slab of ``rank1_gemm`` in the .cu file
 TILE_M, TILE_N, TILE_K = 88, 128, 16
-#: output tile of ``rank1_matmul_t``'s older kernel
-TILE_M_T = 64
 #: streaming multiprocessors of an H100 SXM, and the blocks of ``rank1_gemm``
 #: one holds at a time (its registers allow two)
 SMS, BLOCKS_PER_SM = 132, 2
@@ -131,11 +130,13 @@ def _check_inner(x, W, u, v, s):
         raise ValueError("u/v/s must be contiguous along their last axis")
 
 
-def _gemm(name, x, W, u, v, s, y, E, strides):
-    """Launch ``rank1_matmul_f32`` for x (C, [E,] M, K) and W (C, [E,] K, N)
-    into y (C, [E,] M, N); ``strides`` are the client and expert strides of
-    x, W, u, v and y (an expert stride of 0 for ``rank1_matmul``)."""
-    C, M, K, N = x.shape[0], x.shape[-2], x.shape[-1], W.shape[-1]
+def _gemm(name, x, W, u, v, s, y, E, strides, trans=False):
+    """Launch ``rank1_matmul_f32`` for x (C, [E,] M, K) and W (C, [E,] K, N),
+    or W (C, O, K) read transposed (``trans``), into y (C, [E,] M, N);
+    ``strides`` are the client and expert strides of x, W, u (the
+    contracted vector), v (the output vector) and y (an expert stride of 0
+    for the dense products)."""
+    C, M, K, N = x.shape[0], x.shape[-2], x.shape[-1], y.shape[-1]
     splits, kper = split_plan(C * E, M, N, K)
     if _cdiv(N, TILE_N) > GRID_YZ or C * E * splits > GRID_YZ:
         raise ValueError("grid too large")
@@ -146,7 +147,7 @@ def _gemm(name, x, W, u, v, s, y, E, strides):
     err = lib.rank1_matmul_f32(
         x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
         y.data_ptr(), None if part is None else part.data_ptr(), C, E, M, N, K,
-        splits, kper, *strides, build.stream_of(x))
+        splits, kper, int(trans), *strides, build.stream_of(x))
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return y
@@ -180,17 +181,11 @@ def rank1_matmul_t(x, W, u, v, s):
     if u.shape != (C, O) or v.shape != (C, K) or s.shape != (C,):
         raise ValueError("u/v/s shapes do not match x and W")
     _check_inner(x, W, u, v, s)
-    if _cdiv(M, TILE_M_T) > GRID_YZ or C > GRID_YZ:
-        raise ValueError("grid too large")
-    lib = build.load("rank1_matmul")
     y = torch.empty((C, M, O), dtype=torch.float32, device=x.device)
-    err = lib.rank1_matmul_t_f32(
-        x.data_ptr(), W.data_ptr(), v.data_ptr(), u.data_ptr(), s.data_ptr(),
-        y.data_ptr(), C, M, O, K, x.stride(0), W.stride(0), v.stride(0),
-        u.stride(0), y.stride(0), build.stream_of(x))
-    build.check(err, "rank1_matmul_t")
-    build.LAUNCHES["rank1_matmul_t"] += 1
-    return y
+    # the contracted vector is v (K), the output vector u (O)
+    return _gemm("rank1_matmul_t", x, W, v, u, s, y, 1,
+                 (x.stride(0), 0, W.stride(0), 0, v.stride(0), 0, u.stride(0),
+                  0, M * O, 0), trans=True)
 
 
 def rank1_matmul_expert(x, W, u, v, s):

@@ -6,12 +6,20 @@ Replaces the Pallas TPU kernels ``repro/kernels/subcge_apply.py``
 * ``subcge_apply``        W (*B,n,m) + U (n,r) A (*B,r,r) V (m,r)^T
 * ``subcge_apply_epochs`` W (*B,n,m) + Σ_e U (E,n,r)[e] A (E,*B,r,r)[e] V (E,m,r)[e]^T
 
-Instance dims ``*B`` (clients x stacked layers) collapse into one grid axis.
-Bound on the H100: HBM bytes, one read and one write of W; the kernel loops
-over epochs inside each tile so W is streamed once for any E.  Unlike the
-JAX package, ``subcge_apply_epochs`` launches its own kernel for E = 1 as
-well (the Pallas wrapper delegates that case to ``subcge_apply``); the
-arithmetic is the same.
+Instance dims ``*B`` (clients x stacked layers) collapse into one axis.
+Bound on the H100: HBM bytes, one read and one write of W (4·E flops per
+byte at r = 16, below the float32 ridge).  The kernel is one streaming
+pass over a persistent grid: each block walks a contiguous range of
+(instance, column chunk, row tile) and keeps A V^T of the current
+(instance, chunk) in shared memory.  It copies the next tile of W into
+shared memory (16-byte ``cp.async``) while it forms the current tile's
+delta in registers, and stores W + delta with the evict-first hint.
+Epochs loop inside the tile, so W is streamed once for any E.  The
+geometry (chunk width, tiles per block, epochs per shared-memory group) is
+the pure function :func:`update_plan`.  Unlike the JAX package,
+``subcge_apply_epochs`` launches its own kernel for E = 1 as well (the
+Pallas wrapper delegates that case to ``subcge_apply``); the arithmetic is
+the same.
 
 ``inplace=True`` writes the result into W (the port's counterpart of the
 JAX package's donated buffers) and returns it.  Each wrapper runs its plain
@@ -20,11 +28,77 @@ kernel or raises.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
 
 from repro_torch.kernels import build
+
+#: threads of a block, rows each thread owns in a tile (``NT``, ``RPT`` in
+#: the .cu file), and the largest rank the kernel takes
+THREADS, ROWS_PER_THREAD, MAX_RANK = 256, 4, 32
+#: chunk widths the kernel takes (``bc``: bc / 4 lanes cover a row)
+CHUNK_WIDTHS = (4, 8, 16, 32, 64, 128)
+#: floats of A V^T a block keeps (64 KB): G = this // (r · bc) epochs
+AV_FLOATS = 16384
+#: the ring of W tiles in shared memory: 2 stages x 4 rows x 256 threads x 16 B
+RING_BYTES = 2 * ROWS_PER_THREAD * THREADS * 16
+#: the persistent grid: three blocks on each of 132 SMs
+SLOTS = 3 * 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdatePlan:
+    """Geometry of one ``subcge_apply_f32`` launch.  Tile ``g`` is row tile
+    ``g % tiles`` (``tile_rows`` rows) of column chunk ``g // tiles %
+    chunks`` (``bc`` columns) of instance ``g // (tiles · chunks)``; block
+    ``k`` takes tiles ``[k · per, (k + 1) · per)`` of them, cut at the
+    last."""
+    bc: int
+    tile_rows: int
+    tiles: int
+    chunks: int
+    per: int
+    blocks: int
+    groups: int         # G: epochs whose A V^T a block keeps at once
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=1024)
+def update_plan(nb: int, n: int, m: int, r: int, E: int) -> UpdatePlan:
+    """The kernel's geometry for ``nb`` instances of an (n, m) leaf, rank r,
+    E epochs.  A pure function of the shape.
+
+    The chunk width is the widest that pads m by at most 1/8 over the
+    least padding any width gives (m = 4, 16, 32 take one chunk of their
+    own width, m = 288 five of 64): a narrower chunk reads U's rows more
+    often for the same bytes of W, and masked columns cost only FMAs.  The
+    tiles are dealt in equal contiguous ranges to at most ``SLOTS`` blocks.
+    Raises ``ValueError`` on what the kernel refuses: r outside [1, 32] or
+    an empty shape."""
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"unsupported rank r={r} (1 <= r <= {MAX_RANK})")
+    if min(nb, n, m, E) < 1:
+        raise ValueError(f"empty update: instances={nb}, n={n}, m={m}, E={E}")
+    padded = {bc: _cdiv(m, bc) * bc for bc in CHUNK_WIDTHS}
+    least = min(padded.values())
+    bc = max(w for w in CHUNK_WIDTHS if 8 * padded[w] <= 9 * least)
+    tile_rows = THREADS // 32 * ROWS_PER_THREAD * (128 // bc)
+    tiles, chunks = _cdiv(n, tile_rows), _cdiv(m, bc)
+    total = nb * chunks * tiles
+    per = _cdiv(total, min(total, SLOTS))
+    if per > 2**31 - 1:
+        raise ValueError(f"update too large: {total} tiles")
+    groups = min(E, AV_FLOATS // (r * bc))
+    smem = RING_BYTES + 4 * (groups * r * bc + r * r + bc * (r | 1))
+    return UpdatePlan(bc, tile_rows, tiles, chunks, per, _cdiv(total, per),
+                      groups, smem)
 
 
 def subcge_apply_epochs_plain(W, U, A, V, *, inplace: bool = False):
@@ -61,14 +135,15 @@ def _launch(W, U, A, V, inplace, name):
         raise ValueError("W: inner matrix must be contiguous")
     if inplace and Wf.data_ptr() != W.data_ptr():
         raise ValueError("inplace update needs a W whose batch dims flatten")
-    if not 1 <= r <= 32 or (n + 31) // 32 > 65535 or nb > 65535:
-        raise ValueError(f"unsupported shape: r={r}, n={n}, instances={nb}")
+    plan = update_plan(nb, n, m, r, E)
     out = W if inplace else torch.empty_like(W)
     Of = out.reshape(nb, n, m)
     lib = build.load("subcge_apply")
-    err = lib.subcge_apply_f32(Wf.data_ptr(), Of.data_ptr(), U.data_ptr(),
-                               A.data_ptr(), V.data_ptr(), E, nb, n, m, r,
-                               Wf.stride(0), Of.stride(0), build.stream_of(W))
+    err = lib.subcge_apply_f32(
+        Wf.data_ptr(), Of.data_ptr(), U.data_ptr(), A.data_ptr(), V.data_ptr(),
+        E, nb, n, m, r, plan.bc.bit_length() - 1, plan.chunks, plan.per,
+        plan.blocks, plan.groups, plan.smem_bytes, Wf.stride(0), Of.stride(0),
+        build.stream_of(W))
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return out

@@ -99,6 +99,70 @@ def test_subcge_kernels_match_plain(cuda, E):
                                    rtol=RTOL, atol=ATOL)
 
 
+def _update_inputs(cuda, seed, E, C, L, n, m, r):
+    """The stacked (C, L, n, m) params, W their strided (C, n, m) view at
+    layer L - 1, U (E, n, r), A (E, C, r, r), V (E, m, r); A scaled by r^-1
+    so the delta stays near 1."""
+    rng = np.random.default_rng(seed)
+    Wst = torch.from_numpy(_f32(rng, C, L, n, m)).to(cuda)
+    U, V = _f32(rng, E, n, r), _f32(rng, E, m, r)
+    A = _f32(rng, E, C, r, r) / r
+    return (Wst, Wst[:, L - 1],
+            *(torch.from_numpy(a).to(cuda) for a in (U, A, V)))
+
+
+# (E, n, m, r): ragged n against the tile rows; m % 4 != 0 (4-byte path),
+# m < 128 (narrow chunks: Falcon's conv_w m = 4, A_log m = 16, the Kimi
+# router m = 32), Falcon's x_proj m = 288; r in {1, 16, 32}; E = 5 at r = 32
+# keeps A V^T of 4 epochs at a time, so it is rebuilt per tile
+UPDATE_SHAPES = [(1, 70, 150, 16), (2, 300, 4, 16), (3, 1000, 16, 1),
+                 (4, 65, 33, 32), (1, 517, 288, 16), (2, 129, 1024, 16),
+                 (5, 200, 130, 32), (1, 3000, 32, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", UPDATE_SHAPES,
+                         ids=lambda a: "E{}-n{}-m{}-r{}".format(*a))
+def test_update_kernel_in_place_on_stacked_view(cuda, shape):
+    """The streaming update in place on a strided view of stacked layers,
+    held against the plain version; the other layer is untouched."""
+    E, n, m, r = shape
+    Wst, W, U, A, V = _update_inputs(cuda, sum(shape), E, 3, 2, n, m, r)
+    layer0 = Wst[:, 0].clone()
+    want = ops.subcge_apply_epochs(*(t.cpu() for t in (W, U, A, V)))
+    build.reset_launches()
+    if E == 1:
+        out = ops.subcge_apply(W, U[0], A[0], V[0], inplace=True)
+    else:
+        out = ops.subcge_apply_epochs(W, U, A, V, inplace=True)
+    torch.cuda.synchronize()
+    assert out is W and sum(build.LAUNCHES.values()) == 1
+    np.testing.assert_allclose(W.cpu().numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(Wst[:, 0], layer0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [1, 2])
+def test_update_kernel_is_deterministic(cuda, E):
+    """Two calls on the same inputs give the same bits."""
+    _, W, U, A, V = _update_inputs(cuda, 40 + E, E, 2, 2, 1000, 1024, 16)
+    a, b = ops.subcge_apply_epochs(W, U, A, V), ops.subcge_apply_epochs(
+        W, U, A, V)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_update_kernel_refuses_rank_33(cuda):
+    """r = 33 is past the kernel's limit: it raises, never falls back."""
+    _, W, U, A, V = _update_inputs(cuda, 3, 1, 2, 1, 40, 64, 33)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="rank"):
+        ops.subcge_apply(W, U[0], A[0], V[0])
+    assert build.LAUNCHES["subcge_apply"] == 0
+
+
 def _expert_inputs(cuda, seed, M, K, N):
     """W is the strided (C, E, K, N) view of stacked (C, L, E, K, N) params
     at layer 1; C = 2 clients, E = 3 experts; W and u scaled by K^-1/2."""
@@ -128,19 +192,44 @@ def test_rank1_expert_kernel_matches_plain(cuda, mkn):
                                atol=ATOL)
 
 
+# (M, K, O) of rank1_matmul_t: M in {1, 67, 264}; O ragged against the
+# 128-column tile; K = 50 takes the 4-byte path; Qwen's tied width K = 1024;
+# (264, 8192, 288) splits K
+RANK1_T_SHAPES = [(1, 64, 300), (67, 50, 133), (264, 1024, 1000),
+                  (264, 8192, 288)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("expert,mkn", [(False, (264, 7168, 32)),
-                                        (False, (264, 256, 8192)),
-                                        (True, (83, 50, 133)),
-                                        (True, (83, 2048, 7168))],
+@pytest.mark.parametrize("mko", RANK1_T_SHAPES,
+                         ids=lambda a: "x".join(map(str, a)))
+def test_rank1_t_kernel_matches_plain(cuda, mko):
+    M, K, O = mko
+    t = _rank1_inputs(cuda, 11 + K, 8, M, K, O, trans=True)
+    build.reset_launches()
+    got = ops.rank1_matmul_t(*t)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rank1_matmul_t"] == 1
+    plain = ops.rank1_matmul_t(*(a.cpu() for a in t))
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,mkn", [("n", (264, 7168, 32)),
+                                      ("n", (264, 256, 8192)),
+                                      ("e", (83, 50, 133)),
+                                      ("e", (83, 2048, 7168)),
+                                      ("t", (264, 1024, 1000)),
+                                      ("t", (264, 8192, 288))],
                          ids=["router-split", "dt_proj", "expert-split",
-                              "expert-w2"])
-def test_rank1_kernels_are_deterministic(cuda, expert, mkn):
+                              "expert-w2", "transposed", "transposed-split"])
+def test_rank1_kernels_are_deterministic(cuda, kind, mkn):
     """No atomics: two calls on the same inputs give the same bits, with
     and without the split-K reduction."""
-    t = (_expert_inputs(cuda, 1, *mkn) if expert
-         else _rank1_inputs(cuda, 1, 8, *mkn))
-    fn = ops.rank1_matmul_expert if expert else ops.rank1_matmul
+    t = (_expert_inputs(cuda, 1, *mkn) if kind == "e"
+         else _rank1_inputs(cuda, 1, 8, *mkn, trans=kind == "t"))
+    fn = {"n": ops.rank1_matmul, "e": ops.rank1_matmul_expert,
+          "t": ops.rank1_matmul_t}[kind]
     a, b = fn(*t), fn(*t)
     torch.cuda.synchronize()
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))

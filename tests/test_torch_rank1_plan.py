@@ -1,10 +1,11 @@
-"""The split-K plan of ``rank1_matmul`` and ``rank1_matmul_expert`` (CPU).
+"""The split-K plan of ``rank1_matmul``, ``rank1_matmul_expert`` and
+``rank1_matmul_t`` (CPU).
 
 ``split_plan`` is the pure function of the shape that decides how the
 kernel's K loop is cut; it runs here for every shape the three slices'
-main paths give the two kernels: Qwen1.5-0.5B, the Kimi K2 cut (32 of 384
-experts, the router cut with them, vocab 20480) and the Falcon Mamba 7B
-cut, 8 clients × 264 rows (8 sequences of 33 tokens), and a Kimi expert's
+main paths give the two kernels: Qwen1.5-0.5B, the Kimi K2 cut
+(``archs.kimi_cut``: 32 of 384 experts, the router cut with them, vocab
+20480) and the Falcon Mamba 7B cut (``archs.falcon_cut``), 8 clients × 264 rows (8 sequences of 33 tokens), and a Kimi expert's
 capacity of 83 rows.
 """
 import math
@@ -17,7 +18,6 @@ from repro_torch.configs import archs  # noqa: E402
 from repro_torch.kernels import rank1_matmul as r1  # noqa: E402
 
 C, M = 8, 8 * 33
-KIMI_EXPERTS, KIMI_VOCAB = 32, 20_480
 
 
 def _main_path_shapes():
@@ -25,23 +25,25 @@ def _main_path_shapes():
     q = archs.get("qwen1.5-0.5b")
     d, ff = q.d_model, q.groups[0].slots[0].d_ff
     shapes = {"qwen/attn": (C, M, d, d), "qwen/up": (C, M, ff, d),
-              "qwen/down": (C, M, d, ff)}
-    k = archs.get("kimi-k2-1t-a32b")
+              "qwen/down": (C, M, d, ff),
+              # the tied logits, rank1_matmul_t: N = the vocabulary
+              "qwen/logits_t": (C, M, q.vocab, d)}
+    k = archs.kimi_cut()
     slot = k.groups[0].slots[0]
     a, mo, d = slot.attn, slot.moe, k.d_model
-    cap = math.ceil(M * mo.top_k / KIMI_EXPERTS * mo.capacity_factor)
+    cap = math.ceil(M * mo.top_k / mo.n_experts * mo.capacity_factor)
     shapes.update({
         "kimi/q": (C, M, a.n_heads * a.head_dim, d),
         "kimi/kv": (C, M, a.n_kv_heads * a.head_dim, d),
         "kimi/o": (C, M, d, a.n_heads * a.head_dim),
-        "kimi/router": (C, M, KIMI_EXPERTS, d),
+        "kimi/router": (C, M, mo.n_experts, d),
         "kimi/shared_up": (C, M, mo.n_shared * mo.d_ff_expert, d),
         "kimi/shared_down": (C, M, d, mo.n_shared * mo.d_ff_expert),
-        "kimi/head": (C, M, KIMI_VOCAB, d),
-        "kimi/expert_up": (C * KIMI_EXPERTS, cap, mo.d_ff_expert, d),
-        "kimi/expert_down": (C * KIMI_EXPERTS, cap, d, mo.d_ff_expert),
+        "kimi/head": (C, M, k.vocab, d),
+        "kimi/expert_up": (C * mo.n_experts, cap, mo.d_ff_expert, d),
+        "kimi/expert_down": (C * mo.n_experts, cap, d, mo.d_ff_expert),
     })
-    f = archs.get("falcon-mamba-7b")
+    f = archs.falcon_cut()
     m, d = f.groups[0].slots[0].mamba, f.d_model
     dtr = m.dt_rank or -(-d // 16)
     shapes.update({
@@ -68,6 +70,17 @@ def test_shapes_are_the_published_ones():
     assert SHAPES["falcon/x_proj"] == (8, 264, 288, 8192)
     assert SHAPES["kimi/expert_up"] == (256, 83, 2048, 7168)
     assert SHAPES["falcon/head"] == (8, 264, 65024, 4096)
+    assert SHAPES["qwen/logits_t"] == (8, 264, 151936, 1024)
+
+
+def test_tied_logits_take_one_split_within_grid_limits():
+    """rank1_matmul_t on Qwen's tied logits: 28,488 output tiles fill the
+    card, so K is not split; the grid (row tiles, column tiles, clients)
+    stays inside CUDA's y and z limits."""
+    batch, M, N, K = SHAPES["qwen/logits_t"]
+    assert r1.split_plan(batch, M, N, K) == (1, K)
+    assert _tiles(batch, M, N, K) == 28_488
+    assert -(-N // r1.TILE_N) <= r1.GRID_YZ and batch <= r1.GRID_YZ
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
