@@ -10,8 +10,9 @@ no result line):
              (one nvcc per source, in parallel); log each kernel's
              registers, spills and shared memory from the ``ptxas``
              report; TF32 off everywhere.
-2. kernels — every kernel of the main paths at the Qwen1.5-0.5B, Kimi K2
-             and Falcon Mamba 7B shapes the paths give it, held against its
+2. kernels — every kernel of the main paths at the Qwen1.5-0.5B, Kimi K2,
+             Falcon Mamba 7B and OPT-125M (64 clients) shapes the paths
+             give it, held against its
              plain PyTorch version (rtol 1e-5, atol 1e-5, float32) and timed
              with CUDA events beside the plain version, one PyTorch library
              call computing the same function (none for the scan), and the
@@ -19,7 +20,7 @@ no result line):
              library call and share of the bound are printed, and each
              unit's sums); the rank-1 products and the update kernel (E <= 2)
              are also held bitwise equal across two calls; the update kernel
-             runs at every matrix leaf of all three slices, beside a
+             runs at every matrix leaf of all four paths, beside a
              ``copy_`` of the same W; then ``prng.normal`` on the card held
              bitwise against the CPU on 2^20 draws.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
@@ -38,15 +39,25 @@ no result line):
              dt_rank 256, vocab 65024, untied head), cut to 4 layers of 64:
              3 steps, ring of 8; ``selective_scan`` must launch exactly
              once per layer in every forward.
-7. small   — the same code on small inputs (the dense sim arch, the
-             reduced Kimi K2 and the reduced Falcon Mamba), on the card and
-             on the CPU (the kernels' plain versions); results must agree.
-8. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
+7. paper   — the paper's own setting: OPT-125M at its full published width
+             (12 layers, d768, 12 heads of 64, ff 3072, vocab 50272, tied
+             embeddings, learned positions, layernorm, relu, QKV bias), 64
+             clients on the 8 x 8 mesh-grid with the bitset flood engine
+             (``flood_backend="auto"``), 3 steps; the ledger must be the
+             JAX FloodTransport's, ``rank1_matmul`` must launch 432 times
+             (6 projections x 12 layers x 2 signed forwards x 3 steps) and
+             ``rank1_matmul_t`` 6 times.
+8. small   — the same code on small inputs (the dense sim arch, the
+             reduced Kimi K2, the reduced Falcon Mamba, and the reduced
+             OPT-125M at 64 clients on the mesh-grid, so that the bitset
+             engine runs on both sides), on the card and on the CPU (the
+             kernels' plain versions); results must agree.
+9. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-of each slice (host spans, device-busy time and share, top kernels, and the
-hand-written kernels that ran, by name).
+of each slice and of the paper's setting (host spans, device-busy time and
+share, top kernels, and the hand-written kernels that ran, by name).
 
 It needs a CUDA device and the repository's ``src/`` next to it.
 """
@@ -72,6 +83,10 @@ PEAK_HBM_BYTES = 3.35e12
 # (tests/test_torch_slice.py pins the port's transport to the same values)
 LEDGER_RING8_3STEPS = (368, 2944)
 LEDGER_RING8_6STEPS_K1_DRAIN = (768, 6144)
+# ... and the 8 x 8 mesh-grid of the paper's setting, bitset engine
+# (tests/test_torch_paper_setting.py pins the port to the same values)
+LEDGER_MESHGRID64_3STEPS = (43000, 344000)
+PAPER_CLIENTS, PAPER_TOPOLOGY = 64, "meshgrid"
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -500,6 +515,34 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
     return entries
 
 
+def phase_kernels_opt(opt, C: int, M: int) -> dict:
+    """The four kernels of the paper-setting path at OPT-125M's shapes for
+    C = 64 clients, summed over what one training step gives each: one
+    layer's six projections (wq, wk, wv, wo of 768 -> 768, w1 768 -> 3072,
+    w2 3072 -> 768), the tied logits (W (50272, 768)), and one update of
+    every matrix leaf (``embed/tok`` alone is 64 x 50272 x 768 floats, past
+    2^31, checked in slices)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_t",
+                                     "subcge_apply", "subcge_apply_epochs")}
+    d, ff, V = opt.d_model, opt.groups[0].slots[0].d_ff, opt.vocab
+    check_rank1(entries["rank1_matmul"], C, M,
+                (((d, d), 4), ((d, ff), 1), ((ff, d), 1)), randn)
+    check_rank1(entries["rank1_matmul_t"], C, M, (((d, V), 1),), randn,
+                trans=True)
+    leaves = update_leaves(opt, C)
+    for name in ("subcge_apply", "subcge_apply_epochs"):
+        check_update(entries[name], leaves, 1, randn)
+    return entries
+
+
 def phase_prng(n: int = 1 << 20) -> None:
     """prng.normal on the card, bitwise the CPU's (which is bitwise
     ``jax.random.normal`` on the CPU, tests/test_torch_prng.py)."""
@@ -515,7 +558,8 @@ def phase_prng(n: int = 1 << 20) -> None:
                              "the card and the CPU")
 
 
-def phase_profile(arch, C: int, B: int, device: str, steps: int = 3) -> dict:
+def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
+                  topology: str = "ring") -> dict:
     """Where one steady step's time goes: the main path's pieces run by
     hand (the same calls ``run`` makes), the last step under
     ``torch.profiler``.  Returns host-span milliseconds, device-busy
@@ -528,10 +572,11 @@ def phase_profile(arch, C: int, B: int, device: str, steps: int = 3) -> dict:
     from repro_torch.dtrain.methods.seedflood import SeedFloodMethod
     from repro_torch.dtrain.runner import DTrainConfig
 
-    cfg = DTrainConfig(arch=arch, n_clients=C, steps=steps, batch_size=B,
-                       device=device)
+    cfg = DTrainConfig(arch=arch, n_clients=C, topology=topology,
+                       steps=steps, batch_size=B, device=device)
     setup = Setup(cfg)
-    method, transport = SeedFloodMethod(cfg), FloodTransport(setup.graph)
+    method = SeedFloodMethod(cfg)
+    transport = FloodTransport(setup.graph, backend=cfg.flood_backend)
     state = method.init(setup)
     cuda = device == "cuda"
 
@@ -581,7 +626,7 @@ def phase_profile(arch, C: int, B: int, device: str, steps: int = 3) -> dict:
             "top_kernels": top[:12], "hand_written_kernels": ours}
 
 
-def check_run(res, ledger, what: str) -> None:
+def check_run(res, ledger, what: str, engine: str = "FloodNetwork") -> None:
     losses = res.loss_curve
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{what}: non-finite loss {losses}")
@@ -591,6 +636,9 @@ def check_run(res, ledger, what: str) -> None:
     if got != ledger:
         raise AssertionError(f"{what}: ledger {got} != JAX FloodTransport's "
                              f"{ledger}")
+    if res.extra["engine"] != engine:
+        raise AssertionError(f"{what}: flood engine {res.extra['engine']}, "
+                             f"not {engine}")
 
 
 def main(argv=None) -> int:
@@ -645,32 +693,44 @@ def main(argv=None) -> int:
     entries["falcon"] = phase_kernels_falcon(falcon, C, B, T)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    opt = archs.get("opt-125m")
+    log(f"[2] kernels vs plain versions at OPT-125M shapes, "
+        f"{PAPER_CLIENTS} clients ({card})")
+    entries["opt"] = phase_kernels_opt(opt, PAPER_CLIENTS, B * T)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     for key, es in entries.items():
         for e in es.values():
             log(f"[2] {key} {e.line()}")
     phase_prng()
 
-    def run_slice(arch, what, phase):
-        """3 SeedFlood steps, ring of 8, launch counters zeroed just before
-        and read just after; returns the launches and the run's numbers."""
+    def run_slice(arch, what, phase, clients=C, topology="ring",
+                  ledger=LEDGER_RING8_3STEPS, engine="FloodNetwork"):
+        """3 SeedFlood steps (8 clients on a ring unless told otherwise),
+        launch counters zeroed just before and read just after; returns
+        the launches and the run's numbers."""
         build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = run(DTrainConfig(arch=arch, n_clients=C, topology="ring",
-                               steps=3, batch_size=B, device="cuda"))
+        res = run(DTrainConfig(arch=arch, n_clients=clients,
+                               topology=topology, steps=3, batch_size=B,
+                               device="cuda"))
         launches = dict(build.LAUNCHES)
         wall = time.perf_counter() - t0
-        check_run(res, LEDGER_RING8_3STEPS, what)
+        check_run(res, ledger, what, engine)
         steady = res.extra["step_wall_s"]
         out = {"step_ms": 1e3 * sum(steady) / len(steady),
                "steady_step_s": steady, "first_step_ms": 1e3 * res.compile_wall_s,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "n_params": res.extra["n_params"], "losses": res.loss_curve,
+               "gmp": res.gmp, "valid_loss": res.extra["valid_loss"],
+               "consensus": res.consensus_error, "run_s": wall,
                "launches": launches}
-        log(f"[{phase}] {what}: {arch.name} ({out['n_params']} params) x {C} "
-            f"clients, ring, 3 steps in {wall:.1f} s; losses "
-            f"{res.loss_curve}; consensus {res.consensus_error:.3e}; gmp "
-            f"{res.gmp}; ledger {res.extra['n_messages']} msgs / "
+        log(f"[{phase}] {what}: {arch.name} ({out['n_params']} params) x "
+            f"{clients} clients, {topology}, {res.extra['engine']}, 3 steps "
+            f"in {wall:.1f} s; losses {res.loss_curve}; consensus "
+            f"{res.consensus_error:.3e}; gmp {res.gmp}; valid_loss "
+            f"{out['valid_loss']}; ledger {res.extra['n_messages']} msgs / "
             f"{res.total_bytes} B; first step {out['first_step_ms']:.1f} ms, "
             f"steady step {out['step_ms']:.1f} ms ({steady}); peak mem "
             f"{out['peak_gib']:.2f} GiB; launches {launches} ({card})")
@@ -723,46 +783,80 @@ def main(argv=None) -> int:
         if launches["falcon"].get(name, 0) <= 0:
             raise AssertionError(f"falcon: kernel {name} never launched")
     # one scan per Mamba layer in every forward: the two signed forwards of
-    # each of the 3 steps, and the final accuracy pass of the averaged model
-    # (``RunResult.gmp``) over the 1000-sample test split in batches of 128
+    # each of the 3 steps, the final accuracy pass of the averaged model
+    # (``RunResult.gmp``) over the 1000-sample test split in batches of 128,
+    # and its validation loss (one batch of 128 rows)
     n_eval = -(-synthetic.TaskConfig().n_test // EVAL_BATCH)
-    want = archs.FALCON_LAYERS * (2 * 3 + n_eval)
+    want = archs.FALCON_LAYERS * (2 * 3 + n_eval + 1)
     if launches["falcon"].get("selective_scan", 0) != want:
         raise AssertionError(f"falcon: selective_scan launched "
                              f"{launches['falcon'].get('selective_scan', 0)} "
                              f"times, not {want}")
 
-    # 7. the same code on small inputs, card against the CPU (the kernels'
+    # 7. the paper's setting: OPT-125M at full width, 64 clients on the
+    # 8 x 8 mesh-grid, the bitset flood engine chosen by "auto"
+    launches["opt"], details["opt"] = run_slice(
+        opt, "paper", 7, PAPER_CLIENTS, PAPER_TOPOLOGY,
+        LEDGER_MESHGRID64_3STEPS, "VectorFloodNetwork")
+    # the six projections of each of the 12 layers in both signed forwards
+    # of 3 steps, and the tied logits of each signed forward; the accuracy
+    # pass and the validation loss are unperturbed (torch.bmm)
+    n_layers = opt.n_layers
+    for name, want in (("rank1_matmul", 6 * n_layers * 2 * 3),
+                       ("rank1_matmul_t", 2 * 3)):
+        if launches["opt"].get(name, 0) != want:
+            raise AssertionError(f"paper: {name} launched "
+                                 f"{launches['opt'].get(name, 0)} times, "
+                                 f"not {want}")
+    for name in ("subcge_apply", "subcge_apply_epochs"):
+        if launches["opt"].get(name, 0) <= 0:
+            raise AssertionError(f"paper: kernel {name} never launched")
+    if not details["opt"]["peak_gib"] < 80:
+        raise AssertionError(f"paper: peak memory {details['opt']['peak_gib']}"
+                             " GiB")
+
+    # 8. the same code on small inputs, card against the CPU (the kernels'
     # plain versions): loss rtol 1e-4, params atol 1e-4 — the ZO
     # coefficient (L+ - L-) / 2 eps amplifies float32 summation-order
     # differences ~1e3-fold (tests/test_torch_slice.py sees 3e-5 between
     # the JAX package and the port)
     from repro_torch.dtrain.api import sim_arch
-    for arch in (sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128),
-                 archs.reduced(archs.get("kimi-k2-1t-a32b")),
-                 archs.reduced(archs.get("falcon-mamba-7b"))):
-        small = dict(arch=arch, n_clients=4, steps=3, batch_size=2)
+    for arch, clients, topology in (
+            (sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128), 4, "ring"),
+            (archs.reduced(archs.get("kimi-k2-1t-a32b")), 4, "ring"),
+            (archs.reduced(archs.get("falcon-mamba-7b")), 4, "ring"),
+            (archs.reduced(opt), PAPER_CLIENTS, PAPER_TOPOLOGY)):
+        small = dict(arch=arch, n_clients=clients, topology=topology, steps=3,
+                     batch_size=2)
         on_card = run(DTrainConfig(device="cuda", **small))
         on_cpu = run(DTrainConfig(device="cpu", **small))
+        if on_card.extra["engine"] != on_cpu.extra["engine"]:
+            raise AssertionError(f"small-input run of {arch.name}: flood "
+                                 "engines differ between card and CPU")
         err = max(float((on_card.extra["final_stacked"][p].cpu() - t).abs()
                         .max())
                   for p, t in on_cpu.extra["final_stacked"].items())
         lrel = max(abs(a - b) / abs(b) for a, b in zip(on_card.loss_curve,
                                                        on_cpu.loss_curve))
-        log(f"[7] small input {arch.name}, card vs CPU: loss rel {lrel:.3e} "
+        log(f"[8] small input {arch.name}, {clients} clients, {topology} "
+            f"({on_card.extra['engine']}), card vs CPU: loss rel {lrel:.3e} "
             f"(tol 1e-4), params max abs {err:.3e} (tol 1e-4)")
         if not (lrel <= 1e-4 and err <= 1e-4):
             raise AssertionError(f"small-input run of {arch.name} on the card "
                                  "disagrees with the CPU run")
 
     if args.profile:
-        for key, arch in (("qwen", qwen), ("kimi", kimi), ("falcon", falcon)):
-            details[key]["profile"] = phase_profile(arch, C, B, "cuda")
+        for key, arch, clients, topology in (
+                ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
+                ("falcon", falcon, C, "ring"),
+                ("opt", opt, PAPER_CLIENTS, PAPER_TOPOLOGY)):
+            details[key]["profile"] = phase_profile(arch, clients, B, "cuda",
+                                                    topology=topology)
             torch.cuda.empty_cache()
             log(f"[p] one steady {arch.name} step ({card}): "
                 f"{details[key]['profile']}")
 
-    # 8. report: each kernel over the paths that run it
+    # 9. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

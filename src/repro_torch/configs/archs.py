@@ -1,5 +1,5 @@
 """Architectures the port runs (the dense, MoE and SSM subset of
-``repro/configs/archs.py``).
+``repro/configs/archs.py``, and the paper's own OPT family).
 
 ``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
 slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; an MoE slot keeps 4
@@ -43,8 +43,22 @@ FALCON_MAMBA_7B = ArchConfig(
     source="[arXiv:2410.05355] 64L d4096 mamba1 (d_inner 8192, state 16, "
            "conv 4), attention-free, v65024")
 
+
+def _opt(name: str, n_layers: int, d: int, h: int, ff: int) -> ArchConfig:
+    return uniform_dense(
+        name, n_layers=n_layers, d_model=d, n_heads=h, n_kv=h, d_ff=ff,
+        vocab=50_272, qkv_bias=True, gated_mlp=False, act="relu",
+        norm="layernorm", pos="learned", tie_embeddings=True,
+        source="[arXiv:2205.01068] OPT family (paper's experiments)")
+
+
+OPT_125M = _opt("opt-125m", 12, 768, 12, 3072)
+OPT_1_3B = _opt("opt-1.3b", 24, 2048, 32, 8192)
+OPT_2_7B = _opt("opt-2.7b", 32, 2560, 32, 10_240)
+
 REGISTRY: dict[str, ArchConfig] = {
-    c.name: c for c in [QWEN15_05B, KIMI_K2, FALCON_MAMBA_7B]}
+    c.name: c for c in [QWEN15_05B, KIMI_K2, FALCON_MAMBA_7B, OPT_125M,
+                        OPT_1_3B, OPT_2_7B]}
 
 
 def get(name: str) -> ArchConfig:

@@ -4,13 +4,16 @@ The counterpart of ``repro/configs/base.py`` for the layer types the port
 runs so far: attention (GQA, optional QKV bias) followed by a dense MLP or a
 top-k capacity-dispatch MoE, or a Mamba-1 mixer with no FFN, stacked as
 groups of repeating slots.  Fields the port cannot run yet are kept out
-rather than silently ignored; ``models.transformer.arch_spec`` rejects
-settings outside rmsnorm / silu / gated MLP / rope (or no positions for an
-attention-free stack).  The JAX package's ``sharding_policy`` and
-``moe_gather_weights`` are mesh hints and stay out too: the port has no
-mesh.  ``MambaCfg`` leaves out the JAX ``chunk``: it sizes the chunks of the
-associative scan in jnp, a memory knob with no consumer here, where the
-recurrence runs through the ``selective_scan`` kernel in one pass over T.
+rather than silently ignored; ``models.transformer.arch_spec`` takes
+rmsnorm or layernorm, silu or relu, a gated or plain MLP (the MoE's experts
+stay gated silu), and rope or learned positions (none only for an
+attention-free stack), and refuses the rest: gelu and sliding windows,
+sinusoidal positions and modality frontends, MLA.  The JAX package's
+``sharding_policy`` and ``moe_gather_weights`` are mesh hints and stay out
+too: the port has no mesh.  ``MambaCfg`` leaves out the JAX ``chunk``: it
+sizes the chunks of the associative scan in jnp, a memory knob with no
+consumer here, where the recurrence runs through the ``selective_scan``
+kernel in one pass over T.
 """
 from __future__ import annotations
 
@@ -66,10 +69,10 @@ class ArchConfig:
     d_model: int
     vocab: int
     groups: tuple[Group, ...]
-    norm: str = "rmsnorm"
-    act: str = "silu"
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    act: str = "silu"                  # silu | relu
     gated_mlp: bool = True
-    pos: str = "rope"                  # rope | none
+    pos: str = "rope"                  # rope | learned | none
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     max_seq: int = 131_072

@@ -27,10 +27,12 @@ class FloodInbox:
 
 class FloodTransport:
     """Seed–scalar flooding with a ``flood_k`` hop budget per step (None =
-    full flooding, ``diameter`` rounds) and an end-of-run drain."""
+    full flooding, ``diameter`` rounds) and an end-of-run drain, over the
+    engine ``flood.make_network`` picks for ``backend``."""
 
-    def __init__(self, graph, *, flood_k: int | None = None):
-        self.net = flood.FloodNetwork(graph)
+    def __init__(self, graph, *, backend: str = "auto",
+                 flood_k: int | None = None):
+        self.net = flood.make_network(graph, backend=backend)
         self.flood_k = flood_k
 
     @property
@@ -58,4 +60,5 @@ class FloodTransport:
 
     def stats(self) -> dict:
         return {"n_messages": self.ledger.n_messages,
-                "diameter": self.net.diameter}
+                "diameter": self.net.diameter,
+                "engine": type(self.net).__name__}

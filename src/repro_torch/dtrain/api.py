@@ -44,9 +44,9 @@ class Setup:
         self.device = resolve_device(cfg.device)
         self.arch = cfg.arch or sim_arch()
         self.task = cfg.task or synthetic.TaskConfig(vocab=self.arch.vocab)
-        self.train, _, self.test = synthetic.make_splits(self.task)
+        self.train, self.valid, self.test = synthetic.make_splits(self.task)
         self.parts = synthetic.partition(self.train, cfg.n_clients,
-                                         seed=cfg.seed)
+                                         scheme=cfg.partition, seed=cfg.seed)
         self.graph = graphs.make(cfg.topology, cfg.n_clients)
         self.spec = tf.arch_spec(self.arch)
         p0 = plib.init_params(self.spec, cfg.seed, self.device)
@@ -69,6 +69,13 @@ class Setup:
         avg = {p: t.mean(dim=0) for p, t in stacked.items()}
         return synthetic.accuracy(self.arch, avg, self.test,
                                   forward_fn=tf.forward)
+
+    @torch.no_grad()
+    def valid_loss(self, stacked: dict) -> float:
+        """The averaged model's ``lm_loss`` on the first 128 validation rows."""
+        avg = {p: t.mean(dim=0, keepdim=True) for p, t in stacked.items()}
+        toks = torch.as_tensor(self.valid.tokens[:128], device=self.device)
+        return float(tf.lm_loss(self.arch, avg, toks[None])[0])
 
 
 @dataclasses.dataclass

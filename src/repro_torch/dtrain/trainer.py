@@ -2,7 +2,8 @@
 checkpoints):
 
     local step -> log loss -> transport exchange -> apply inbox
-    -> eval cadence ... -> drain -> RunResult
+    -> eval cadence ... -> drain -> RunResult (the averaged model's test
+    accuracy ``gmp`` and, in ``extra``, its ``valid_loss``)
 
 Per-step wall time ends in ``torch.cuda.synchronize()`` (the JAX loop's
 ``block_until_ready``), so it measures the device's work, not the enqueue.
@@ -67,6 +68,7 @@ class Trainer:
         active = transport.active_mask()
         stats = transport.stats()
         extra = {"n_params": s.n_params, **stats,
+                 "valid_loss": s.valid_loss(state),
                  "consensus_curve": consensus_curve,
                  "step_wall_s": step_wall_s, "final_stacked": state}
         return RunResult(

@@ -1,5 +1,6 @@
 """Layers of the decoder, perturbation-aware (the dense, MoE and Mamba-1
-subset of ``repro/models/layers.py``).
+subset of ``repro/models/layers.py``: rmsnorm and layernorm, silu and relu,
+gated and plain MLPs, rope).
 
 Activations carry a leading client axis: ``x (C, B, T, D)``.  Attention,
 routing, dispatch and combine, the causal conv and the SSM's gates are
@@ -35,8 +36,27 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return x * inv * (1.0 + _per_client(scale, x.ndim).to(x.dtype))
 
 
-def norm(b: Bundle, key: str, x: torch.Tensor) -> torch.Tensor:
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    """Mean and variance in float32, ``(1 + scale)`` and ``+ bias``, cast
+    back to x.dtype.  ``scale`` and ``bias`` are per client (C, D)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    d = x32 - mu
+    var = torch.mean(d * d, dim=-1, keepdim=True)
+    out = d * torch.rsqrt(var + eps)
+    out = out * (1.0 + _per_client(scale, x.ndim).float()) \
+        + _per_client(bias, x.ndim).float()
+    return out.to(x.dtype)
+
+
+def norm(b: Bundle, key: str, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "layernorm":
+        return layernorm(x, b.vec(key + "_scale"), b.vec(key + "_bias"))
     return rmsnorm(x, b.vec(key + "_scale"))
+
+
+ACTS = {"silu": F.silu, "relu": F.relu}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -74,8 +94,11 @@ def attn_core(q, k, v, q_pos, k_pos):
     return out.reshape(C, B, T, H * hd)
 
 
-def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float):
-    """Standard (GQA) attention without a cache (training forward)."""
+def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float,
+              pos_kind: str = "rope"):
+    """Standard (GQA) attention without a cache (training forward); rope
+    only for ``pos_kind == "rope"`` (learned positions are added to the
+    embeddings)."""
     C, B, T, _ = x.shape
     H, KV, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
     bias = acfg.qkv_bias
@@ -83,8 +106,9 @@ def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float):
     k = b.dense("wk", x, bias="bk" if bias else None).reshape(C, B, T, KV, hd)
     v = b.dense("wv", x, bias="bv" if bias else None).reshape(C, B, T, KV, hd)
     pos = torch.arange(T, device=x.device)
-    q = rope(q, pos, rope_theta)
-    k = rope(k, pos, rope_theta)
+    if pos_kind == "rope":
+        q = rope(q, pos, rope_theta)
+        k = rope(k, pos, rope_theta)
     out = attn_core(q, k, v, pos, pos)
     return b.dense("wo", out)
 
@@ -135,9 +159,14 @@ def mamba(b: Bundle, x: torch.Tensor, mcfg: MambaCfg) -> torch.Tensor:
     return b.dense("out_proj", y)
 
 
-def mlp(b: Bundle, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP."""
-    h = F.silu(b.dense("w1", x)) * b.dense("w3", x)
+def mlp(b: Bundle, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    """Dense MLP: ``act(x W1) * x W3`` when gated, else ``act(x W1)``,
+    then ``W2``."""
+    f = ACTS[act]
+    if gated:
+        h = f(b.dense("w1", x)) * b.dense("w3", x)
+    else:
+        h = f(b.dense("w1", x))
     return b.dense("w2", h)
 
 

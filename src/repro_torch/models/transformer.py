@@ -2,7 +2,8 @@
 of ``repro/models/transformer.py``).
 
 ``arch_spec`` produces the same leaf paths and shapes as the JAX package
-(``embed/tok``, ``embed/out`` when untied, ``embed/ln_f_scale``,
+(``embed/tok``, ``embed/out`` when untied, ``embed/pos`` for learned
+positions, ``embed/ln_f_scale`` and, for layernorm, ``embed/ln_f_bias``,
 ``g{i}/s{j}/{wq,...}`` or ``g{i}/s{j}/{in_proj,...}`` stacked over the
 group's reps, expert weights stacked over (reps, experts)).  The
 ``lax.scan`` over a group's periods becomes a Python loop over the stacked
@@ -19,9 +20,15 @@ from repro_torch.models.params import LeafSpec, matrix, vector
 from repro_torch.models.perturb import Bundle, Pert
 
 
-def _slot_ok(s: LayerCfg) -> bool:
+#: OPT-style learned position table length (the JAX package's)
+LEARNED_POS_LEN = 4_096
+
+
+def _slot_ok(s: LayerCfg, cfg: ArchConfig) -> bool:
     if s.mixer == "mamba":
         return s.mamba is not None and s.ffn == "none" and s.moe is None
+    if s.ffn == "moe" and not (cfg.act == "silu" and cfg.gated_mlp):
+        return False                    # the MoE's experts are gated silu
     return (s.mixer == "attn" and s.attn is not None and s.mamba is None
             and s.ffn in ("dense", "moe")
             and (s.ffn == "dense") == (s.moe is None))
@@ -29,22 +36,32 @@ def _slot_ok(s: LayerCfg) -> bool:
 
 def _check_supported(cfg: ArchConfig) -> None:
     slots = [s for g in cfg.groups for s in g.slots]
-    ok = (cfg.norm == "rmsnorm" and cfg.act == "silu" and cfg.gated_mlp
-          and cfg.pos in ("rope", "none"))
-    if not (ok and all(_slot_ok(s) for s in slots)):
+    ok = (cfg.norm in ("rmsnorm", "layernorm") and cfg.act in L.ACTS
+          and cfg.pos in ("rope", "learned", "none"))
+    if not (ok and all(_slot_ok(s, cfg) for s in slots)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs rmsnorm / silu gated decoders with "
-            "attention and a dense or MoE FFN, or a Mamba-1 mixer and no FFN")
+            f"{cfg.name}: the port runs rmsnorm or layernorm decoders with "
+            "rope or learned positions, attention and a dense MLP (silu or "
+            "relu, gated or not) or a gated silu MoE, or a Mamba-1 mixer and "
+            "no FFN")
     if cfg.pos == "none" and any(s.mixer == "attn" for s in slots):
         raise NotImplementedError(
             f"{cfg.name}: attention without positions is not ported (the "
-            "port's attention always applies rope)")
+            "port's attention takes rope or learned positions)")
 
 
-def _mamba_spec(m: MambaCfg, d: int, st: tuple) -> dict[str, LeafSpec]:
+def _norm_spec(key: str, d: int, cfg: ArchConfig, st: tuple) -> dict:
+    s = {key + "_scale": vector(d, stack=st)}
+    if cfg.norm == "layernorm":
+        s[key + "_bias"] = vector(d, stack=st)
+    return s
+
+
+def _mamba_spec(m: MambaCfg, d: int, cfg: ArchConfig,
+                st: tuple) -> dict[str, LeafSpec]:
     Di, N, Kc = m.d_inner, m.d_state, m.d_conv
     dtr = m.dt_rank or -(-d // 16)
-    return {"ln_attn_scale": vector(d, stack=st),
+    return {**_norm_spec("ln_attn", d, cfg, st),
             "in_proj": matrix(d, 2 * Di, stack=st),
             "conv_w": matrix(Di, Kc, stack=st),
             "conv_b": vector(Di, stack=st),
@@ -56,13 +73,14 @@ def _mamba_spec(m: MambaCfg, d: int, st: tuple) -> dict[str, LeafSpec]:
             "out_proj": matrix(Di, d, stack=st)}
 
 
-def _slot_spec(slot: LayerCfg, d: int, reps: int) -> dict[str, LeafSpec]:
-    st = (reps,)
+def _slot_spec(slot: LayerCfg, cfg: ArchConfig,
+               reps: int) -> dict[str, LeafSpec]:
+    st, d = (reps,), cfg.d_model
     if slot.mixer == "mamba":
-        return _mamba_spec(slot.mamba, d, st)
+        return _mamba_spec(slot.mamba, d, cfg, st)
     a = slot.attn
     H, KV, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    s = {"ln_attn_scale": vector(d, stack=st),
+    s = {**_norm_spec("ln_attn", d, cfg, st),
          "wq": matrix(d, H * hd, stack=st),
          "wk": matrix(d, KV * hd, stack=st),
          "wv": matrix(d, KV * hd, stack=st),
@@ -70,11 +88,12 @@ def _slot_spec(slot: LayerCfg, d: int, reps: int) -> dict[str, LeafSpec]:
     if a.qkv_bias:
         s.update(bq=vector(H * hd, stack=st), bk=vector(KV * hd, stack=st),
                  bv=vector(KV * hd, stack=st))
-    s["ln_mlp_scale"] = vector(d, stack=st)
+    s.update(_norm_spec("ln_mlp", d, cfg, st))
     if slot.ffn == "dense":
-        s.update(w1=matrix(d, slot.d_ff, stack=st),
-                 w3=matrix(d, slot.d_ff, stack=st),
-                 w2=matrix(slot.d_ff, d, stack=st))
+        s["w1"] = matrix(d, slot.d_ff, stack=st)
+        if cfg.gated_mlp:
+            s["w3"] = matrix(d, slot.d_ff, stack=st)
+        s["w2"] = matrix(slot.d_ff, d, stack=st)
     else:
         mo = slot.moe
         est = st + (mo.n_experts,)
@@ -93,12 +112,15 @@ def arch_spec(cfg: ArchConfig) -> dict[str, LeafSpec]:
     """Flat path -> LeafSpec."""
     _check_supported(cfg)
     spec = {"embed/tok": matrix(cfg.vocab, cfg.d_model, scale=0.02),
-            "embed/ln_f_scale": vector(cfg.d_model)}
+            **{"embed/" + k: v
+               for k, v in _norm_spec("ln_f", cfg.d_model, cfg, ()).items()}}
     if not cfg.tie_embeddings:
         spec["embed/out"] = matrix(cfg.d_model, cfg.vocab)
+    if cfg.pos == "learned":
+        spec["embed/pos"] = matrix(LEARNED_POS_LEN, cfg.d_model, scale=0.02)
     for gi, g in enumerate(cfg.groups):
         for si, slot in enumerate(g.slots):
-            for k, v in _slot_spec(slot, cfg.d_model, g.reps).items():
+            for k, v in _slot_spec(slot, cfg, g.reps).items():
                 spec[f"g{gi}/s{si}/{k}"] = v
     return spec
 
@@ -110,24 +132,32 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     layer (0 for a dense decoder)."""
     emb = Bundle(params, sub, pert, "embed/")
     x = emb.embed("tok", tokens)
-    aux = torch.zeros(tokens.shape[0], dtype=torch.float32,
-                      device=tokens.device)
+    C, _, T = tokens.shape
+    if cfg.pos == "learned":
+        # positions 0..T-1, shared by every client and sequence
+        pos = torch.arange(T, device=tokens.device).clamp(
+            max=LEARNED_POS_LEN - 1)
+        x = x + emb.embed("pos", pos.expand(C, 1, T))
+    aux = torch.zeros(C, dtype=torch.float32, device=tokens.device)
     for gi, g in enumerate(cfg.groups):
         for layer in range(g.reps):
             for si, slot in enumerate(g.slots):
                 b = Bundle(params, sub, pert, f"g{gi}/s{si}/", layer)
-                h = L.norm(b, "ln_attn", x)
+                h = L.norm(b, "ln_attn", x, cfg.norm)
                 if slot.mixer == "mamba":
                     x = x + L.mamba(b, h, slot.mamba)
                 else:
-                    x = x + L.attention(b, h, slot.attn, cfg.rope_theta)
+                    x = x + L.attention(b, h, slot.attn, cfg.rope_theta,
+                                        cfg.pos)
                 if slot.ffn == "moe":
-                    y, a = L.moe(b, L.norm(b, "ln_mlp", x), slot.moe)
+                    y, a = L.moe(b, L.norm(b, "ln_mlp", x, cfg.norm),
+                                 slot.moe)
                     x = x + y
                     aux = aux + a
                 elif slot.ffn == "dense":
-                    x = x + L.mlp(b, L.norm(b, "ln_mlp", x))
-    x = L.norm(emb, "ln_f", x)
+                    x = x + L.mlp(b, L.norm(b, "ln_mlp", x, cfg.norm),
+                                  cfg.act, cfg.gated_mlp)
+    x = L.norm(emb, "ln_f", x, cfg.norm)
     if cfg.tie_embeddings:
         return emb.dense_t("tok", x), aux
     return emb.dense("out", x), aux

@@ -53,7 +53,7 @@ def _rank1_inputs(cuda, seed, C, M, K, N, trans=False):
         v = v * K ** -0.5
     else:
         u = u * K ** -0.5
-    s = np.array([1e-3, -1e-3, 0.5] * 3, np.float32)[:C]
+    s = np.resize(np.array([1e-3, -1e-3, 0.5], np.float32), C)
     t = [torch.from_numpy(a).to(cuda) for a in (x, W * K ** -0.5, u, v, s)]
     t[1] = t[1][:, 1]
     return t
@@ -117,7 +117,9 @@ def _update_inputs(cuda, seed, E, C, L, n, m, r):
 # keeps A V^T of 4 epochs at a time, so it is rebuilt per tile
 UPDATE_SHAPES = [(1, 70, 150, 16), (2, 300, 4, 16), (3, 1000, 16, 1),
                  (4, 65, 33, 32), (1, 517, 288, 16), (2, 129, 1024, 16),
-                 (5, 200, 130, 32), (1, 3000, 32, 16)]
+                 (5, 200, 130, 32), (1, 3000, 32, 16),
+                 # OPT-125M: the learned positions, w1 and w2, E = 1 and 2
+                 (1, 4096, 768, 16), (1, 768, 3072, 16), (2, 3072, 768, 16)]
 
 
 @pytest.mark.gpu
@@ -140,6 +142,41 @@ def test_update_kernel_in_place_on_stacked_view(cuda, shape):
     np.testing.assert_allclose(W.cpu().numpy(), want.numpy(), rtol=RTOL,
                                atol=ATOL)
     assert torch.equal(Wst[:, 0], layer0)
+
+
+# OPT-125M's products (M, K, N) on the paper-setting path: 64 clients of
+# 264 rows (8 sequences of 33 tokens), the four attention projections, w1
+# and w2
+OPT_RANK1_SHAPES = [(264, 768, 768), (264, 768, 3072), (264, 3072, 768)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", OPT_RANK1_SHAPES,
+                         ids=lambda a: "x".join(map(str, a)))
+def test_rank1_kernel_at_opt_shapes(cuda, mkn):
+    M, K, N = mkn
+    t = _rank1_inputs(cuda, 13 + N, 64, M, K, N)
+    build.reset_launches()
+    got = ops.rank1_matmul(*t)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rank1_matmul"] == 1
+    plain = ops.rank1_matmul(*(a.cpu() for a in t))
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_rank1_t_kernel_at_opt_tied_logits(cuda):
+    """OPT-125M's tied logits, W (O = 50272, K = 768), for 2 of the 64
+    clients (the CPU oracle of all 64 would take minutes)."""
+    t = _rank1_inputs(cuda, 17, 2, 264, 768, 50272, trans=True)
+    build.reset_launches()
+    got = ops.rank1_matmul_t(*t)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rank1_matmul_t"] == 1
+    plain = ops.rank1_matmul_t(*(a.cpu() for a in t))
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.gpu

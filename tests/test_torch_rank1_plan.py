@@ -2,11 +2,12 @@
 ``rank1_matmul_t`` (CPU).
 
 ``split_plan`` is the pure function of the shape that decides how the
-kernel's K loop is cut; it runs here for every shape the three slices'
-main paths give the two kernels: Qwen1.5-0.5B, the Kimi K2 cut
-(``archs.kimi_cut``: 32 of 384 experts, the router cut with them, vocab
-20480) and the Falcon Mamba 7B cut (``archs.falcon_cut``), 8 clients × 264 rows (8 sequences of 33 tokens), and a Kimi expert's
-capacity of 83 rows.
+kernel's K loop is cut; it runs here for every shape the main paths give
+the two kernels: Qwen1.5-0.5B, the Kimi K2 cut (``archs.kimi_cut``: 32 of
+384 experts, the router cut with them, vocab 20480) and the Falcon Mamba 7B
+cut (``archs.falcon_cut``), 8 clients × 264 rows (8 sequences of 33
+tokens), and a Kimi expert's capacity of 83 rows; and OPT-125M at 64
+clients (the paper's 8 x 8 mesh-grid) × 264 rows.
 """
 import math
 
@@ -18,6 +19,8 @@ from repro_torch.configs import archs  # noqa: E402
 from repro_torch.kernels import rank1_matmul as r1  # noqa: E402
 
 C, M = 8, 8 * 33
+#: clients of the paper-setting path (OPT-125M on the 8 x 8 mesh-grid)
+C_PAPER = 64
 
 
 def _main_path_shapes():
@@ -53,6 +56,13 @@ def _main_path_shapes():
         "falcon/out_proj": (C, M, d, m.d_inner),
         "falcon/head": (C, M, f.vocab, d),
     })
+    o = archs.get("opt-125m")
+    d, ff = o.d_model, o.groups[0].slots[0].d_ff
+    shapes.update({
+        "opt/attn": (C_PAPER, M, d, d), "opt/up": (C_PAPER, M, ff, d),
+        "opt/down": (C_PAPER, M, d, ff),
+        "opt/logits_t": (C_PAPER, M, o.vocab, d),
+    })
     return shapes
 
 
@@ -71,6 +81,8 @@ def test_shapes_are_the_published_ones():
     assert SHAPES["kimi/expert_up"] == (256, 83, 2048, 7168)
     assert SHAPES["falcon/head"] == (8, 264, 65024, 4096)
     assert SHAPES["qwen/logits_t"] == (8, 264, 151936, 1024)
+    assert SHAPES["opt/up"] == (64, 264, 3072, 768)
+    assert SHAPES["opt/logits_t"] == (64, 264, 50272, 768)
 
 
 def test_tied_logits_take_one_split_within_grid_limits():
@@ -80,6 +92,17 @@ def test_tied_logits_take_one_split_within_grid_limits():
     batch, M, N, K = SHAPES["qwen/logits_t"]
     assert r1.split_plan(batch, M, N, K) == (1, K)
     assert _tiles(batch, M, N, K) == 28_488
+    assert -(-N // r1.TILE_N) <= r1.GRID_YZ and batch <= r1.GRID_YZ
+
+
+@pytest.mark.parametrize("name", ["opt/attn", "opt/up", "opt/down",
+                                  "opt/logits_t"])
+def test_opt_shapes_fill_the_card_unsplit(name):
+    """At 64 clients every OPT-125M product, the tied logits included, has
+    tiles for at least two waves: one split, inside the grid's limits."""
+    batch, M, N, K = SHAPES[name]
+    assert _tiles(batch, M, N, K) >= 2 * r1.SLOTS
+    assert r1.split_plan(batch, M, N, K) == (1, K)
     assert -(-N // r1.TILE_N) <= r1.GRID_YZ and batch <= r1.GRID_YZ
 
 

@@ -3,10 +3,11 @@
 The kernel walks a persistent grid over (instance, column chunk, row tile);
 ``update_plan`` decides the chunk width, the tile height, the tiles of each
 block and the shared memory; ``plan_tiles`` below is the kernel's tile map
-in Python.  Here the plan is held, for every matrix leaf of the three slices'
-updates (Qwen1.5-0.5B, the Kimi K2 cut, the Falcon Mamba 7B cut; 8 clients)
-and for ragged shapes, to cover every element exactly once, and to refuse
-what the kernel refuses.
+in Python.  Here the plan is held, for every matrix leaf of the main paths'
+updates (Qwen1.5-0.5B, the Kimi K2 cut, the Falcon Mamba 7B cut at 8
+clients; OPT-125M at 64 clients, the paper's 8 x 8 mesh-grid) and for
+ragged shapes, to cover every element exactly once, and to refuse what the
+kernel refuses.
 """
 import math
 
@@ -22,22 +23,25 @@ from repro_torch.models.params import subcge_meta  # noqa: E402
 from repro_torch.models.transformer import arch_spec  # noqa: E402
 
 C, RANK = 8, 16
+#: clients of the paper-setting path (OPT-125M on the 8 x 8 mesh-grid)
+C_PAPER = 64
 #: shared memory of one SM, and what CUDA reserves per block
 SM_SMEM, BLOCK_RESERVED = 228 * 1024, 1024
 
 
-def _leaves(arch):
+def _leaves(arch, clients=C):
     """(instances, n, m) of every matrix leaf one update of the stacked
-    C-client params visits."""
-    return {(math.prod(b), n, m)
-            for b, n, m, _ in update_shapes(subcge_meta(arch_spec(arch)), C)}
+    params of ``clients`` clients visits."""
+    return {(math.prod(b), n, m) for b, n, m, _ in
+            update_shapes(subcge_meta(arch_spec(arch)), clients)}
 
 
 def _main_path_leaves():
-    """The leaves of the three slices' updates, with the Kimi and Falcon
-    cuts that ``chip_smoke.py`` trains."""
+    """The leaves of the main paths' updates, with the Kimi and Falcon cuts
+    that ``chip_smoke.py`` trains, and OPT-125M at 64 clients."""
     return sorted(_leaves(archs.get("qwen1.5-0.5b")) | _leaves(archs.kimi_cut())
-                  | _leaves(archs.falcon_cut()))
+                  | _leaves(archs.falcon_cut())
+                  | _leaves(archs.get("opt-125m"), C_PAPER))
 
 
 LEAVES = _main_path_leaves()
@@ -64,6 +68,11 @@ def test_leaves_are_the_published_ones():
     assert (256, 7168, 2048) in LEAVES
     for m in (4, 16, 288):
         assert (32, 8192, m) in LEAVES
+    # OPT-125M at 64 clients: the tied embedding (2.47e9 elements, past
+    # 2^31), the learned positions and the 12 stacked layers' projections
+    for leaf in ((64, 50272, 768), (64, 4096, 768), (768, 768, 768),
+                 (768, 768, 3072), (768, 3072, 768)):
+        assert leaf in LEAVES
 
 
 def test_update_shapes_cover_every_matrix_param():
@@ -94,14 +103,37 @@ def test_cuts_keep_the_published_widths():
     assert falcon.groups[0].reps == archs.FALCON_LAYERS
 
 
+def plan_tile_arrays(plan: sa.UpdatePlan, nb: int, n: int, m: int):
+    """``plan_tiles`` as arrays over every tile at once (the main paths'
+    leaves have up to ~10^6 tiles): block, instance, row range, column
+    range, in launch order."""
+    total = nb * plan.chunks * plan.tiles
+    g = np.concatenate([np.arange(k * plan.per, min((k + 1) * plan.per, total))
+                        for k in range(plan.blocks)])
+    k = g // plan.per
+    bq, t = np.divmod(g, plan.tiles)
+    b, chunk = np.divmod(bq, plan.chunks)
+    r0, c0 = t * plan.tile_rows, chunk * plan.bc
+    return (k, b, (r0, np.minimum(r0 + plan.tile_rows, n)),
+            (c0, np.minimum(c0 + plan.bc, m)))
+
+
+def test_tile_arrays_are_the_tile_map():
+    plan = sa.update_plan(5, 517, 288, RANK, 1)
+    k, b, (r0, r1), (c0, c1) = plan_tile_arrays(plan, 5, 517, 288)
+    assert list(zip(k, b, zip(r0, r1), zip(c0, c1))) == \
+        list(plan_tiles(plan, 5, 517, 288))
+
+
 def _tile_counts(plan, nb, n, m):
     """How often each (instance, row tile, chunk) is visited; and that each
     tile's ranges are the plan's grid cells."""
+    _, b, (r0, r1), (c0, c1) = plan_tile_arrays(plan, nb, n, m)
+    assert (r0 % plan.tile_rows == 0).all() and (c0 % plan.bc == 0).all()
+    assert (r1 == np.minimum(r0 + plan.tile_rows, n)).all()
+    assert (c1 == np.minimum(c0 + plan.bc, m)).all()
     seen = np.zeros((nb, plan.tiles, plan.chunks), np.int64)
-    for _, b, (r0, r1), (c0, c1) in plan_tiles(plan, nb, n, m):
-        assert r0 % plan.tile_rows == 0 and c0 % plan.bc == 0
-        assert r1 == min(r0 + plan.tile_rows, n) and c1 == min(c0 + plan.bc, m)
-        seen[b, r0 // plan.tile_rows, c0 // plan.bc] += 1
+    np.add.at(seen, (b, r0 // plan.tile_rows, c0 // plan.bc), 1)
     return seen
 
 
