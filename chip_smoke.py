@@ -50,14 +50,34 @@ no result line):
 8. small   — the same code on small inputs (the dense sim arch, the
              reduced Kimi K2, the reduced Falcon Mamba, and the reduced
              OPT-125M at 64 clients on the mesh-grid, so that the bitset
-             engine runs on both sides), on the card and on the CPU (the
-             kernels' plain versions); results must agree.
-9. report  — one JSON line ``{"kernels": [...]}``, the card's name and power
+             engine runs on both sides), and every other method of the
+             registry on the sim arch (d64, 4 clients on a ring, gossip
+             every step), on the card and on the CPU (the kernels' plain
+             versions); results must agree.
+9. baselines — first the four kernels at the shapes these paths give
+             them (central_zo's dual forward over one OPT-125M expanded to
+             16 clients with a client stride of 0, updates of one model),
+             held against their plain versions and timed as in phase 2;
+             then every baseline of the paper's §4.2 through the same entry
+             point at OPT-125M's full published width, 16 clients on a
+             ring, 3 steps, gossip every step (``local_iters=1``):
+             central_zo (plain and with momentum 0.9), gossip_sr, dzsgd,
+             dsgd, choco and the three LoRA variants.  Each arm's ledger
+             must be the JAX transport's formula, its losses finite and its
+             peak memory under 80 GiB; central_zo must launch
+             ``rank1_matmul`` 432 times and ``rank1_matmul_t`` 6 times and
+             ``subcge_apply`` at least once in both arms, gossip_sr
+             ``subcge_apply_epochs``.  A first-order step through a Mamba
+             layer (dsgd on the reduced Falcon Mamba) must raise
+             ``NotImplementedError`` on the card: the scan kernel has no
+             backward.
+10. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-of each slice and of the paper's setting (host spans, device-busy time and
-share, top kernels, and the hand-written kernels that ran, by name).
+of each slice, of the paper's setting and of each phase-9 baseline (host
+spans, device-busy time and share, device launches, top kernels, and the
+hand-written kernels that ran, by name).
 
 It needs a CUDA device and the repository's ``src/`` next to it.
 """
@@ -87,6 +107,17 @@ LEDGER_RING8_6STEPS_K1_DRAIN = (768, 6144)
 # (tests/test_torch_paper_setting.py pins the port to the same values)
 LEDGER_MESHGRID64_3STEPS = (43000, 344000)
 PAPER_CLIENTS, PAPER_TOPOLOGY = 64, "meshgrid"
+# phase 9: the paper's Table 8 runs its baselines with 16 clients
+BASELINE_CLIENTS, BASELINE_STEPS = 16, 3
+BASELINE_ARMS = (("central_zo", {}), ("central_zo", {"momentum": 0.9}),
+                 ("gossip_sr", {}), ("dzsgd", {}), ("dsgd", {}),
+                 ("choco", {}), ("dsgd_lora", {}), ("dzsgd_lora", {}),
+                 ("choco_lora", {}))
+# one gossip exchange of OPT-125M's 126,755,328 floats on the 16 edges of
+# the ring, both ways (the JAX GossipTransport's 2 x edges x floats x 4 B),
+# and Choco's top-k payload of 1% of them (values and indices, 8 B each)
+DSGD_EXCHANGE_BYTES = 16_224_681_984
+CHOCO_EXCHANGE_BYTES = 324_493_568
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -259,10 +290,12 @@ def same_bits(a, b, what: str) -> None:
 
 
 def check_rank1(e: Entry, C: int, M: int, shapes, randn,
-                trans: bool = False) -> None:
+                trans: bool = False, shared: bool = False) -> None:
     """rank1_matmul (rank1_matmul_t when ``trans``) at (K, N) shapes,
     ``count`` uses each per unit; each also held bitwise equal across two
-    calls.  W and the contracted vector are scaled by K^-1/2."""
+    calls.  W and the contracted vector are scaled by K^-1/2.  ``shared``:
+    one W for all C clients, expanded with a client stride of 0 (central_zo's
+    dual forward over its one model)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rank1_matmul as r1
@@ -271,8 +304,10 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
     plain = r1.rank1_matmul_t_plain if trans else r1.rank1_matmul_plain
     for (K, N), count in shapes:
         x = randn(C, M, K)
-        W = randn(C, N, K, scale=K ** -0.5) if trans else \
-            randn(C, K, N, scale=K ** -0.5)
+        CW = 1 if shared else C
+        W = randn(CW, N, K, scale=K ** -0.5) if trans else \
+            randn(CW, K, N, scale=K ** -0.5)
+        W = W.expand(C, -1, -1)
         u, v = (randn(C, N), randn(C, K, scale=K ** -0.5)) if trans else \
             (randn(C, K, scale=K ** -0.5), randn(C, N))
         got = fn(x, W, u, v, s)
@@ -284,10 +319,11 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
         ms = time_ms(lambda: fn(x, W, u, v, s))
         p_ms = time_ms(lambda: plain(x, W, u, v, s))
         l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn))
-        nbytes = 4 * (C * M * K + C * K * N + C * K + C * N + C + C * M * N)
+        nbytes = 4 * (C * M * K + CW * K * N + C * K + C * N + C + C * M * N)
         flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
         splits = r1.split_plan(C, M, N, K)[0]
-        shape = f"W({C},{N},{K})" if trans else f"W({C},{K},{N})"
+        shape = f"W({CW},{N},{K})" if trans else f"W({CW},{K},{N})"
+        shape += " expanded to C" if shared else ""
         e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
               f"x({C},{M},{K}) {shape} S={splits}", count)
         del x, W, got, want, R, Wn
@@ -543,6 +579,34 @@ def phase_kernels_opt(opt, C: int, M: int) -> dict:
     return entries
 
 
+def phase_kernels_baselines(opt, C: int, M: int) -> dict:
+    """The four kernels at the shapes the phase-9 baselines give them, per
+    steady step: central_zo's dual forward over one OPT-125M expanded to C
+    = 16 clients (one layer's six projections, the tied logits), and one
+    update of every matrix leaf of ONE model, by ``subcge_apply``
+    (central_zo, C = 1, a dense A as the momentum arm's μ) and by
+    ``subcge_apply_epochs`` (gossip_sr's replay of one client)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_t",
+                                     "subcge_apply", "subcge_apply_epochs")}
+    d, ff, V = opt.d_model, opt.groups[0].slots[0].d_ff, opt.vocab
+    check_rank1(entries["rank1_matmul"], C, M,
+                (((d, d), 4), ((d, ff), 1), ((ff, d), 1)), randn, shared=True)
+    check_rank1(entries["rank1_matmul_t"], C, M, (((d, V), 1),), randn,
+                trans=True, shared=True)
+    leaves = update_leaves(opt, 1)
+    for name in ("subcge_apply", "subcge_apply_epochs"):
+        check_update(entries[name], leaves, 1, randn)
+    return entries
+
+
 def phase_prng(n: int = 1 << 20) -> None:
     """prng.normal on the card, bitwise the CPU's (which is bitwise
     ``jax.random.normal`` on the CPU, tests/test_torch_prng.py)."""
@@ -559,31 +623,38 @@ def phase_prng(n: int = 1 << 20) -> None:
 
 
 def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
-                  topology: str = "ring") -> dict:
-    """Where one steady step's time goes: the main path's pieces run by
-    hand (the same calls ``run`` makes), the last step under
-    ``torch.profiler``.  Returns host-span milliseconds, device-busy
-    milliseconds, the busy share of the step's wall time, and the kernels
-    that took the most device time."""
+                  topology: str = "ring", method: str = "seedflood",
+                  **kw) -> dict:
+    """Where one steady step of ``method`` goes: the pieces ``run`` calls
+    (method, transport) driven by hand, the last step under
+    ``torch.profiler``.  Returns host-span milliseconds (SeedFlood's
+    ``seedflood.*`` ranges), device-busy milliseconds, the busy share of the
+    step's wall time, the device launches, and the kernels that took the
+    most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.transport import FloodTransport
     from repro_torch.dtrain.api import Setup
-    from repro_torch.dtrain.methods.seedflood import SeedFloodMethod
-    from repro_torch.dtrain.runner import DTrainConfig
+    from repro_torch.dtrain.methods import METHOD_SPECS
+    from repro_torch.dtrain.runner import DTrainConfig, validate_config
 
-    cfg = DTrainConfig(arch=arch, n_clients=C, topology=topology,
-                       steps=steps, batch_size=B, device=device)
+    cfg = DTrainConfig(method=method, arch=arch, n_clients=C,
+                       topology=topology, steps=steps, batch_size=B,
+                       device=device, **kw)
+    validate_config(cfg)
+    spec = METHOD_SPECS[method]
     setup = Setup(cfg)
-    method = SeedFloodMethod(cfg)
-    transport = FloodTransport(setup.graph, backend=cfg.flood_backend)
-    state = method.init(setup)
+    meth = spec.make_method(cfg)
+    transport = spec.make_transport(cfg, setup)
+    state = meth.init(setup)
+    transport.bind(meth.initial_payload(state))
     cuda = device == "cuda"
 
     def step(t):
         nonlocal state
-        state, outbox = method.local_step(state, setup.batches(t), t)
-        state = method.apply_inbox(state, transport.exchange(outbox.payload, t))
+        state, outbox = meth.local_step(state, setup.batches(t), t)
+        inbox = transport.exchange(outbox.payload, t)
+        del outbox
+        state = meth.apply_inbox(state, inbox)
         if cuda:
             torch.cuda.synchronize()
 
@@ -619,7 +690,7 @@ def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
             if any(w in k for w in ("rank1_", "subcge_", "selective_scan"))}
     if any("rank1_matmul_kernel" in k for k in ours):
         raise AssertionError(f"profile: the old rank-1 tile still runs: {ours}")
-    del state, setup
+    del state, setup, transport
     return {"wall_ms": wall_ms, "spans_ms": spans, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "device_launches": sum(n for _, n in kernels.values()),
@@ -639,6 +710,118 @@ def check_run(res, ledger, what: str, engine: str = "FloodNetwork") -> None:
     if res.extra["engine"] != engine:
         raise AssertionError(f"{what}: flood engine {res.extra['engine']}, "
                              f"not {engine}")
+
+
+def baseline_ledger(method: str, n_params: int, lora_floats: int,
+                    n: int = BASELINE_CLIENTS,
+                    steps: int = BASELINE_STEPS) -> int:
+    """Bytes the JAX package's transports charge a ring of n over ``steps``
+    exchanges, from their formulas: gossip sends every client's trainable
+    floats (4 B) both ways on every edge, Choco the top-k of 1 % of them
+    (value and index, 8 B), gossip-SR every neighbour's whole history of
+    8-byte messages (before exchange t a client holds the n·t averaged
+    uids and its own new one), central_zo nothing."""
+    from repro_torch.core.messages import MESSAGE_BYTES
+    edges = n                                  # a ring
+    floats = lora_floats if method.endswith("_lora") else n_params
+    if method == "central_zo":
+        return 0
+    if method == "gossip_sr":
+        return 2 * edges * MESSAGE_BYTES * sum(n * t + 1 for t in range(steps))
+    if method.startswith("choco"):
+        return steps * 2 * edges * max(1, int(floats * 0.01)) * 8
+    return steps * 2 * edges * floats * 4
+
+
+def phase_baselines(opt, B: int, card: str):
+    """Phase 9: every §4.2 baseline at OPT-125M's full width; returns the
+    launches summed over the arms (each arm's counters zeroed just before
+    its run and read just after) and each arm's numbers."""
+    import torch
+    from repro_torch.configs import archs
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+
+    n_layers, d = opt.n_layers, opt.d_model
+    lora_floats = n_layers * 2 * (d * 8 + 8 * d)     # wq, wv at r = 8
+    if (lora_floats, 2 * BASELINE_CLIENTS * 126_755_328 * 4,
+            2 * BASELINE_CLIENTS * max(1, int(126_755_328 * 0.01)) * 8) != \
+            (294_912, DSGD_EXCHANGE_BYTES, CHOCO_EXCHANGE_BYTES):
+        raise AssertionError("baseline ledger constants disagree")
+    total, out = {}, {}
+    for method, kw in BASELINE_ARMS:
+        arm = method + "".join(f"-{k}{v}" for k, v in kw.items())
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run(DTrainConfig(method=method, arch=opt,
+                               n_clients=BASELINE_CLIENTS, topology="ring",
+                               steps=BASELINE_STEPS, batch_size=B,
+                               local_iters=1, device="cuda", **kw))
+        launches = dict(build.LAUNCHES)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = res.extra["step_wall_s"]
+        want = baseline_ledger(method, res.extra["n_params"], lora_floats)
+        out[arm] = {
+            "step_ms": 1e3 * sum(steady) / len(steady),
+            "steady_step_s": steady, "first_step_ms": 1e3 * res.compile_wall_s,
+            "peak_gib": peak, "total_bytes": res.total_bytes,
+            "losses": res.loss_curve, "gmp": res.gmp,
+            "valid_loss": res.extra["valid_loss"],
+            "consensus": res.consensus_error, "run_s": wall,
+            "launches": launches,
+            "reconstructions": res.extra.get("reconstructions")}
+        log(f"[9] {arm}: {opt.name} x {BASELINE_CLIENTS} clients, ring, "
+            f"{BASELINE_STEPS} steps in {wall:.1f} s; losses "
+            f"{res.loss_curve}; consensus {res.consensus_error:.3e}; gmp "
+            f"{res.gmp}; valid_loss {out[arm]['valid_loss']}; ledger "
+            f"{res.total_bytes} B (JAX formula {want}); first step "
+            f"{out[arm]['first_step_ms']:.1f} ms, steady step "
+            f"{out[arm]['step_ms']:.1f} ms ({steady}); peak mem {peak:.2f} "
+            f"GiB; launches {launches}; reconstructions "
+            f"{out[arm]['reconstructions']} ({card})")
+        if not all(math.isfinite(v) for v in res.loss_curve):
+            raise AssertionError(f"baselines {arm}: non-finite loss")
+        if res.total_bytes != want:
+            raise AssertionError(f"baselines {arm}: ledger {res.total_bytes}"
+                                 f" != the JAX formula's {want}")
+        if not peak < 80:
+            raise AssertionError(f"baselines {arm}: peak memory {peak} GiB")
+        if method == "central_zo":
+            for name, n in (("rank1_matmul", 6 * n_layers * 2 * 3),
+                            ("rank1_matmul_t", 2 * 3)):
+                if launches.get(name, 0) != n:
+                    raise AssertionError(
+                        f"baselines {arm}: {name} launched "
+                        f"{launches.get(name, 0)} times, not {n}")
+            if launches.get("subcge_apply", 0) < 1:
+                raise AssertionError(f"baselines {arm}: subcge_apply never "
+                                     "launched")
+        if method == "gossip_sr" and launches.get("subcge_apply_epochs",
+                                                  0) < 1:
+            raise AssertionError("baselines gossip_sr: subcge_apply_epochs "
+                                 "never launched")
+        for name, k in launches.items():
+            total[name] = total.get(name, 0) + k
+        del res
+        torch.cuda.empty_cache()
+
+    # a first-order step through a Mamba layer raises on the card
+    build.reset_launches()
+    try:
+        run(DTrainConfig(method="dsgd",
+                         arch=archs.reduced(archs.get("falcon-mamba-7b")),
+                         n_clients=2, steps=1, batch_size=2, device="cuda"))
+    except NotImplementedError as e:
+        log(f"[9] dsgd through a Mamba layer on the card raises: {e}")
+    else:
+        raise AssertionError("baselines: dsgd through the Mamba layer ran on "
+                             "the card (the scan kernel has no backward)")
+    if build.LAUNCHES.get("selective_scan", 0) != 0:
+        raise AssertionError("baselines: the scan launched under autograd")
+    torch.cuda.empty_cache()
+    return total, out
 
 
 def main(argv=None) -> int:
@@ -844,6 +1027,37 @@ def main(argv=None) -> int:
         if not (lrel <= 1e-4 and err <= 1e-4):
             raise AssertionError(f"small-input run of {arch.name} on the card "
                                  "disagrees with the CPU run")
+    sim = sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128)
+    for method, kw in BASELINE_ARMS:
+        small = dict(method=method, arch=sim, n_clients=4, topology="ring",
+                     steps=3, batch_size=2, local_iters=1, **kw)
+        on_card = run(DTrainConfig(device="cuda", **small))
+        on_cpu = run(DTrainConfig(device="cpu", **small))
+        err = max(float((on_card.extra["final_stacked"][p].cpu() - t).abs()
+                        .max())
+                  for p, t in on_cpu.extra["final_stacked"].items())
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(on_card.loss_curve,
+                                                       on_cpu.loss_curve))
+        log(f"[8] small input {method} {kw or ''} on {sim.name}, 4 clients, "
+            f"ring, card vs CPU: ledger {on_card.total_bytes} / "
+            f"{on_cpu.total_bytes} B, loss rel {lrel:.3e} (tol 1e-4), params "
+            f"max abs {err:.3e} (tol 1e-4)")
+        if not (lrel <= 1e-4 and err <= 1e-4
+                and on_card.total_bytes == on_cpu.total_bytes):
+            raise AssertionError(f"small-input {method} run on the card "
+                                 "disagrees with the CPU run")
+
+    # 9. every §4.2 baseline at OPT-125M's full width, 16 clients: the
+    # kernels at the shapes these paths give them, then the runs
+    log(f"[9] kernels vs plain versions at the baselines' shapes: OPT-125M "
+        f"expanded to {BASELINE_CLIENTS} clients, updates of one model "
+        f"({card})")
+    entries["baselines"] = phase_kernels_baselines(opt, BASELINE_CLIENTS,
+                                                   B * T)
+    for e in entries["baselines"].values():
+        log(f"[9] baselines {e.line()}")
+    torch.cuda.empty_cache()
+    launches["baselines"], details["baselines"] = phase_baselines(opt, B, card)
 
     if args.profile:
         for key, arch, clients, topology in (
@@ -855,8 +1069,16 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             log(f"[p] one steady {arch.name} step ({card}): "
                 f"{details[key]['profile']}")
+        for method, kw in BASELINE_ARMS:
+            arm = method + "".join(f"-{k}{v}" for k, v in kw.items())
+            prof = phase_profile(opt, BASELINE_CLIENTS, B, "cuda",
+                                 method=method, local_iters=1, **kw)
+            details["baselines"][arm]["profile"] = prof
+            torch.cuda.empty_cache()
+            log(f"[p] one steady {arm} step, {opt.name} x {BASELINE_CLIENTS} "
+                f"clients ({card}): {prof}")
 
-    # 9. report: each kernel over the paths that run it
+    # 10. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

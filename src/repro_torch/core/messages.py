@@ -51,3 +51,15 @@ class CommLedger:
     @property
     def per_edge(self) -> float:
         return self.total_bytes / max(1, self.n_edges)
+
+
+def dense_payload_bytes(n_params: int, dtype_bytes: int = 4) -> int:
+    """Bytes to gossip one full model copy (traditional gossip, O(d))."""
+    return n_params * dtype_bytes
+
+
+def topk_payload_bytes(n_params: int, density: float, dtype_bytes: int = 4,
+                       index_bytes: int = 4) -> int:
+    """ChocoSGD-style top-k sparsified payload: values + indices."""
+    k = max(1, int(n_params * density))
+    return k * (dtype_bytes + index_bytes)

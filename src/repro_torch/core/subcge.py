@@ -237,3 +237,49 @@ def apply_messages_epoch(params: dict, meta: dict[str, LeafMeta],
         else:
             params[path] += _vector_update(path, m, message_seeds, cf)
     return params
+
+
+# ---------------------------------------------------------------------------
+# beyond-paper: subspace momentum
+# ---------------------------------------------------------------------------
+#
+# Under SubCGE every update lives in the shared r×r coefficient space, so a
+# velocity μ_ℓ ∈ R^{*B,r,r} per leaf gives momentum-SGD semantics at O(r²)
+# state:  μ ← β μ + A_t,  W ← W + U μ V^T.  μ is a deterministic function of
+# the message stream (consensus-safe) and only meaningful within one
+# subspace window: the caller resets it at τ-refresh boundaries.  Non-2D
+# leaves keep plain SGD.
+
+def zero_buffers(meta: dict[str, LeafMeta], cfg: SubCGEConfig,
+                 n_models: int = 1, device="cpu") -> dict:
+    """Zero r×r buffers for every matrix leaf: (n_models, *B, r, r)."""
+    return {p: torch.zeros((n_models,) + meta[p].batch_shape
+                           + (cfg.rank, cfg.rank), device=device)
+            for p in seedlib.path_order(meta) if meta[p].is_matrix}
+
+
+def momentum_apply(params: dict, meta: dict[str, LeafMeta],
+                   cfg: SubCGEConfig, subspace: dict, velocity: dict,
+                   message_seeds: torch.Tensor, coefs: torch.Tensor,
+                   beta: float = 0.9):
+    """One momentum step from K messages per model, in place on ``params``;
+    returns (params, new_velocity).
+
+    Matrix leaves: μ ← β μ + Σ_k coef_k E_{i_k j_k};  W += U μ V^T through
+    ``subcge_apply`` with the dense μ as its A.  Vector leaves: plain
+    (momentum-free) application.
+    """
+    coords = sample_coords(meta, cfg, message_seeds)
+    cf = coefs.float()
+    new_vel = {}
+    for path in seedlib.path_order(meta):
+        m = meta[path]
+        if m.is_matrix:
+            i, j = coords[path]
+            mu = beta * velocity[path] + scatter_A(i, j, cf, cfg.rank)
+            new_vel[path] = mu
+            U, V = subspace[path]
+            kops.subcge_apply(params[path], U, mu, V, inplace=True)
+        else:
+            params[path] += _vector_update(path, m, message_seeds, cf)
+    return params, new_vel

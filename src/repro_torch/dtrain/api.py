@@ -1,6 +1,20 @@
-"""Run scaffolding of the decentralized trainer (the SeedFlood subset of
-``repro/dtrain/api.py``): the tiny default arch, the per-run ``Setup``,
-``RunResult``, the method ``Outbox``, and the logging helpers.
+"""The Method × Transport plugin API of the decentralized trainer (the
+port of ``repro/dtrain/api.py`` without churn or checkpoints).
+
+* a Method owns the *math* of one training algorithm: how a client turns
+  a batch into new local state and an outbox (``local_step``), how it folds
+  a transport's inbox back in (``apply_inbox``, which accepts ``None``),
+  and which stacked params its state stands for (``params_of``);
+* a Transport (``repro_torch.core.transport``) owns the *network* and is
+  the only layer that touches a ``CommLedger``;
+* the Trainer (``repro_torch.dtrain.trainer``) owns the *loop* and the
+  ``RunResult``, once, for every method.
+
+``Outbox.payload`` is transport-specific: flooding methods emit
+``(client, Message)`` pairs, gossip methods the stacked trainable dict,
+gossip-SR coefficient histories, and the null transport ignores it.  This
+module also holds the tiny default arch, the per-run ``Setup`` and the
+logging helpers.
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ class Setup:
         self.parts = synthetic.partition(self.train, cfg.n_clients,
                                          scheme=cfg.partition, seed=cfg.seed)
         self.graph = graphs.make(cfg.topology, cfg.n_clients)
+        self.W = graphs.metropolis_weights(self.graph)
         self.spec = tf.arch_spec(self.arch)
         p0 = plib.init_params(self.spec, cfg.seed, self.device)
         self.stacked = {}
@@ -94,10 +109,34 @@ class RunResult:
 
 @dataclasses.dataclass
 class Outbox:
-    """What one local step hands back: per-client losses and the payload of
-    ``(client, Message)`` pairs."""
+    """What one local step hands back: per-model losses (the Trainer logs
+    them) and a transport payload."""
     losses: np.ndarray
     payload: Any = None
+
+
+class MethodBase:
+    """Default hooks so concrete methods only override what they use."""
+
+    name = "method"
+
+    def initial_payload(self, state: Any) -> Any:
+        """Payload-equivalent view of the *initial* state, handed to
+        ``Transport.bind`` (Choco initializes its surrogate copies from the
+        pre-training weights, paper App. B.2)."""
+        return None
+
+    def params_of(self, state: Any) -> dict:
+        """The stacked params (models, ...) that ``state`` stands for: what
+        the Trainer evaluates and reports as ``extra["final_stacked"]``."""
+        return state
+
+    def label(self, transport_stats: dict) -> str:
+        """RunResult.method display name (may cite transport stats)."""
+        return self.name
+
+    def result_extra(self, state: Any) -> dict:
+        return {}
 
 
 def log_step_loss(loss_curve: list[float], losses: np.ndarray,
@@ -129,7 +168,10 @@ def consensus_error(stacked: dict) -> float:
 
 
 def active_consensus(stacked: dict, active: np.ndarray) -> float:
-    """Consensus error over online clients only."""
+    """Consensus error over online clients only.  The mask is clipped to the
+    model axis, so single-model methods (central_zo) report 0."""
+    n_models = next(iter(stacked.values())).shape[0]
+    active = active[:n_models]
     idx = np.flatnonzero(active)
     if idx.size <= 1:
         return 0.0

@@ -24,12 +24,12 @@ from torch.profiler import record_function
 from repro_torch.core import seeds as seedlib, subcge
 from repro_torch.core.messages import Message
 from repro_torch.core.transport import FloodInbox
-from repro_torch.dtrain.api import Outbox, Setup
+from repro_torch.dtrain.api import MethodBase, Outbox, Setup
 from repro_torch.models import transformer as tf
 from repro_torch.models.perturb import epoch_subspace, sample_pert
 
 
-class SeedFloodMethod:
+class SeedFloodMethod(MethodBase):
     name = "seedflood"
 
     def __init__(self, cfg):

@@ -1,13 +1,24 @@
-"""Decentralized training entry point of the port: ``DTrainConfig`` and
-``run``.
+"""Decentralized training entry point of the port: ``DTrainConfig``,
+``validate_config`` and ``run``.
 
     from repro_torch.dtrain.runner import DTrainConfig, run
-    result = run(DTrainConfig(n_clients=8, steps=3))          # on the card
+    result = run(DTrainConfig(method="dsgd", n_clients=8, steps=3))  # on the card
 
-The port runs SeedFlood (Algorithm 1) — flooding of seed–scalar ZO messages
-with SubCGE aggregation — on any static topology of ``topology.graphs``;
-the config carries only the fields this path reads.  ``device`` defaults
-to ``"cuda"``; asking for it without a card raises.  The CPU runs the
+Every method of the paper's §4.2 runs through the registry
+(``repro_torch.dtrain.methods.METHOD_SPECS``), each a Method composed with
+a Transport and driven by the one ``Trainer``, on any static topology of
+``topology.graphs``:
+
+  seedflood     flooding of seed–scalar ZO messages + SubCGE aggregation
+  dzsgd         ZO local steps + gossip model averaging
+  dsgd          FO local steps + gossip model averaging
+  choco         FO + compressed-difference gossip, 99 % top-k
+  dsgd_lora / dzsgd_lora / choco_lora   — adapters-only training + gossip
+  gossip_sr     gossip with shared randomness (the §3.2 strawman; O(tnd))
+  central_zo    centralized n-perturbation ZO (+ subspace ``momentum``)
+
+The config carries only the fields the port reads.  ``device`` defaults to
+``"cuda"``; asking for it without a card raises.  The CPU runs the
 kernels' plain versions and is what the tests use (``device="cpu"``).
 """
 from __future__ import annotations
@@ -15,10 +26,9 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.transport import FloodTransport
 from repro_torch.data import synthetic
 from repro_torch.dtrain.api import RunResult, Setup, sim_arch  # noqa: F401  (re-export)
-from repro_torch.dtrain.methods.seedflood import SeedFloodMethod
+from repro_torch.dtrain.methods import METHOD_SPECS, MethodSpec
 from repro_torch.dtrain.trainer import Trainer
 
 
@@ -31,9 +41,14 @@ class DTrainConfig:
     lr: float = 1e-2
     batch_size: int = 8
     eps: float = 1e-3
+    local_iters: int = 5            # gossip every 5 local steps (paper)
     flood_k: int | None = None      # None -> network diameter (full flooding)
     subcge_rank: int = 16
     subcge_tau: int = 1000
+    choco_density: float = 0.01     # 99 % top-k sparsification (paper)
+    lora_r: int = 8
+    lora_alpha: float = 16.0
+    momentum: float = 0.0           # beyond-paper: subspace momentum β
     seed: int = 0
     partition: str = "uniform"      # uniform | dirichlet (data.synthetic)
     arch: ArchConfig | None = None
@@ -48,11 +63,44 @@ class DTrainConfig:
     device: str = "cuda"
 
 
+#: DTrainConfig fields that belong to specific methods.  A non-default value
+#: for a field outside its method's ``consumes`` set is a config error, not
+#: a silent no-op.
+_METHOD_FIELDS = ("momentum", "choco_density", "flood_k", "flood_backend",
+                  "drain", "lora_r", "lora_alpha")
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(DTrainConfig)}
+
+
+def validate_config(cfg: DTrainConfig, spec: MethodSpec | None = None) -> None:
+    """Reject configs whose method-specific fields would be silently ignored.
+
+    Raises ``KeyError`` for an unknown method and ``ValueError`` for a field
+    the chosen method does not consume (e.g. ``momentum`` outside
+    ``central_zo``, ``choco_density`` outside the choco variants,
+    ``flood_k`` outside ``seedflood``).
+    """
+    if spec is None:
+        if cfg.method not in METHOD_SPECS:
+            raise KeyError(f"unknown method '{cfg.method}' "
+                           f"(have {sorted(METHOD_SPECS)})")
+        spec = METHOD_SPECS[cfg.method]
+    for field in _METHOD_FIELDS:
+        if field in spec.consumes:
+            continue
+        if getattr(cfg, field) != _DEFAULTS[field]:
+            users = sorted(name for name, s in METHOD_SPECS.items()
+                           if field in s.consumes)
+            raise ValueError(
+                f"config field '{field}'={getattr(cfg, field)!r} is not "
+                f"consumed by method '{spec.name}' and would be silently "
+                f"ignored (only {users} read it)")
+
+
 def run(cfg: DTrainConfig) -> RunResult:
-    if cfg.method != "seedflood":
-        raise KeyError(f"method '{cfg.method}' is not ported (have "
-                       "['seedflood'])")
+    validate_config(cfg)
+    spec = METHOD_SPECS[cfg.method]
     setup = Setup(cfg)
-    transport = FloodTransport(setup.graph, backend=cfg.flood_backend,
-                               flood_k=cfg.flood_k)
-    return Trainer(cfg, setup, SeedFloodMethod(cfg), transport).run()
+    method = spec.make_method(cfg)
+    transport = spec.make_transport(cfg, setup)
+    return Trainer(cfg, setup, method, transport).run()

@@ -14,8 +14,10 @@ write of y and h_last.  One thread owns one state element and walks T in
 its own loop; the readout over n is a warp-shuffle tree (see the ``.cu``
 file).  N must be a power of two no larger than 32; any other N is refused.
 
-The wrapper runs its plain PyTorch version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+The wrapper runs its plain PyTorch version for CPU tensors only (which
+autograd differentiates); for CUDA tensors it launches the kernel or
+raises.  The kernel has no backward: a CUDA call whose inputs need a
+gradient raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,6 +44,12 @@ def selective_scan_plain(a, bx, c, h0):
 def selective_scan(a, bx, c, h0):
     if a.device.type == "cpu":
         return selective_scan_plain(a, bx, c, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (a, bx, c, h0)):
+        raise NotImplementedError(
+            "selective_scan: the CUDA kernel has no backward, so a "
+            "first-order step cannot run through a Mamba layer on the card "
+            "(ROADMAP Queue 2: a backward for selective_scan)")
     B, T, D, N = a.shape
     for t, name in ((a, "a"), (bx, "bx"), (c, "c"), (h0, "h0")):
         if t.dtype != torch.float32 or not t.is_cuda:

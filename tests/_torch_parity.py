@@ -1,9 +1,12 @@
 """Shared inputs of the port's parity tests (``tests/test_torch_*.py``):
-the same random weights on both sides, matching SubCGE settings, and the
-JAX Bundle of one layer.  Import it after ``pytest.importorskip("torch")``.
+the same random weights on both sides, matching SubCGE settings, the JAX
+Bundle of one layer, a JAX run that reports every method's final params,
+and the ``one_thread`` fixture.  Import it after
+``pytest.importorskip("torch")``.
 """
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.core import subcge as jsub
@@ -47,3 +50,52 @@ def jax_slot_bundle(tree, meta_j, cfg_j, sub_j, seed, scale):
     return JBundle(first(tree["g0"])["s0"], _child(_child(sub_j, "g0"), "s0"),
                    first(_child(pert.ij, "g0"))["s0"],
                    first(_child(pert.zv, "g0"))["s0"], pert.scale, "jnp")
+
+
+@pytest.fixture
+def one_thread():
+    """Run the test on one torch thread, restored after.  Under pytest-xdist
+    several workers share the cores, and torch's intra-op thread pool (one
+    thread per core in every worker) then spends most of its time waiting at
+    the barrier of each parallel op: a port run that takes 5 s alone took
+    150 s beside five others, and 3.4 s on one thread.  One thread changes
+    no draw, size or tolerance."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def jax_method_run(cfg):
+    """``repro.dtrain.runner.run`` of ``cfg`` through the JAX package's
+    public Trainer, with the method's ``params_of`` reported as
+    ``extra["final_stacked"]`` (the JAX package reports final params for
+    seedflood and central_zo only)."""
+    from repro.dtrain.api import Setup
+    from repro.dtrain.methods import METHOD_SPECS
+    from repro.dtrain.runner import validate_config
+    from repro.dtrain.trainer import Trainer
+
+    validate_config(cfg)
+    spec = METHOD_SPECS[cfg.method]
+    setup = Setup(cfg)
+    method = spec.make_method(cfg)
+    extra = method.result_extra
+    method.result_extra = lambda st: {**extra(st),
+                                      "final_stacked": method.params_of(st)}
+    return Trainer(cfg, setup, method, spec.make_transport(cfg, setup)).run()
+
+
+def assert_run_matches(rt, rj, atol=3e-5, rtol=1e-4):
+    """Ledger equal, loss curve within ``rtol``, every final stacked param
+    within ``atol``."""
+    assert rt.total_bytes == rj.total_bytes
+    assert rt.bytes_per_edge == rj.bytes_per_edge
+    np.testing.assert_allclose(rt.loss_curve, rj.loss_curve, rtol=rtol)
+    want = tplib.flatten(jax.tree.map(np.asarray, rj.extra["final_stacked"]))
+    got = rt.extra["final_stacked"]
+    assert set(got) == set(want)
+    for p, w in want.items():
+        np.testing.assert_allclose(got[p].numpy(), w, atol=atol, err_msg=p)

@@ -318,3 +318,48 @@ def test_selective_scan_refuses_unsupported_state(cuda):
     with pytest.raises(ValueError, match="d_state"):
         ops.selective_scan(a, a, c, h0)
     assert build.LAUNCHES["selective_scan"] == 0
+
+
+@pytest.mark.gpu
+def test_selective_scan_refuses_a_gradient(cuda):
+    """The kernel has no backward: a first-order step through a Mamba layer
+    raises on the card (the CPU's plain version is differentiable)."""
+    a = torch.full((1, 4, 8, 4), 0.5, device=cuda, requires_grad=True)
+    c, h0 = torch.zeros((1, 4, 4), device=cuda), torch.zeros((1, 8, 4),
+                                                             device=cuda)
+    build.reset_launches()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.selective_scan(a, a.detach(), c, h0)
+    assert build.LAUNCHES["selective_scan"] == 0
+    with torch.no_grad():
+        ops.selective_scan(a, a.detach(), c, h0)
+    assert build.LAUNCHES["selective_scan"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans", [False, True], ids=["plain", "trans"])
+def test_rank1_kernels_read_a_shared_model(cuda, trans):
+    """central_zo's dual forward: one model expanded to C clients (a client
+    stride of 0), each client with its own rank-1 perturbation."""
+    C, M, K, N = 5, 67, 96, 160
+    x, W, u, v, s = _rank1_inputs(cuda, 21, C, M, K, N, trans)
+    Ws = W[:1].contiguous().expand(C, -1, -1)
+    assert Ws.stride(0) == 0
+    fn = ops.rank1_matmul_t if trans else ops.rank1_matmul
+    got = fn(x, Ws, u, v, s)
+    want = fn(*(t.cpu() for t in (x, Ws, u, v, s)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_topk_compress_on_card_equals_cpu(cuda):
+    """Choco's top-k over a whole stacked leaf, ties included."""
+    from repro_torch.core import gossip
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((0.25 * rng.integers(-40, 41, (16, 300, 77))
+                          ).astype(np.float32))
+    want = gossip.topk_compress(x, 0.01)
+    got = gossip.topk_compress(x.to(cuda), 0.01).cpu()
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) > int(x.numel() * 0.01)

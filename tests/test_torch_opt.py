@@ -39,7 +39,7 @@ from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import params as tplib, transformer as ttf  # noqa: E402
 from repro_torch.models.perturb import epoch_subspace, sample_pert  # noqa: E402
 
-from _torch_parity import subcge_pair, weights  # noqa: E402
+from _torch_parity import one_thread, subcge_pair, weights  # noqa: E402,F401
 
 EPS = 1e-3
 SEEDS = np.array([12345, 4294967295], np.uint32)
@@ -154,6 +154,7 @@ def test_lm_loss_matches_jax():
     assert float(got[EPS][0]) != float(got[-EPS][0])
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_seedflood_run_matches_jax():
     kw = dict(n_clients=64, topology="meshgrid", flood_backend="auto",
               steps=2, batch_size=1)

@@ -24,6 +24,8 @@ from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.dtrain.api import sim_arch as tsim_arch  # noqa: E402
 from repro_torch.models import params as tplib, transformer as ttf  # noqa: E402
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
 SEEDS = [0, 7, 123456789, 2**32 - 1, -1]
 # largest gap allowed between prng.normal and jax.random.normal: none
 MAX_NORMAL_ULP = 0
@@ -73,12 +75,15 @@ def test_batched_keys_match_one_by_one():
     assert (keys.numpy() == want).all()
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_normal_ulp_gap_is_pinned():
-    gap = 0
-    for s in range(16):
-        jn = jax.random.normal(jax.random.PRNGKey(s), (1 << 16,), jnp.float32)
-        gap = max(gap, _ulp_gap(jn, prng.normal(prng.PRNGKey(s), (1 << 16,))))
-    assert gap <= MAX_NORMAL_ULP
+    """2^16 draws from each of 16 keys, all keys in one batched call per
+    side (per key, the same draws as one call each)."""
+    jn = jax.vmap(lambda k: jax.random.normal(k, (1 << 16,), jnp.float32))(
+        jax.vmap(jax.random.PRNGKey)(jnp.arange(16)))
+    tn = prng.normal(prng.PRNGKey(torch.arange(16)), (1 << 16,))
+    assert tn.shape == jn.shape == (16, 1 << 16)
+    assert _ulp_gap(jn, tn) <= MAX_NORMAL_ULP
 
 
 def test_log1p_matches_xla_cpu_bitwise():

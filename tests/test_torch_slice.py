@@ -63,8 +63,8 @@ def test_full_flood_run_matches_jax():
 
 
 def test_run_refuses_what_it_cannot_do():
-    with pytest.raises(KeyError, match="not ported"):
-        run(DTrainConfig(method="dzsgd", device="cpu"))
+    with pytest.raises(KeyError, match="unknown method"):
+        run(DTrainConfig(method="sgd", device="cpu"))
     with pytest.raises(KeyError, match="unknown flood backend"):
         run(DTrainConfig(arch=sim_arch(**ARCH), task=TaskConfig(**TASK),
                          flood_backend="bitset", steps=1, device="cpu",
