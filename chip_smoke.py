@@ -21,7 +21,15 @@ no result line):
              unit's sums); the rank-1 products and the update kernel (E <= 2)
              are also held bitwise equal across two calls; the update kernel
              runs at every matrix leaf of all four paths, beside a
-             ``copy_`` of the same W; then ``prng.normal`` on the card held
+             ``copy_`` of the same W; the scan's backward
+             (``selective_scan_bwd``) at the scan shapes of phase 9's
+             first-order arms (4 and 3 clients x 8 sequences, T 33, D 8192,
+             N 16)
+             and at small odd shapes, bitwise across two calls; da, dbx and
+             dh0 held against the plain reverse scan and autograd of the
+             plain forward, dc (a sum over D = 8192) against a float64
+             oracle at the same tolerance, its distance to the plain
+             version printed; then ``prng.normal`` on the card held
              bitwise against the CPU on 2^20 draws.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
@@ -50,10 +58,11 @@ no result line):
 8. small   — the same code on small inputs (the dense sim arch, the
              reduced Kimi K2, the reduced Falcon Mamba, and the reduced
              OPT-125M at 64 clients on the mesh-grid, so that the bitset
-             engine runs on both sides), and every other method of the
+             engine runs on both sides), every other method of the
              registry on the sim arch (d64, 4 clients on a ring, gossip
-             every step), on the card and on the CPU (the kernels' plain
-             versions); results must agree.
+             every step) and dsgd on the reduced Falcon Mamba (autograd
+             through the scan kernel's backward), on the card and on the
+             CPU (the kernels' plain versions); results must agree.
 9. baselines — first the four kernels at the shapes these paths give
              them (central_zo's dual forward over one OPT-125M expanded to
              16 clients with a client stride of 0, updates of one model),
@@ -67,16 +76,35 @@ no result line):
              peak memory under 80 GiB; central_zo must launch
              ``rank1_matmul`` 432 times and ``rank1_matmul_t`` 6 times and
              ``subcge_apply`` at least once in both arms, gossip_sr
-             ``subcge_apply_epochs``.  A first-order step through a Mamba
-             layer (dsgd on the reduced Falcon Mamba) must raise
-             ``NotImplementedError`` on the card: the scan kernel has no
-             backward.
-10. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+             ``subcge_apply_epochs``.  Then the first-order arms through
+             Mamba layers: dsgd (4 clients) and choco (3: at 4 its
+             surrogates and top-k temporaries overflow the card) on the
+             Falcon Mamba cut, on a ring, 3 steps, gossip every step; each
+             must
+             launch ``selective_scan_bwd`` 4 layers x 3 steps = 12 times,
+             keep its losses finite and its peak under 80 GiB, and charge
+             the JAX GossipTransport's formula.
+10. churn  — the paper's setting of phase 7 under churn: 64 clients on the
+             8 x 8 mesh-grid, bitset engine, τ = 2, 6 steps; clients 18,
+             19, 26, 27 leave at step 1 and rejoin at 4, the grid splits
+             in halves at 2 and heals at 3.  The ledger (messages, bytes,
+             sync bytes, syncs) must be the JAX FloodTransport's, the
+             rejoin step's catch-up must run ``subcge_apply_epochs`` with
+             E >= 2, and all 64 clients must end within 1e-10 consensus;
+             the catch-up step's own time is printed.
+11. resume — OPT-125M whole, 8 clients on a ring, SeedFlood, τ = 2,
+             client 3 offline for steps 1-2, 5 steps with a checkpoint
+             every 2 into a temporary directory; a run resumed from the
+             step-2 checkpoint must end bitwise equal to the uninterrupted
+             one (leaves, loss and consensus curves, ledger).  Prints the
+             checkpoint's size and its write and read seconds.
+12. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-of each slice, of the paper's setting and of each phase-9 baseline (host
-spans, device-busy time and share, device launches, top kernels, and the
+of each slice, of the paper's setting, of each phase-9 baseline and
+first-order Mamba arm, and of phase 10's rejoin step (host spans,
+device-busy time and share, device launches, top kernels, and the
 hand-written kernels that ran, by name).
 
 It needs a CUDA device and the repository's ``src/`` next to it.
@@ -118,6 +146,20 @@ BASELINE_ARMS = (("central_zo", {}), ("central_zo", {"momentum": 0.9}),
 # and Choco's top-k payload of 1% of them (values and indices, 8 B each)
 DSGD_EXCHANGE_BYTES = 16_224_681_984
 CHOCO_EXCHANGE_BYTES = 324_493_568
+# phase 9: the first-order arms through the Falcon Mamba cut, and their
+# clients on a ring.  Choco takes 3: with 4 (14.2 GiB a stacked copy) it
+# holds Setup's init, the trainable, x-hat and the mixed copy (72.8 GiB)
+# when its top-k over embed/tok asks for another 3.97 GiB, and the card
+# runs out (first call on the card, NVIDIA H100 80GB HBM3, 700.00 W)
+FO_MAMBA_ARMS, FO_MAMBA_STEPS = (("dsgd", 4), ("choco", 3)), 3
+# phase 10: the paper's setting under churn, 6 steps at tau = 2; what the
+# JAX FloodTransport charges its script (messages, bytes, sync_bytes,
+# n_syncs; tests/test_torch_churn.py derives it from the JAX transport)
+CHURN_STEPS, CHURN_TAU = 6, 2
+LEDGER_MESHGRID64_CHURN_6STEPS = (82602, 668088, 15912, 18)
+# phase 11: resume, 8 clients (one OPT-125M checkpoint of 64 clients would
+# be 30.2 GiB)
+RESUME_CLIENTS, RESUME_STEPS = 8, 5
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -131,6 +173,9 @@ SOURCES = {
                             "src/repro/kernels/rank1_matmul.py:191"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:67"),
+    # no Pallas kernel: the JAX package differentiates _ssm_chunked
+    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+                           "src/repro/models/layers.py:327"),
 }
 # batch of the final accuracy pass (``data.synthetic.accuracy``)
 EVAL_BATCH = 128
@@ -521,7 +566,7 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
     Di, N = m.d_inner, m.d_state
     dtr = m.dt_rank or -(-d // 16)
     entries = {n: Entry(n) for n in ("rank1_matmul", "selective_scan",
-                                     "subcge_apply")}
+                                     "selective_scan_bwd", "subcge_apply")}
     check_update(entries["subcge_apply"], update_leaves(falcon, C), 1, randn)
     check_rank1(entries["rank1_matmul"], C, B * T,
                 (((d, 2 * Di), 1), ((Di, dtr + 2 * N), 1), ((dtr, Di), 1),
@@ -548,7 +593,77 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
                                                     " (not summed)"))
         del a, bx, c, h0, got, want
         torch.cuda.empty_cache()
+    # the backward at the scan shapes of phase 9's first-order arms (their
+    # clients folded into the batch; the unit is dsgd's), and at small odd
+    # shapes
+    (_, c_dsgd), (_, c_choco) = FO_MAMBA_ARMS
+    check_scan_bwd(entries["selective_scan_bwd"], (c_dsgd * B, T, Di, N),
+                   randn)
+    for shape in ((c_choco * B, T, Di, N), (3, 37, 200, N), (2, 7, 8, 4),
+                  (2, 9, 40, 1), (1, 5, 24, 32)):
+        check_scan_bwd(entries["selective_scan_bwd"], shape, randn,
+                       summed=False)
     return entries
+
+
+def check_scan_bwd(e: Entry, shape, randn, summed: bool = True) -> None:
+    """selective_scan_bwd at (B, T, D, N), bitwise equal across two calls
+    and timed beside the plain version.  da, dbx and dh0 are held against
+    the plain reverse scan and against autograd of the plain forward (rtol
+    1e-5, atol 1e-5).  dc sums D products whose partial sums run far above
+    the result, so float32 sums (the plain version's, autograd's) stray
+    from the exact value by more than that tolerance allows at D = 8192:
+    dc is held, at the same rtol and atol, against a float64 oracle (the
+    plain reverse scan in float64), and its distance to the plain version
+    is printed.  ``summed`` False: printed, not added to the unit."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+    Bs, Ts, D, N = shape
+    a = torch.sigmoid(randn(Bs, Ts, D, N))
+    bx, c, h0 = randn(Bs, Ts, D, N, scale=0.1), randn(Bs, Ts, N), \
+        randn(Bs, D, N)
+    dy, dh = randn(Bs, Ts, D), randn(Bs, D, N)
+    args = (a, bx, c, h0, dy, dh)
+    got = ss.selective_scan_bwd(*args)
+    for g, again, name in zip(got, ss.selective_scan_bwd(*args),
+                              ("da", "dbx", "dc", "dh0")):
+        same_bits(g, again, f"selective_scan_bwd {name}")
+    want = ss.selective_scan_bwd_plain(*args)
+    leaves = [x.clone().requires_grad_(True) for x in (a, bx, c, h0)]
+    y, h = ss.selective_scan_plain(*leaves)
+    auto = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), leaves)
+    del y, h, leaves
+    oracle = ss.selective_scan_bwd_plain(*(x.double() for x in args))[2]
+    log(f"    scan bwd {shape}: dc max |kernel - float64| "
+        f"{float((got[2].double() - oracle).abs().max()):.3e}, |plain - "
+        f"float64| {float((want[2].double() - oracle).abs().max()):.3e}, "
+        f"|kernel - plain| {float((got[2] - want[2]).abs().max()):.3e}, "
+        f"|float64| max {float(oracle.abs().max()):.3e}")
+    err = want_max = 0.0
+    for g, w, au, name in zip(got, want, auto, ("da", "dbx", "dc", "dh0")):
+        if name == "dc":
+            ce, cw = e.check(g.double(), oracle, "dc vs a float64 oracle")
+        else:
+            e.check(g, au, f"{name} vs autograd of the plain scan")
+            ce, cw = e.check(g, w, f"{name} vs the plain reverse scan")
+        err, want_max = max(err, ce), max(want_max, cw)
+    del got, want, auto, oracle
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: ss.selective_scan_bwd(*args))
+    p_ms = time_ms(lambda: ss.selective_scan_bwd_plain(*args), 3, 1)
+    BTDN = Bs * Ts * D * N
+    # what the function must move, once each (4 B): a, bx, c, h0, dy and
+    # dh_last in; da, dbx, dc and dh0 out.  The kernel's own traffic (h
+    # parked in da, dc's float64 block partials) is its design's, not the
+    # function's, and is left out
+    nbytes = 4 * (4 * BTDN + 2 * Bs * Ts * N + 3 * Bs * D * N + Bs * Ts * D)
+    flops = 8 * BTDN
+    target = e if summed else Entry(e.name)
+    target.add_checked((err, want_max), ms, p_ms, None, nbytes, flops,
+                       f"a({Bs},{Ts},{D},{N}) da+dbx+dc+dh0"
+                       + ("" if summed else " (not summed)"))
+    del a, bx, c, h0, dy, dh, args
+    torch.cuda.empty_cache()
 
 
 def phase_kernels_opt(opt, C: int, M: int) -> dict:
@@ -627,7 +742,9 @@ def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
                   **kw) -> dict:
     """Where one steady step of ``method`` goes: the pieces ``run`` calls
     (method, transport) driven by hand, the last step under
-    ``torch.profiler``.  Returns host-span milliseconds (SeedFlood's
+    ``torch.profiler`` (with ``churn=`` a schedule in ``kw``, its events
+    applied at the start of each step, as the Trainer does).  Returns
+    host-span milliseconds (SeedFlood's
     ``seedflood.*`` ranges), device-busy milliseconds, the busy share of the
     step's wall time, the device launches, and the kernels that took the
     most device time."""
@@ -651,8 +768,11 @@ def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
 
     def step(t):
         nonlocal state
-        state, outbox = meth.local_step(state, setup.batches(t), t)
-        inbox = transport.exchange(outbox.payload, t)
+        if cfg.churn is not None and cfg.churn.events_at(t):
+            transport.apply_churn(cfg.churn.events_at(t))
+        active = transport.active_mask()
+        state, outbox = meth.local_step(state, setup.batches(t), active, t)
+        inbox = transport.exchange(outbox.payload, t, active)
         del outbox
         state = meth.apply_inbox(state, inbox)
         if cuda:
@@ -687,7 +807,8 @@ def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
     # not appear
     ours = {k.split("namespace)::")[-1].split("(")[0]: (ms, n)
             for k, (ms, n) in kernels.items()
-            if any(w in k for w in ("rank1_", "subcge_", "selective_scan"))}
+            if any(w in k for w in ("rank1_", "subcge_", "selective_scan",
+                                    "scan_bwd", "dc_sum"))}
     if any("rank1_matmul_kernel" in k for k in ours):
         raise AssertionError(f"profile: the old rank-1 tile still runs: {ours}")
     del state, setup, transport
@@ -738,7 +859,6 @@ def phase_baselines(opt, B: int, card: str):
     launches summed over the arms (each arm's counters zeroed just before
     its run and read just after) and each arm's numbers."""
     import torch
-    from repro_torch.configs import archs
     from repro_torch.dtrain.runner import DTrainConfig, run
     from repro_torch.kernels import build
 
@@ -806,22 +926,219 @@ def phase_baselines(opt, B: int, card: str):
             total[name] = total.get(name, 0) + k
         del res
         torch.cuda.empty_cache()
-
-    # a first-order step through a Mamba layer raises on the card
-    build.reset_launches()
-    try:
-        run(DTrainConfig(method="dsgd",
-                         arch=archs.reduced(archs.get("falcon-mamba-7b")),
-                         n_clients=2, steps=1, batch_size=2, device="cuda"))
-    except NotImplementedError as e:
-        log(f"[9] dsgd through a Mamba layer on the card raises: {e}")
-    else:
-        raise AssertionError("baselines: dsgd through the Mamba layer ran on "
-                             "the card (the scan kernel has no backward)")
-    if build.LAUNCHES.get("selective_scan", 0) != 0:
-        raise AssertionError("baselines: the scan launched under autograd")
-    torch.cuda.empty_cache()
     return total, out
+
+
+def phase_mamba_fo(falcon, B: int, card: str):
+    """Phase 9, first-order arms through Mamba layers: dsgd and choco on
+    the Falcon Mamba cut (4 of 64 layers at the published widths), their
+    FO_MAMBA_ARMS clients on a ring, gossip every step.  Each step's
+    backward runs the scan's reverse-scan kernel once per layer; returns
+    the launches summed over both arms and each arm's numbers."""
+    import torch
+    from repro_torch.configs import archs
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+
+    total, out = {}, {}
+    for method, clients in FO_MAMBA_ARMS:
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run(DTrainConfig(method=method, arch=falcon,
+                               n_clients=clients, topology="ring",
+                               steps=FO_MAMBA_STEPS, batch_size=B,
+                               local_iters=1, device="cuda"))
+        launches = dict(build.LAUNCHES)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = res.extra["step_wall_s"]
+        want = baseline_ledger(method, res.extra["n_params"], 0,
+                               n=clients, steps=FO_MAMBA_STEPS)
+        out[method] = {
+            "step_ms": 1e3 * sum(steady) / len(steady),
+            "steady_step_s": steady, "first_step_ms": 1e3 * res.compile_wall_s,
+            "peak_gib": peak, "total_bytes": res.total_bytes,
+            "losses": res.loss_curve, "gmp": res.gmp,
+            "valid_loss": res.extra["valid_loss"],
+            "consensus": res.consensus_error, "run_s": wall,
+            "clients": clients, "launches": launches}
+        log(f"[9] {method} through Mamba: {falcon.name} x "
+            f"{clients} clients, ring, {FO_MAMBA_STEPS} steps in "
+            f"{wall:.1f} s; losses {res.loss_curve}; consensus "
+            f"{res.consensus_error:.3e}; ledger {res.total_bytes} B (JAX "
+            f"formula {want}); first step {out[method]['first_step_ms']:.1f}"
+            f" ms, steady step {out[method]['step_ms']:.1f} ms ({steady}); "
+            f"peak mem {peak:.2f} GiB; launches {launches} ({card})")
+        if not all(math.isfinite(v) for v in res.loss_curve):
+            raise AssertionError(f"mamba {method}: non-finite loss")
+        if res.total_bytes != want:
+            raise AssertionError(f"mamba {method}: ledger {res.total_bytes} "
+                                 f"!= the JAX formula's {want}")
+        if not peak < 80:
+            raise AssertionError(f"mamba {method}: peak memory {peak} GiB")
+        n_bwd = archs.FALCON_LAYERS * FO_MAMBA_STEPS
+        if launches.get("selective_scan_bwd", 0) != n_bwd:
+            raise AssertionError(
+                f"mamba {method}: selective_scan_bwd launched "
+                f"{launches.get('selective_scan_bwd', 0)} times, not {n_bwd}")
+        for name, k in launches.items():
+            total[name] = total.get(name, 0) + k
+        del res
+        torch.cuda.empty_cache()
+    return total, out
+
+
+def churn_schedule():
+    """Phase 10's script on the 8 x 8 mesh-grid: four clients of its middle
+    leave at step 1 and rejoin at 4 (their catch-up spans τ-epochs 0-2 at
+    τ = 2); the grid splits in halves at step 2 and heals at 3."""
+    from repro_torch.topology.dynamic import ChurnSchedule
+    return (ChurnSchedule.leave_rejoin((18, 19, 26, 27), leave_at=1,
+                                       rejoin_at=4)
+            + ChurnSchedule.partition((range(0, 32), range(32, 64)), at=2,
+                                      heal_at=3))
+
+
+def phase_churn(opt, B: int, card: str):
+    """Phase 10: the paper's setting under churn (OPT-125M whole, 64
+    clients on the 8 x 8 mesh-grid, the bitset engine, τ = 2, 6 steps).
+    The ledger must be the JAX FloodTransport's, the rejoin step's replay
+    must run the epoch kernel with E >= 2, and all 64 clients must end in
+    consensus.  Returns the launches and the run's numbers."""
+    import torch
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run(DTrainConfig(arch=opt, n_clients=PAPER_CLIENTS,
+                           topology=PAPER_TOPOLOGY, steps=CHURN_STEPS,
+                           batch_size=B, subcge_tau=CHURN_TAU,
+                           churn=churn_schedule(), device="cuda"))
+    launches = dict(build.LAUNCHES)
+    epochs = dict(build.EPOCH_LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = res.extra["step_wall_s"]          # steps 1 .. CHURN_STEPS - 1
+    catchup_s = steady[4 - 1]                  # the rejoin step, t = 4
+    others = [v for k, v in enumerate(steady) if k != 4 - 1]
+    ledger = (res.extra["n_messages"], res.total_bytes,
+              res.extra["sync_bytes"], res.extra["n_syncs"])
+    out = {"steady_step_s": steady, "catchup_step_s": catchup_s,
+           "step_ms": 1e3 * sorted(others)[len(others) // 2],
+           "first_step_ms": 1e3 * res.compile_wall_s, "peak_gib": peak,
+           "ledger": ledger, "losses": res.loss_curve, "gmp": res.gmp,
+           "valid_loss": res.extra["valid_loss"],
+           "consensus": res.consensus_error, "run_s": wall,
+           "launches": launches, "epoch_launches": epochs}
+    log(f"[10] churn: {opt.name} x {PAPER_CLIENTS} clients, "
+        f"{PAPER_TOPOLOGY}, {res.extra['engine']}, tau {CHURN_TAU}, "
+        f"{CHURN_STEPS} steps in {wall:.1f} s; losses {res.loss_curve}; "
+        f"consensus {res.consensus_error:.3e}; ledger (msgs, B, sync B, "
+        f"syncs) {ledger}; first step {out['first_step_ms']:.1f} ms, "
+        f"median steady step {out['step_ms']:.1f} ms, catch-up step "
+        f"{1e3 * catchup_s:.1f} ms ({steady}); peak mem {peak:.2f} GiB; "
+        f"epoch launches by E {epochs}; launches {launches} ({card})")
+    if not all(math.isfinite(v) for v in res.loss_curve):
+        raise AssertionError("churn: non-finite loss")
+    if ledger != LEDGER_MESHGRID64_CHURN_6STEPS:
+        raise AssertionError(f"churn: ledger {ledger} != JAX FloodTransport's "
+                             f"{LEDGER_MESHGRID64_CHURN_6STEPS}")
+    if res.extra["engine"] != "VectorFloodNetwork":
+        raise AssertionError(f"churn: flood engine {res.extra['engine']}")
+    if not any(E >= 2 for E in epochs):
+        raise AssertionError(f"churn: subcge_apply_epochs never ran with "
+                             f"E >= 2 ({epochs})")
+    if not res.consensus_error < 1e-10:
+        raise AssertionError(f"churn: consensus error {res.consensus_error}")
+    if not peak < 80:
+        raise AssertionError(f"churn: peak memory {peak} GiB")
+    # every client runs both signed forwards each step, offline or not
+    for name, want in (("rank1_matmul", 6 * opt.n_layers * 2 * CHURN_STEPS),
+                       ("rank1_matmul_t", 2 * CHURN_STEPS)):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"churn: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {want}")
+    del res
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_resume(opt, B: int, card: str):
+    """Phase 11: OPT-125M whole, RESUME_CLIENTS clients on a ring, τ = 2,
+    client 3 offline for steps 1-2, RESUME_STEPS steps with a checkpoint
+    every 2 into a temporary directory (removed after); a second run
+    resumed from the step-2 checkpoint must end bitwise equal to the
+    uninterrupted one: every final stacked leaf, the loss and consensus
+    curves and the ledger.  Returns the launches of both runs and the
+    numbers."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+    from repro_torch.topology.dynamic import ChurnSchedule
+
+    times = {"save": [], "load": []}
+    save, load = ckpt.save, ckpt.load
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times[key].append(time.perf_counter() - t0)
+        return wrapper
+
+    base = dict(arch=opt, n_clients=RESUME_CLIENTS, topology="ring",
+                steps=RESUME_STEPS, batch_size=B, subcge_tau=2, eval_every=1,
+                churn=ChurnSchedule.leave_rejoin((3,), 1, 3), device="cuda")
+    build.reset_launches()
+    ckpt.save, ckpt.load = timed(save, "save"), timed(load, "load")
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            whole = run(DTrainConfig(checkpoint_every=2, checkpoint_dir=d,
+                                     **base))
+            path = os.path.join(d, "step000002.npz")
+            size = os.path.getsize(path)
+            resumed = run(DTrainConfig(resume_from=path, **base))
+    finally:
+        ckpt.save, ckpt.load = save, load
+    launches = dict(build.LAUNCHES)
+    got, want = resumed.extra["final_stacked"], whole.extra["final_stacked"]
+    differ = [p for p, w in want.items()
+              if not torch.equal(got[p].view(torch.int32),
+                                 w.view(torch.int32))]
+    out = {"ckpt_bytes": size, "save_s": times["save"],
+           "load_s": times["load"], "losses": whole.loss_curve,
+           "consensus_curve": whole.extra["consensus_curve"],
+           "ledger": whole.total_bytes, "launches": launches}
+    log(f"[11] resume: {opt.name} x {RESUME_CLIENTS} clients, ring, "
+        f"{RESUME_STEPS} steps, resumed from step 2: checkpoint "
+        f"{size} B ({size / 2**30:.2f} GiB), written in {times['save']} s, "
+        f"read in {times['load']} s; leaves differing {differ}; losses "
+        f"{whole.loss_curve} / {resumed.loss_curve}; consensus "
+        f"{whole.extra['consensus_curve']} / "
+        f"{resumed.extra['consensus_curve']}; ledger {whole.total_bytes} / "
+        f"{resumed.total_bytes} B, syncs {whole.extra['n_syncs']} / "
+        f"{resumed.extra['n_syncs']} ({card})")
+    if differ or resumed.loss_curve != whole.loss_curve \
+            or resumed.extra["consensus_curve"] != \
+            whole.extra["consensus_curve"] \
+            or resumed.total_bytes != whole.total_bytes \
+            or resumed.extra["n_messages"] != whole.extra["n_messages"] \
+            or resumed.extra["sync_bytes"] != whole.extra["sync_bytes"]:
+        raise AssertionError("resume: the resumed run is not bitwise the "
+                             "uninterrupted one")
+    if whole.extra["n_syncs"] < 1:
+        raise AssertionError("resume: the rejoin ran no anti-entropy")
+    del whole, resumed, got, want
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def main(argv=None) -> int:
@@ -851,11 +1168,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build_s = build.build_all()
-    for name in ("rank1_matmul", "subcge_apply", "selective_scan"):
+    libs = ("rank1_matmul", "subcge_apply", "selective_scan",
+            "selective_scan_bwd")
+    for name in libs:
         build.load(name)
     log(f"[1] kernels built in {build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
-    ptxas = {n: ptxas_report(n) for n in ("rank1_matmul", "subcge_apply",
-                                          "selective_scan")}
+    ptxas = {n: ptxas_report(n) for n in libs}
     for name, reports in ptxas.items():
         for r in reports:
             log(f"    ptxas {name}: {r}")
@@ -1028,8 +1346,10 @@ def main(argv=None) -> int:
             raise AssertionError(f"small-input run of {arch.name} on the card "
                                  "disagrees with the CPU run")
     sim = sim_arch(d_model=64, n_layers=2, n_heads=4, d_ff=128)
-    for method, kw in BASELINE_ARMS:
-        small = dict(method=method, arch=sim, n_clients=4, topology="ring",
+    small_falcon = archs.reduced(archs.get("falcon-mamba-7b"))
+    for method, kw, arch in ([(m, k, sim) for m, k in BASELINE_ARMS]
+                             + [("dsgd", {}, small_falcon)]):
+        small = dict(method=method, arch=arch, n_clients=4, topology="ring",
                      steps=3, batch_size=2, local_iters=1, **kw)
         on_card = run(DTrainConfig(device="cuda", **small))
         on_cpu = run(DTrainConfig(device="cpu", **small))
@@ -1038,7 +1358,7 @@ def main(argv=None) -> int:
                   for p, t in on_cpu.extra["final_stacked"].items())
         lrel = max(abs(a - b) / abs(b) for a, b in zip(on_card.loss_curve,
                                                        on_cpu.loss_curve))
-        log(f"[8] small input {method} {kw or ''} on {sim.name}, 4 clients, "
+        log(f"[8] small input {method} {kw or ''} on {arch.name}, 4 clients, "
             f"ring, card vs CPU: ledger {on_card.total_bytes} / "
             f"{on_cpu.total_bytes} B, loss rel {lrel:.3e} (tol 1e-4), params "
             f"max abs {err:.3e} (tol 1e-4)")
@@ -1058,6 +1378,12 @@ def main(argv=None) -> int:
         log(f"[9] baselines {e.line()}")
     torch.cuda.empty_cache()
     launches["baselines"], details["baselines"] = phase_baselines(opt, B, card)
+    launches["mamba_fo"], details["mamba_fo"] = phase_mamba_fo(falcon, B,
+                                                                card)
+
+    # 10. the paper's setting under churn; 11. bitwise resume
+    launches["churn"], details["churn"] = phase_churn(opt, B, card)
+    launches["resume"], details["resume"] = phase_resume(opt, B, card)
 
     if args.profile:
         for key, arch, clients, topology in (
@@ -1077,8 +1403,23 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             log(f"[p] one steady {arm} step, {opt.name} x {BASELINE_CLIENTS} "
                 f"clients ({card}): {prof}")
+        for method, clients in FO_MAMBA_ARMS:
+            prof = phase_profile(falcon, clients, B, "cuda", method=method,
+                                 local_iters=1)
+            details["mamba_fo"][method]["profile"] = prof
+            torch.cuda.empty_cache()
+            log(f"[p] one steady {method} step through Mamba, {falcon.name} "
+                f"x {clients} clients ({card}): {prof}")
+        # the churn cell's rejoin step (t = 4: the catch-up replay)
+        prof = phase_profile(opt, PAPER_CLIENTS, B, "cuda", steps=5,
+                             topology=PAPER_TOPOLOGY, subcge_tau=CHURN_TAU,
+                             churn=churn_schedule())
+        details["churn"]["profile"] = prof
+        torch.cuda.empty_cache()
+        log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
+            f"clients ({card}): {prof}")
 
-    # 10. report: each kernel over the paths that run it
+    # 12. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

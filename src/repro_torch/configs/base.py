@@ -13,7 +13,8 @@ sinusoidal positions and modality frontends, MLA.  The JAX package's
 too: the port has no mesh.  ``MambaCfg`` leaves out the JAX ``chunk``: it
 sizes the chunks of the associative scan in jnp, a memory knob with no
 consumer here, where the recurrence runs through the ``selective_scan``
-kernel in one pass over T.
+kernel in one pass over T.  ``ChurnConfig`` is the declarative churn spec
+of a decentralized run.
 """
 from __future__ import annotations
 
@@ -96,3 +97,24 @@ def uniform_dense(name: str, *, n_layers: int, d_model: int, n_heads: int,
     slot = dense_layer(d_model, n_heads, n_kv, d_ff, head_dim, qkv_bias)
     return ArchConfig(name=name, family="dense", d_model=d_model, vocab=vocab,
                       groups=(Group((slot,), n_layers),), **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChurnConfig:
+    """Declarative churn spec for decentralized runs (the JAX package's
+    ``ChurnConfig``).  ``repro_torch.topology.dynamic.ChurnSchedule.
+    from_config`` resolves it into the event script; ``leave_at`` /
+    ``rejoin_at`` double as down/up (link_flap) and at/heal (partition)
+    steps."""
+    kind: str = "leave_rejoin"         # leave_rejoin | link_flap | partition | random
+    nodes: tuple[int, ...] = ()        # leave_rejoin
+    leave_at: int = 0
+    rejoin_at: int = 0
+    edges: tuple[tuple[int, int], ...] = ()          # link_flap
+    groups: tuple[tuple[int, ...], ...] = ()         # partition
+    n: int = 0                         # random: client count
+    steps: int = 0                     # random: horizon
+    rate: float = 0.0                  # random: per-step leave probability
+    seed: int = 0
+    outage: tuple[int, int] = (5, 15)  # random: offline duration range
+    max_concurrent: int = 1            # random: max simultaneous departures

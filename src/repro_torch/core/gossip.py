@@ -76,12 +76,17 @@ def choco_init(stacked_params: dict) -> ChocoState:
 
 
 def choco_round(params: dict, state: ChocoState, W: np.ndarray,
-                density: float, consensus_lr: float = 1.0):
+                density: float, consensus_lr: float = 1.0,
+                active: np.ndarray | None = None):
     """One ChocoSGD communication round; returns (new_params, new_state).
 
     q_i = C(x_i − x̂_i)            (compress the innovation)
     x̂_i ← x̂_i + q_i               (all clients update all surrogates)
     x_i ← x_i + γ Σ_j w_ij (x̂_j − x̂_i)
+
+    ``active`` (churn): offline clients transmit no innovation, so their
+    surrogate copies stay frozen network-wide; ``W``'s identity rows keep
+    their parameters untouched.
 
     Leaf by leaf, so the temporaries stay one leaf large; the surrogates
     are updated in place (they are the transport's own state)."""
@@ -89,10 +94,16 @@ def choco_round(params: dict, state: ChocoState, W: np.ndarray,
     Wt = _w32(W, dev)
     n = Wt.shape[0]
     L = Wt - torch.eye(n, device=dev)   # Σ_j w_ij (x̂_j − x̂_i) = (W − I) x̂
+    mask = None if active is None else torch.as_tensor(
+        np.asarray(active, bool), device=dev)
     new_params = {}
     for p, x in params.items():
         xh = state.x_hat[p]
-        xh.add_(topk_compress(x - xh, density))
+        q = topk_compress(x - xh, density)
+        if mask is not None:
+            q = torch.where(mask.reshape((-1,) + (1,) * (q.ndim - 1)), q,
+                            torch.zeros_like(q))
+        xh.add_(q)
         corr = (L @ xh.reshape(n, -1).float()).reshape(xh.shape)
         new_params[p] = (x.float() + consensus_lr * corr).to(x.dtype)
     return new_params, state

@@ -1,23 +1,25 @@
 """Transport plugins: the communication half of the Method × Transport API
-(the port of ``repro/core/transport.py`` on a static graph).
+(the port of ``repro/core/transport.py``).
 
 A transport owns the network substrate (flood engine, mixing matrix, or
-nothing) and the :class:`~repro_torch.core.messages.CommLedger`.  Byte
+nothing), the churn response (anti-entropy catch-up, live-subgraph
+reweighting) and the :class:`~repro_torch.core.messages.CommLedger`.  Byte
 accounting lives here and nowhere else: a method never sees the ledger, so
 the paper's cost metric cannot drift between methods.
 
 * :class:`FloodTransport`    — seed–scalar flooding (``core.flood``) with a
-  ``k``-hop budget per step and an end-of-run drain.
+  ``k``-hop budget per step, anti-entropy catch-up after churn and an
+  end-of-run drain.
 * :class:`GossipTransport`   — mixing-matrix parameter exchange every
-  ``every`` steps, optionally through Choco compressed differences.
+  ``every`` steps, optionally through Choco compressed differences; under
+  churn the mixing matrix shrinks to the live subgraph.
 * :class:`GossipSRTransport` — the §3.2 strawman: full seed–scalar
   histories across every edge, averaged under the mixing matrix.
 * :class:`NullTransport`     — no communication (the centralized oracle).
 
-The graph and the mixing matrix are fixed for the run: the port has no
-churn (no ``DynamicTopology``, no ``apply_churn``) and no checkpoints, so
-every client is always online and ``exchange``'s ``active`` mask (the
-JAX package's signature; None = all online) changes nothing.
+Each transport's state is checkpointable (``state_arrays``, ``state_meta``,
+``load_state``) in the JAX package's layout.  ``exchange``'s ``active``
+mask is the live clients (None = all online).
 """
 from __future__ import annotations
 
@@ -25,16 +27,20 @@ import dataclasses
 from typing import Any, Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.core import flood, gossip, messages
 from repro_torch.core.messages import MESSAGE_BYTES, CommLedger
+from repro_torch.models import params as plib
 from repro_torch.topology import graphs
+from repro_torch.topology.dynamic import DynamicTopology
 
 
 @dataclasses.dataclass
 class FloodInbox:
     """One step's newly delivered payloads as dense padded ``(n, K)``
-    seed / coef / sender-step matrices, and the receiver step ``t``."""
+    seed / coef / sender-step matrices, and the receiver step ``t`` (only
+    the ``epoch_replay=False`` regression arm reads it)."""
     seeds: np.ndarray
     coefs: np.ndarray
     steps: np.ndarray
@@ -53,19 +59,41 @@ class TransportBase:
     def active_mask(self) -> np.ndarray:
         return np.ones(self.n, dtype=bool)
 
+    def apply_churn(self, events) -> None:
+        raise ValueError(f"{type(self).__name__} does not support churn")
+
     def stats(self) -> dict:
         return {}
 
+    # -- checkpointing --------------------------------------------------------
+
+    def state_arrays(self) -> dict | None:
+        """Array-valued tree of transport state (None when stateless)."""
+        return None
+
+    def state_meta(self) -> dict:
+        return {"ledger": dataclasses.asdict(self.ledger)}
+
+    def load_state(self, arrays: Any, meta: dict) -> None:
+        for k, v in meta.get("ledger", {}).items():
+            setattr(self.ledger, k, int(v))
+
 
 class FloodTransport(TransportBase):
-    """Seed–scalar flooding with a ``flood_k`` hop budget per step (None =
-    full flooding, ``diameter`` rounds) and an end-of-run drain, over the
-    engine ``flood.make_network`` picks for ``backend``."""
+    """Seed–scalar flooding over a (churnable) overlay graph, with a
+    ``flood_k`` hop budget per step (None = full flooding over the live
+    effective diameter) and an end-of-run drain, over the engine
+    ``flood.make_network`` picks for ``backend``.  The anti-entropy
+    catch-up that churn produces at the start of a step is prepended to
+    that step's payloads."""
 
     def __init__(self, graph, *, backend: str = "auto",
                  flood_k: int | None = None):
         self.net = flood.make_network(graph, backend=backend)
+        self.n = self.net.n
         self.flood_k = flood_k
+        self._pending = None          # anti-entropy catch-up, per-client arrays
+        self._ck_meta = None
 
     @property
     def ledger(self) -> CommLedger:
@@ -74,12 +102,18 @@ class FloodTransport(TransportBase):
     def active_mask(self) -> np.ndarray:
         return self.net.active_mask()
 
+    def apply_churn(self, events) -> None:
+        self.net.apply_churn(events)
+        self._pending = self.net.drain_catchup_arrays()
+
     def exchange(self, payload, t: int,
                  active: np.ndarray | None = None) -> FloodInbox:
         for i, msg in payload:
             self.net.inject(i, msg)
+        # full flooding tracks the effective diameter, which churn moves
         k_hops = self.flood_k if self.flood_k is not None else self.net.diameter
-        sds, cfs, stp = self.net.rounds_padded(k_hops)
+        sds, cfs, stp = self.net.rounds_padded(k_hops, extra=self._pending)
+        self._pending = None
         return FloodInbox(sds, cfs, stp, t)
 
     def drain(self, max_iters: int, final_step: int) -> Iterator[FloodInbox]:
@@ -94,24 +128,52 @@ class FloodTransport(TransportBase):
     def stats(self) -> dict:
         return {"n_messages": self.ledger.n_messages,
                 "diameter": self.net.diameter,
+                "sync_bytes": self.ledger.sync_bytes,
+                "n_syncs": self.ledger.n_syncs,
                 "engine": type(self.net).__name__}
+
+    # serializing the network builds the whole message table and seen-set
+    # dump; the Trainer calls state_arrays then state_meta per checkpoint,
+    # so the first call keeps the (arrays, meta) pair's meta for the second
+
+    def state_arrays(self) -> dict:
+        arrays, self._ck_meta = self.net.state_dict()
+        return arrays
+
+    def state_meta(self) -> dict:
+        net_meta = self._ck_meta
+        if net_meta is None:
+            net_meta = self.net.state_dict()[1]
+        self._ck_meta = None
+        return {**super().state_meta(), "net": net_meta}
+
+    def load_state(self, arrays, meta) -> None:
+        super().load_state(arrays, meta)
+        self.net.load_state_dict(arrays, meta["net"])
+        self._pending = None
 
 
 class GossipTransport(TransportBase):
     """Mixing-matrix parameter exchange, optionally Choco-compressed.
 
     ``exchange`` fires every ``every`` steps (``local_iters``) and returns
-    the mixed trainable dict; other steps return None.  With
+    the mixed trainable dict; other steps return None.  Under churn the
+    mixing matrix is the Metropolis matrix of the live subgraph (an offline
+    client's row is e_i) and only live edges are charged.  With
     ``choco_density`` set, differences are top-k compressed through
-    per-client surrogate copies whose state lives here (it is communication
-    state, not method state)."""
+    per-client surrogate copies whose state lives here (communication
+    state, not method state), checkpointed as ``x_hat``."""
 
     def __init__(self, graph, W: np.ndarray, *, every: int,
-                 choco_density: float | None = None):
-        self.n = graph.number_of_nodes()
+                 choco_density: float | None = None,
+                 churn_aware: bool = False):
+        self.topo = DynamicTopology(graph)
+        self.n = self.topo.n
         self.W = W
         self.every = every
         self.density = choco_density
+        self.churn_aware = churn_aware
+        self.live_edges = graph.number_of_edges()
         self.ledger = CommLedger(n_edges=graph.number_of_edges())
         self._choco = None
 
@@ -120,22 +182,61 @@ class GossipTransport(TransportBase):
             # paper App. B.2: surrogates start at the pretrained weights
             self._choco = gossip.choco_init(init_payload)
 
+    def active_mask(self) -> np.ndarray:
+        return self.topo.active_mask()
+
+    def apply_churn(self, events) -> None:
+        # gossip has no anti-entropy: the mixing matrix just shrinks
+        self.topo.apply_events(events)
+        self.W = graphs.metropolis_weights(self.topo.current_graph())
+        self.live_edges = self.topo.live_edge_count()
+
     def exchange(self, trainable: dict, t: int,
                  active: np.ndarray | None = None):
         if (t + 1) % self.every != 0:
             return None
         floats_per_client = sum(v.numel() for v in trainable.values()) // self.n
-        edges = self.ledger.n_edges
         if self.density is not None:
+            # offline clients' innovations are masked whenever anyone is
+            # offline (with every client online the mask is a bitwise no-op)
+            use_active = active is not None and (self.churn_aware
+                                                 or not active.all())
             trainable, self._choco = gossip.choco_round(
-                trainable, self._choco, self.W, self.density)
-            self.ledger.send(2 * edges * messages.topk_payload_bytes(
+                trainable, self._choco, self.W, self.density,
+                active=active if use_active else None)
+            self.ledger.send(2 * self.live_edges * messages.topk_payload_bytes(
                 floats_per_client, self.density))
         else:
             trainable = gossip.mix(trainable, self.W)
-            self.ledger.send(2 * edges * messages.dense_payload_bytes(
+            self.ledger.send(2 * self.live_edges * messages.dense_payload_bytes(
                 floats_per_client))
         return trainable
+
+    def state_arrays(self):
+        return {"x_hat": self._choco.x_hat} if self._choco is not None else None
+
+    def state_meta(self) -> dict:
+        return {**super().state_meta(),
+                "topo": self.topo.state_dict(),
+                "live_edges": self.live_edges,
+                "W": np.asarray(self.W, np.float64).tolist()}
+
+    def load_state(self, arrays, meta) -> None:
+        super().load_state(arrays, meta)
+        self.topo.load_state_dict(meta["topo"])
+        self.live_edges = int(meta["live_edges"])
+        self.W = np.asarray(meta["W"], np.float64)
+        if self.density is not None:
+            x = (arrays or {}).get("x_hat")
+            if x is None:
+                raise ValueError("choco checkpoint is missing the surrogate "
+                                 "copies (x_hat)")
+            # the surrogates bound at init give each leaf's device and dtype
+            bound = self._choco.x_hat
+            self._choco = gossip.ChocoState(x_hat={
+                p: torch.as_tensor(v, dtype=bound[p].dtype,
+                                   device=bound[p].device)
+                for p, v in plib.flatten(x).items()})
 
 
 class GossipSRTransport(TransportBase):

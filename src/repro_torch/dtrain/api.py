@@ -1,25 +1,39 @@
 """The Method × Transport plugin API of the decentralized trainer (the
-port of ``repro/dtrain/api.py`` without churn or checkpoints).
+port of ``repro/dtrain/api.py``).
 
-* a Method owns the *math* of one training algorithm: how a client turns
-  a batch into new local state and an outbox (``local_step``), how it folds
-  a transport's inbox back in (``apply_inbox``, which accepts ``None``),
-  and which stacked params its state stands for (``params_of``);
-* a Transport (``repro_torch.core.transport``) owns the *network* and is
-  the only layer that touches a ``CommLedger``;
-* the Trainer (``repro_torch.dtrain.trainer``) owns the *loop* and the
-  ``RunResult``, once, for every method.
+* a :class:`Method` owns the *math* of one training algorithm: how a
+  client turns a batch into new local state and an outbox
+  (``local_step``), how it folds a transport's inbox back in
+  (``apply_inbox``, which accepts ``None``), and which stacked params its
+  state stands for (``params_of``);
+* a Transport (``repro_torch.core.transport``) owns the *network*: it moves
+  outboxes, applies churn to the topology, and is the only layer that
+  touches a ``CommLedger``;
+* the Trainer (``repro_torch.dtrain.trainer``) owns the *loop*: churn
+  scheduling, logging, checkpoints, drain and the ``RunResult``, once, for
+  every method.
 
-``Outbox.payload`` is transport-specific: flooding methods emit
-``(client, Message)`` pairs, gossip methods the stacked trainable dict,
-gossip-SR coefficient histories, and the null transport ignores it.  This
-module also holds the tiny default arch, the per-run ``Setup`` and the
+Contract details the protocol cannot express in types:
+
+* ``local_step`` receives the live ``active`` mask and must make offline
+  clients exact no-ops (freeze their parameters, emit nothing for them).
+  :func:`freeze_offline` is the shared helper; SeedFlood instead gives
+  offline clients a coefficient of 0, which is bitwise the same.
+* ``Outbox.payload`` is transport-specific: flooding methods emit
+  ``(client, Message)`` pairs, gossip methods the stacked trainable dict,
+  gossip-SR coefficient histories, and the null transport ignores it.
+* ``state_tree`` / ``state_meta`` / ``load_state`` make method state
+  checkpointable: the tree holds tensors (saved by
+  ``repro_torch.checkpoint.ckpt``), the meta JSON-serializable values.  A
+  resumed run is bitwise the uninterrupted one.
+
+This module also holds the tiny default arch, the per-run ``Setup`` and the
 logging helpers.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -115,6 +129,17 @@ class Outbox:
     payload: Any = None
 
 
+@runtime_checkable
+class Method(Protocol):
+    """One training algorithm.  State is opaque to the Trainer."""
+
+    def init(self, setup: Setup) -> Any: ...
+    def local_step(self, state: Any, batch: torch.Tensor, active: np.ndarray,
+                   t: int) -> tuple[Any, Outbox]: ...
+    def apply_inbox(self, state: Any, inbox: Any) -> Any: ...
+    def params_of(self, state: Any) -> dict: ...
+
+
 class MethodBase:
     """Default hooks so concrete methods only override what they use."""
 
@@ -137,6 +162,41 @@ class MethodBase:
 
     def result_extra(self, state: Any) -> dict:
         return {}
+
+    # -- checkpointing --------------------------------------------------------
+
+    def state_tree(self, state: Any) -> dict:
+        """Tensor-valued tree capturing the method state (``ckpt.save``)."""
+        raise NotImplementedError(f"{self.name} does not support checkpointing")
+
+    def state_meta(self, state: Any) -> dict:
+        """JSON-serializable non-tensor state (histories, counters)."""
+        return {}
+
+    def load_state(self, state: Any, tree: dict, meta: dict) -> Any:
+        raise NotImplementedError(f"{self.name} does not support checkpointing")
+
+
+def freeze_offline(new: dict, old: dict, active: np.ndarray) -> dict:
+    """Keep offline clients' leaves at their pre-step values."""
+    mask = torch.as_tensor(np.asarray(active, bool),
+                           device=next(iter(new.values())).device)
+    return {p: torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)), a,
+                           old[p])
+            for p, a in new.items()}
+
+
+def load_leaves(tree: dict, like: dict) -> dict:
+    """A checkpoint subtree (nested dicts of numpy arrays) as flat
+    path-keyed tensors with the dtype and device of ``like``'s leaves."""
+    flat = plib.flatten(tree)
+    if set(flat) != set(like):
+        raise ValueError(f"checkpoint leaves differ: missing "
+                         f"{sorted(set(like) - set(flat))[:5]}, extra "
+                         f"{sorted(set(flat) - set(like))[:5]}")
+    return {p: torch.as_tensor(flat[p], dtype=t.dtype,
+                               device=t.device).reshape(t.shape)
+            for p, t in like.items()}
 
 
 def log_step_loss(loss_curve: list[float], losses: np.ndarray,

@@ -11,9 +11,9 @@ them on the floor.
 The names and the ``consumes`` sets are the JAX package's, less the fields
 the port's config does not have: ``trace``, ``sim_latency_s`` and
 ``sim_churn_step_s`` (the event engine), ``kernel_backend`` (the port
-dispatches on the device), ``batched_step`` and ``epoch_replay`` (the port
-runs only the batched, epoch-correct path).  ``MethodSpec`` has no
-``supports_churn``: the port has no churn.
+dispatches on the device) and ``batched_step`` (the port runs only the
+batched path).  ``supports_churn`` marks the methods a churn schedule may
+drive: seedflood and the six gossip variants.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ class MethodSpec:
     make_method: Callable             # (cfg) -> Method
     make_transport: Callable          # (cfg, setup) -> Transport
     consumes: frozenset = frozenset()  # method-specific cfg fields
+    supports_churn: bool = False
 
 
 def _flood_transport(cfg, setup: Setup) -> FloodTransport:
@@ -47,7 +48,8 @@ def _gossip_transport(choco: bool):
     def make(cfg, setup: Setup) -> GossipTransport:
         return GossipTransport(
             setup.graph, setup.W, every=cfg.local_iters,
-            choco_density=cfg.choco_density if choco else None)
+            choco_density=cfg.choco_density if choco else None,
+            churn_aware=cfg.churn is not None)
     return make
 
 
@@ -75,14 +77,16 @@ def _gossip_spec(name: str, *, zeroth_order: bool, use_lora: bool,
         consumes |= {"lora_r", "lora_alpha"}
     return MethodSpec(name=name, make_method=make_method,
                       make_transport=_gossip_transport(choco),
-                      consumes=frozenset(consumes))
+                      consumes=frozenset(consumes), supports_churn=True)
 
 
 METHOD_SPECS: dict[str, MethodSpec] = {
     "seedflood": MethodSpec(
         name="seedflood", make_method=SeedFloodMethod,
         make_transport=_flood_transport,
-        consumes=frozenset({"flood_k", "flood_backend", "drain"})),
+        consumes=frozenset({"flood_k", "flood_backend", "epoch_replay",
+                            "drain"}),
+        supports_churn=True),
     "dsgd": _gossip_spec("dsgd", zeroth_order=False, use_lora=False,
                          choco=False),
     "dzsgd": _gossip_spec("dzsgd", zeroth_order=True, use_lora=False,

@@ -11,7 +11,8 @@ The shared model is kept stacked on a model axis of 1.  The dual forward
 views it as n clients through ``expand`` (a client stride of 0: the
 rank-1 kernels read the one copy n times, and no copy is made); the
 update applies the n messages to the one model (``subcge_apply`` at a
-model axis of 1).
+model axis of 1).  The checkpoint holds the one model and the velocity
+without that axis, the JAX package's layout.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import seeds as seedlib, subcge
-from repro_torch.dtrain.api import MethodBase, Outbox, Setup
+from repro_torch.dtrain.api import MethodBase, Outbox, Setup, load_leaves
 from repro_torch.models import transformer as tf
 from repro_torch.models.perturb import epoch_subspace, sample_pert
 
@@ -48,7 +49,8 @@ class CentralZOMethod(MethodBase):
         return CentralZOState(params=params, velocity=velocity)
 
     @torch.no_grad()
-    def local_step(self, state: CentralZOState, tokens: torch.Tensor, t: int):
+    def local_step(self, state: CentralZOState, tokens: torch.Tensor,
+                   active: np.ndarray, t: int):
         cfg, scfg, n = self.cfg, self.scfg, self.n
         seeds = torch.as_tensor(
             seedlib.client_seeds(cfg.seed, t, n).astype(np.int64),
@@ -85,3 +87,16 @@ class CentralZOMethod(MethodBase):
 
     def result_extra(self, state: CentralZOState) -> dict:
         return {"final_params": {p: t[0] for p, t in state.params.items()}}
+
+    # -- checkpointing --------------------------------------------------------
+
+    def state_tree(self, state: CentralZOState) -> dict:
+        return {"params": {p: t[0] for p, t in state.params.items()},
+                "velocity": {p: v[0] for p, v in state.velocity.items()}}
+
+    def load_state(self, state: CentralZOState, tree: dict,
+                   meta: dict) -> CentralZOState:
+        velocity = (load_leaves(tree["velocity"], state.velocity)
+                    if state.velocity else {})
+        return CentralZOState(params=load_leaves(tree["params"], state.params),
+                              velocity=velocity)

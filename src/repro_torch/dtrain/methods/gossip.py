@@ -11,7 +11,9 @@ port of ``repro/dtrain/methods/gossip.py``):
 So ``dsgd`` = FO, ``dzsgd`` = ZO, ``dsgd_lora`` = FO + LoRA, … — six
 registry entries over two strategy classes and one adapter.  Every client
 steps at once on the stacked client axis (JAX ``vmap``s one client's step).
-The port has no churn, so there is no offline freeze.
+Under churn, offline clients' trainable leaves are frozen at their
+pre-step values (``api.freeze_offline``).  Only the trainable dict is
+checkpointed: the base is the seeded init, rebuilt at resume.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 
 from repro_torch.core import seeds as seedlib, zo
 from repro_torch.dtrain import lora as loralib
-from repro_torch.dtrain.api import MethodBase, Outbox, Setup
+from repro_torch.dtrain.api import MethodBase, Outbox, Setup, \
+    freeze_offline, load_leaves
 from repro_torch.models import transformer as tf
 
 
@@ -97,10 +100,16 @@ class FirstOrderStep:
                   for p, t in trainable.items()}
             with torch.enable_grad():
                 losses = loss_fn(base, tr, tokens)
-                grads = torch.autograd.grad(losses.sum(), list(tr.values()))
+                grads = list(torch.autograd.grad(losses.sum(),
+                                                 list(tr.values())))
+            new = {}
             with torch.no_grad():
-                new = {p: t.detach() - cfg.lr * g.to(t.dtype)
-                       for (p, t), g in zip(tr.items(), grads)}
+                # each gradient is dropped once its leaf is stepped, so the
+                # step holds one stacked copy of gradients and updates, not
+                # two (at the Falcon cut one copy of 4 clients is 15 GB)
+                for k, (p, t) in enumerate(tr.items()):
+                    new[p] = t.detach() - cfg.lr * grads[k].to(t.dtype)
+                    grads[k] = None
             return new, losses.detach()
         return local_steps
 
@@ -112,6 +121,7 @@ class GossipMethod(MethodBase):
         self.name = name
         self.local = local
         self.adapter = adapter
+        self.churn_aware = cfg.churn is not None
 
     def init(self, setup: Setup) -> GossipState:
         self.device = setup.device
@@ -124,7 +134,8 @@ class GossipMethod(MethodBase):
     def initial_payload(self, state: GossipState) -> dict:
         return state.trainable
 
-    def local_step(self, state: GossipState, tokens: torch.Tensor, t: int):
+    def local_step(self, state: GossipState, tokens: torch.Tensor,
+                   active: np.ndarray, t: int):
         cfg = self.cfg
         if self.local.needs_seeds:
             seeds = torch.as_tensor(
@@ -135,6 +146,10 @@ class GossipMethod(MethodBase):
         else:
             new, losses = self._local_steps(state.base, state.trainable,
                                             tokens)
+        # churn: offline clients freeze (no local step); with every client
+        # online the freeze is a bitwise no-op and is skipped
+        if self.churn_aware or not active.all():
+            new = freeze_offline(new, state.trainable, active)
         state = dataclasses.replace(state, trainable=new)
         return state, Outbox(losses=losses.cpu().numpy(), payload=new)
 
@@ -148,3 +163,13 @@ class GossipMethod(MethodBase):
         if self.adapter is not None:
             return self.adapter.full_params(state.base, state.trainable)
         return state.trainable
+
+    # -- checkpointing --------------------------------------------------------
+
+    def state_tree(self, state: GossipState) -> dict:
+        return {"trainable": state.trainable}
+
+    def load_state(self, state: GossipState, tree: dict,
+                   meta: dict) -> GossipState:
+        return dataclasses.replace(
+            state, trainable=load_leaves(tree["trainable"], state.trainable))

@@ -8,7 +8,9 @@ time: the O(t·n·d) compute blow-up the paper contrasts against SeedFlood,
 counted in ``extra["reconstructions"]``.  Delta replay is epoch-correct: a
 reweighted coefficient for message (i, t0) re-applies under the subspace of
 ITS origin step t0 (``subcge.apply_messages_epoch`` →
-``subcge_apply_epochs``, on a model axis of 1).
+``subcge_apply_epochs``, on a model axis of 1).  The checkpoint keeps the
+stacked params as tensors and the ledgers in the metadata, in insertion
+order (the JAX package's layout).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.core import flood, seeds as seedlib, subcge
 from repro_torch.core.messages import pad_pow2
-from repro_torch.dtrain.api import MethodBase, Outbox, Setup
+from repro_torch.dtrain.api import MethodBase, Outbox, Setup, load_leaves
 from repro_torch.models import transformer as tf
 from repro_torch.models.perturb import epoch_subspace, sample_pert
 
@@ -74,7 +76,8 @@ class GossipSRMethod(MethodBase):
             torch.as_tensor(pad_t[None], device=dev),
             subcge.epoch_slots(pad_t, self.scfg))
 
-    def local_step(self, state: GossipSRState, tokens: torch.Tensor, t: int):
+    def local_step(self, state: GossipSRState, tokens: torch.Tensor,
+                   active: np.ndarray, t: int):
         cfg, n = self.cfg, self.n
         seeds_np = seedlib.client_seeds(cfg.seed, t, n)
         seeds = torch.as_tensor(seeds_np.astype(np.int64), device=self.device)
@@ -116,3 +119,31 @@ class GossipSRMethod(MethodBase):
 
     def result_extra(self, state: GossipSRState) -> dict:
         return {"reconstructions": state.reconstructions}
+
+    # -- checkpointing --------------------------------------------------------
+    # uid keys are (origin, step) tuples; JSON flattens each ledger to an
+    # insertion-ordered [origin, step, seed, alpha_scaled, coef] list, so
+    # the restored dicts iterate (and re-apply deltas) in the same order:
+    # float-sum order is part of bitwise reproducibility.
+
+    def state_tree(self, state: GossipSRState) -> dict:
+        return {"stacked": state.stacked}
+
+    def state_meta(self, state: GossipSRState) -> dict:
+        return {
+            "hist": [[[o, t, sd, a, c] for (o, t), (sd, a, c) in h.items()]
+                     for h in state.hist],
+            "applied": [[[o, t, c] for (o, t), c in a.items()]
+                        for a in state.applied],
+            "reconstructions": state.reconstructions,
+        }
+
+    def load_state(self, state: GossipSRState, tree: dict,
+                   meta: dict) -> GossipSRState:
+        return GossipSRState(
+            stacked=load_leaves(tree["stacked"], state.stacked),
+            hist=[{(int(o), int(t)): [int(sd), float(a), float(c)]
+                   for o, t, sd, a, c in h} for h in meta["hist"]],
+            applied=[{(int(o), int(t)): float(c) for o, t, c in a}
+                     for a in meta["applied"]],
+            reconstructions=int(meta["reconstructions"]))

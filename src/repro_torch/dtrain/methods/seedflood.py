@@ -3,12 +3,20 @@
 One step over the stacked client axis:
 
 * ``estimate_and_update`` — every client's ±ε dual forward through the
-  fused rank-1 kernels, its coefficient ``-η·α/n``, and its own rank-r
-  update (``subcge.apply_messages`` → ``subcge_apply``), in place;
-* the outbox — one seed–scalar ``Message`` per client;
+  fused rank-1 kernels, its coefficient ``-η·α/n_eff`` (n_eff the online
+  clients, at least 1), and each online client's own rank-r update
+  (``subcge.apply_messages`` → ``subcge_apply``), in place.  An offline
+  client applies a coefficient of 0, an exact no-op: this method's offline
+  freeze;
+* the outbox — one seed–scalar ``Message`` per online client;
 * ``apply_inbox`` → ``replay_batched`` — every received message replayed
   under its SENDER's τ-epoch (``subcge.apply_messages_epoch`` →
-  ``subcge_apply_epochs``), in place.
+  ``subcge_apply_epochs``), in place.  ``epoch_replay=False`` pins live
+  messages to the receiver's step instead: the JAX package's regression
+  arm, wrong whenever staleness crosses a τ boundary.
+
+The state is the stacked params; it checkpoints as ``{"stacked": ...}``,
+the JAX package's layout.
 
 ``seedflood.*`` profiler ranges (``torch.profiler.record_function``; a few
 microseconds each when no profiler runs) mark the phases of a step:
@@ -21,10 +29,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import seeds as seedlib, subcge
+from repro_torch.core import flood, seeds as seedlib, subcge
 from repro_torch.core.messages import Message
 from repro_torch.core.transport import FloodInbox
-from repro_torch.dtrain.api import MethodBase, Outbox, Setup
+from repro_torch.dtrain.api import MethodBase, Outbox, Setup, load_leaves
 from repro_torch.models import transformer as tf
 from repro_torch.models.perturb import epoch_subspace, sample_pert
 
@@ -43,9 +51,10 @@ class SeedFloodMethod(MethodBase):
 
     @torch.no_grad()
     def estimate_and_update(self, stacked: dict, tokens: torch.Tensor,
-                            seeds: torch.Tensor, step: int):
-        """(A)+(B): ZO estimates, coefficients and each client's own update.
-        ``stacked`` is updated in place (the JAX step donates it)."""
+                            seeds: torch.Tensor, step: int,
+                            active: np.ndarray):
+        """(A)+(B): ZO estimates, coefficients and each online client's own
+        update.  ``stacked`` is updated in place (the JAX step donates it)."""
         cfg, scfg = self.cfg, self.scfg
         with record_function("seedflood.sample"):
             sub = epoch_subspace(self.meta, scfg, cfg.seed, step, self.device)
@@ -56,20 +65,26 @@ class SeedFloodMethod(MethodBase):
                             pert=pert.with_scale(-scfg.eps))
         alphas = (lp - lm) / (2 * scfg.eps)
         losses = 0.5 * (lp + lm)
-        coefs = -cfg.lr * alphas / float(self.n)
+        n_eff = float(max(int(active.sum()), 1))
+        coefs = -cfg.lr * alphas / n_eff
+        on = torch.as_tensor(active, device=coefs.device)
+        own = torch.where(on, coefs, torch.zeros_like(coefs))
         with record_function("seedflood.own_update"):
             subcge.apply_messages(stacked, self.meta, scfg, sub,
-                                  seeds[:, None], coefs[:, None])
+                                  seeds[:, None], own[:, None])
         return stacked, losses, coefs
 
-    def local_step(self, stacked: dict, tokens: torch.Tensor, t: int):
+    def local_step(self, stacked: dict, tokens: torch.Tensor,
+                   active: np.ndarray, t: int):
         seeds_np = seedlib.client_seeds(self.cfg.seed, t, self.n)
         seeds = torch.as_tensor(seeds_np.astype(np.int64), device=self.device)
         stacked, losses, coefs_t = self.estimate_and_update(stacked, tokens,
-                                                            seeds, t)
+                                                            seeds, t, active)
         coefs = coefs_t.cpu().numpy()
+        # (C) online clients inject their fresh messages into the flood
         outbox = [(i, Message(seed=int(seeds_np[i]), coef=float(coefs[i]),
-                              origin=i, step=t)) for i in range(self.n)]
+                              origin=i, step=t))
+                  for i in range(self.n) if active[i]]
         return stacked, Outbox(losses=losses.cpu().numpy(), payload=outbox)
 
     @torch.no_grad()
@@ -86,11 +101,25 @@ class SeedFloodMethod(MethodBase):
     def apply_inbox(self, stacked: dict, inbox: FloodInbox | None) -> dict:
         if inbox is None or inbox.seeds.shape[1] == 0:
             return stacked
-        epochs = subcge.epoch_slots(inbox.steps, self.scfg)
-        return self.replay_batched(stacked, inbox.seeds, inbox.coefs,
-                                   inbox.steps, epochs)
+        steps = inbox.steps
+        if not self.cfg.epoch_replay:
+            # the regression arm: pin every live message to the receiver's
+            # epoch (the JAX package's pre-fix replay)
+            steps = np.where(inbox.coefs != 0.0, np.int32(inbox.t),
+                             np.int32(flood.STEP_PAD))
+        epochs = subcge.epoch_slots(steps, self.scfg)  # sfcheck: noqa[SF010] -- epoch_replay=False above is the receiver-step regression arm, kept as in the JAX package; the default path passes inbox.steps untouched and tests/test_torch_churn.py pins the divergence across a τ boundary
+        return self.replay_batched(stacked, inbox.seeds, inbox.coefs, steps,
+                                   epochs)
 
     def label(self, transport_stats: dict) -> str:
         k = (self.cfg.flood_k if self.cfg.flood_k is not None
              else transport_stats.get("diameter"))
         return f"seedflood(k={k})"
+
+    # -- checkpointing --------------------------------------------------------
+
+    def state_tree(self, stacked: dict) -> dict:
+        return {"stacked": stacked}
+
+    def load_state(self, stacked: dict, tree: dict, meta: dict) -> dict:
+        return load_leaves(tree["stacked"], stacked)

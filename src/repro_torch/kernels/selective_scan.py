@@ -16,8 +16,13 @@ file).  N must be a power of two no larger than 32; any other N is refused.
 
 The wrapper runs its plain PyTorch version for CPU tensors only (which
 autograd differentiates); for CUDA tensors it launches the kernel or
-raises.  The kernel has no backward: a CUDA call whose inputs need a
-gradient raises ``NotImplementedError``.
+raises.  A CUDA call whose inputs need a gradient goes through
+:class:`SelectiveScan`, whose backward is the hand-written reverse scan
+``csrc/selective_scan_bwd.cu`` (counted as ``selective_scan_bwd``): what
+the JAX package gets from ``jax.grad`` through ``_ssm_chunked``
+(``repro/models/layers.py:327``).  Its plain version,
+:func:`selective_scan_bwd_plain`, is what the tests and ``chip_smoke.py``
+hold it against.
 """
 from __future__ import annotations
 
@@ -41,32 +46,49 @@ def selective_scan_plain(a, bx, c, h0):
     return y, h
 
 
-def selective_scan(a, bx, c, h0):
-    if a.device.type == "cpu":
-        return selective_scan_plain(a, bx, c, h0)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (a, bx, c, h0)):
-        raise NotImplementedError(
-            "selective_scan: the CUDA kernel has no backward, so a "
-            "first-order step cannot run through a Mamba layer on the card "
-            "(ROADMAP Queue 2: a backward for selective_scan)")
+def selective_scan_bwd_plain(a, bx, c, h0, dy, dh_last):
+    """Plain PyTorch reverse scan (the card's oracle for the backward):
+    (da, dbx, dc, dh0) of the forward's inputs from dy (B, T, D) and
+    dh_last (B, D, N).  The forward is recomputed into h (B, T + 1, D, N),
+    in the inputs' dtype (float64 gives ``chip_smoke.py`` its oracle)."""
     B, T, D, N = a.shape
-    for t, name in ((a, "a"), (bx, "bx"), (c, "c"), (h0, "h0")):
+    h = torch.empty((B, T + 1, D, N), dtype=a.dtype, device=a.device)
+    h[:, 0] = h0
+    for t in range(T):
+        h[:, t + 1] = a[:, t] * h[:, t] + bx[:, t]
+    dc = (dy[..., None] * h[:, 1:]).sum(dim=2)
+    da = torch.empty_like(h[:, 1:])
+    dbx = torch.empty_like(da)
+    carry = dh_last.to(a.dtype)
+    for t in range(T - 1, -1, -1):
+        g = carry + dy[:, t, :, None] * c[:, t, None, :]
+        dbx[:, t] = g
+        da[:, t] = g * h[:, t]
+        carry = a[:, t] * g
+    return da, dbx, dc, carry
+
+
+def _check(tensors, B, T, D, N) -> None:
+    for t, name, shape in tensors:
         if t.dtype != torch.float32 or not t.is_cuda:
             raise ValueError(f"{name}: float32 CUDA tensor required, got "
                              f"{t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tuple(bx.shape) != (B, T, D, N) or tuple(c.shape) != (B, T, N) \
-            or tuple(h0.shape) != (B, D, N):
-        raise ValueError(f"shapes do not agree: a {tuple(a.shape)}, bx "
-                         f"{tuple(bx.shape)}, c {tuple(c.shape)}, h0 "
-                         f"{tuple(h0.shape)}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
     if N not in SUPPORTED_N:
         raise ValueError(f"selective_scan: d_state N={N} is not a power of "
                          f"two <= 32 (the kernel takes {SUPPORTED_N})")
     if not (1 <= B <= 65535 and T >= 1 and D >= 1):
         raise ValueError(f"unsupported shape: B={B}, T={T}, D={D}")
+
+
+def _scan_cuda(a, bx, c, h0):
+    B, T, D, N = a.shape
+    _check(((a, "a", (B, T, D, N)), (bx, "bx", (B, T, D, N)),
+            (c, "c", (B, T, N)), (h0, "h0", (B, D, N))), B, T, D, N)
     lib = build.load("selective_scan")
     y = torch.empty((B, T, D), dtype=torch.float32, device=a.device)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
@@ -77,3 +99,57 @@ def selective_scan(a, bx, c, h0):
     build.check(err, "selective_scan")
     build.LAUNCHES["selective_scan"] += 1
     return y, h_last
+
+
+def selective_scan_bwd(a, bx, c, h0, dy, dh_last):
+    """(da, dbx, dc, dh0) of the scan: the plain version for CPU tensors,
+    the hand-written kernel for CUDA tensors.  ``dy`` and ``dh_last`` are
+    made contiguous (autograd hands :class:`SelectiveScan` a zero
+    ``dh_last`` when ``h_last`` is unused)."""
+    if a.device.type == "cpu":
+        return selective_scan_bwd_plain(a, bx, c, h0, dy, dh_last)
+    B, T, D, N = a.shape
+    dy, dh_last = dy.contiguous(), dh_last.contiguous()
+    _check(((a, "a", (B, T, D, N)), (bx, "bx", (B, T, D, N)),
+            (c, "c", (B, T, N)), (h0, "h0", (B, D, N)),
+            (dy, "dy", (B, T, D)), (dh_last, "dh_last", (B, D, N))),
+           B, T, D, N)
+    lib = build.load("selective_scan_bwd")
+    nblk = lib.selective_scan_bwd_blocks(D, N)
+    da = torch.empty_like(a)
+    dbx = torch.empty_like(a)
+    dc = torch.empty((B, T, N), dtype=torch.float32, device=a.device)
+    dh0 = torch.empty_like(h0)
+    part = torch.empty((B, T, nblk, N), dtype=torch.float64, device=a.device)
+    err = lib.selective_scan_bwd_f32(
+        a.data_ptr(), bx.data_ptr(), c.data_ptr(), h0.data_ptr(),
+        dy.data_ptr(), dh_last.data_ptr(), da.data_ptr(), dbx.data_ptr(),
+        dc.data_ptr(), dh0.data_ptr(), part.data_ptr(), B, T, D, N,
+        build.stream_of(a))
+    build.check(err, "selective_scan_bwd")
+    build.LAUNCHES["selective_scan_bwd"] += 1
+    return da, dbx, dc, dh0
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The scan kernel with the reverse-scan kernel as its backward.  Saves
+    the four inputs; the backward recomputes h rather than keep the
+    (B, T, D, N) states of the forward."""
+
+    @staticmethod
+    def forward(ctx, a, bx, c, h0):
+        ctx.save_for_backward(a, bx, c, h0)
+        return _scan_cuda(a, bx, c, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        return selective_scan_bwd(*ctx.saved_tensors, dy, dh_last)
+
+
+def selective_scan(a, bx, c, h0):
+    if a.device.type == "cpu":
+        return selective_scan_plain(a, bx, c, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (a, bx, c, h0)):
+        return SelectiveScan.apply(a, bx, c, h0)
+    return _scan_cuda(a, bx, c, h0)

@@ -68,14 +68,17 @@ def one_thread():
         torch.set_num_threads(before)
 
 
-def jax_method_run(cfg):
+def jax_method_run(cfg, coefs: dict | None = None):
     """``repro.dtrain.runner.run`` of ``cfg`` through the JAX package's
-    public Trainer, with the method's ``params_of`` reported as
+    public Trainer (churn schedule included), with the method's
+    ``params_of`` reported as
     ``extra["final_stacked"]`` (the JAX package reports final params for
-    seedflood and central_zo only)."""
+    seedflood and central_zo only).  With ``coefs`` a dict, each step's
+    SeedFlood coefficients go into ``coefs[t]`` (n_clients float32, 0 for
+    a client that sent nothing)."""
     from repro.dtrain.api import Setup
     from repro.dtrain.methods import METHOD_SPECS
-    from repro.dtrain.runner import validate_config
+    from repro.dtrain.runner import _churn_schedule, validate_config
     from repro.dtrain.trainer import Trainer
 
     validate_config(cfg)
@@ -85,7 +88,19 @@ def jax_method_run(cfg):
     extra = method.result_extra
     method.result_extra = lambda st: {**extra(st),
                                       "final_stacked": method.params_of(st)}
-    return Trainer(cfg, setup, method, spec.make_transport(cfg, setup)).run()
+    if coefs is not None:
+        local_step = method.local_step
+
+        def recording_step(state, batch, active, t):
+            state, outbox = local_step(state, batch, active, t)
+            coefs[t] = np.zeros(cfg.n_clients, np.float32)
+            for i, msg in outbox.payload:
+                coefs[t][i] = msg.coef
+            return state, outbox
+
+        method.local_step = recording_step
+    return Trainer(cfg, setup, method, spec.make_transport(cfg, setup),
+                   churn=_churn_schedule(cfg)).run()
 
 
 def assert_run_matches(rt, rj, atol=3e-5, rtol=1e-4):

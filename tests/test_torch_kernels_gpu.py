@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card
+(and a full-width resume, bitwise).
 
 Every test carries the ``gpu`` marker and skips without a CUDA device (the
 kernels have no CPU mode); ``chip_smoke.py`` also holds them at the main
@@ -322,18 +323,100 @@ def test_selective_scan_refuses_unsupported_state(cuda):
 
 @pytest.mark.gpu
 def test_selective_scan_refuses_a_gradient(cuda):
-    """The kernel has no backward: a first-order step through a Mamba layer
-    raises on the card (the CPU's plain version is differentiable)."""
-    a = torch.full((1, 4, 8, 4), 0.5, device=cuda, requires_grad=True)
-    c, h0 = torch.zeros((1, 4, 4), device=cuda), torch.zeros((1, 8, 4),
-                                                             device=cuda)
+    """A scan whose inputs need a gradient is no longer refused: it goes
+    through ``SelectiveScan``, whose backward is the reverse-scan kernel
+    (one launch), and the gradients equal autograd of the CPU's plain
+    scan."""
+    rng = np.random.default_rng(9)
+    B, T, D, N = 2, 11, 40, 4
+    host = [torch.from_numpy(x) for x in (
+        (1 / (1 + np.exp(-rng.standard_normal((B, T, D, N))))).astype(
+            np.float32),
+        0.1 * _f32(rng, B, T, D, N), _f32(rng, B, T, N), _f32(rng, B, D, N))]
+    dy = torch.from_numpy(_f32(rng, B, T, D))
+    grads = []
+    for dev in (cuda, "cpu"):
+        leaves = [x.to(dev).requires_grad_(True) for x in host]
+        build.reset_launches()
+        y, _ = ops.selective_scan(*leaves)
+        grads.append(torch.autograd.grad((y * dy.to(dev)).sum(), leaves))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["selective_scan"] == 1
+            assert build.LAUNCHES["selective_scan_bwd"] == 1
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+# (B, T, D, N): off the 8-step prefetch and the 256-thread block, every
+# state size the kernel takes, and Falcon Mamba's N = 16 at a wide D
+SCAN_BWD_SHAPES = [(2, 7, 8, 4), (3, 37, 200, 16), (2, 9, 40, 1),
+                   (1, 5, 24, 32), (2, 13, 72, 2), (1, 6, 64, 8),
+                   (4, 33, 1024, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("btdn", SCAN_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_selective_scan_bwd_kernel_matches_plain(cuda, btdn):
+    from repro_torch.kernels import selective_scan as ss
+    B, T, D, N = btdn
+    rng = np.random.default_rng(sum(btdn))
+    host = [torch.from_numpy(x) for x in (
+        (1 / (1 + np.exp(-rng.standard_normal((B, T, D, N))))).astype(
+            np.float32),
+        0.1 * _f32(rng, B, T, D, N), _f32(rng, B, T, N), _f32(rng, B, D, N),
+        _f32(rng, B, T, D), _f32(rng, B, D, N))]
+    dev = [x.to(cuda) for x in host]
     build.reset_launches()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.selective_scan(a, a.detach(), c, h0)
-    assert build.LAUNCHES["selective_scan"] == 0
-    with torch.no_grad():
-        ops.selective_scan(a, a.detach(), c, h0)
-    assert build.LAUNCHES["selective_scan"] == 1
+    got = ss.selective_scan_bwd(*dev)
+    again = ss.selective_scan_bwd(*dev)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["selective_scan_bwd"] == 2
+    want = list(ss.selective_scan_bwd(*host))
+    # dc is a sum over D: held against the float64 plain version, whose
+    # float32 counterpart strays by more than the tolerance at large D
+    want[2] = ss.selective_scan_bwd_plain(*(x.double() for x in host))[2]
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        np.testing.assert_allclose(g.cpu().double().numpy(), w.numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_selective_scan_bwd_refuses_unsupported_state(cuda):
+    from repro_torch.kernels import selective_scan as ss
+    a = torch.zeros((1, 4, 8, 12), device=cuda)
+    c, h = torch.zeros((1, 4, 12), device=cuda), torch.zeros((1, 8, 12),
+                                                              device=cuda)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="d_state"):
+        ss.selective_scan_bwd(a, a, c, h, torch.zeros((1, 4, 8), device=cuda),
+                              h)
+    assert build.LAUNCHES["selective_scan_bwd"] == 0
+
+
+@pytest.mark.gpu
+def test_full_width_resume_is_bitwise(cuda, tmp_path):
+    """OPT-125M whole, 8 clients on a ring, a client offline across the
+    step-2 checkpoint: the resumed run ends bitwise equal to the
+    uninterrupted one."""
+    from repro_torch.configs import archs
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.topology.dynamic import ChurnSchedule
+    base = dict(arch=archs.get("opt-125m"), n_clients=8, steps=5,
+                batch_size=8, subcge_tau=2,
+                churn=ChurnSchedule.leave_rejoin((3,), 1, 3), device="cuda")
+    whole = run(DTrainConfig(checkpoint_every=2, checkpoint_dir=str(tmp_path),
+                             **base))
+    resumed = run(DTrainConfig(resume_from=str(tmp_path / "step000002.npz"),
+                               **base))
+    for p, w in whole.extra["final_stacked"].items():
+        assert torch.equal(resumed.extra["final_stacked"][p].view(torch.int32),
+                           w.view(torch.int32)), p
+    assert resumed.loss_curve == whole.loss_curve
+    assert resumed.total_bytes == whole.total_bytes
 
 
 @pytest.mark.gpu

@@ -11,6 +11,9 @@ Inputs come from numpy seeds, and both sides get the same weights
 * the plain ``selective_scan`` against the JAX kernel (``jnp`` and
   ``interpret``): rtol 1e-5, atol 1e-5 on ``y`` and ``h_last`` — the same
   recurrence, the readout summed in another order;
+* the reverse scan (``selective_scan_bwd_plain``, the backward kernel's
+  plain version) against ``jax.vjp`` of the JAX reference scan: rtol 1e-5,
+  atol 1e-6; autograd through the plain scan equals it bit for bit;
 * ``_causal_conv``: rtol 1e-6, atol 1e-6 — the same products summed in the
   same order, but XLA may contract a product and its sum into one
   multiply-add;
@@ -51,11 +54,17 @@ from repro_torch.core import subcge as tsub  # noqa: E402
 from repro_torch.data.synthetic import TaskConfig  # noqa: E402
 from repro_torch.dtrain.runner import DTrainConfig, run  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import selective_scan as sscan  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import params as tplib, transformer as ttf  # noqa: E402
 from repro_torch.models.perturb import Bundle, epoch_subspace, sample_pert  # noqa: E402
 
 from _torch_parity import jax_slot_bundle, subcge_pair, weights  # noqa: E402
+from _torch_parity import one_thread  # noqa: E402,F401
+
+# one torch thread per test: under pytest-xdist the intra-op pools of the
+# workers wait on each other (tests/_torch_parity.py::one_thread)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 FALCON = "falcon-mamba-7b"
 RTOL = ATOL = 1e-5
@@ -193,6 +202,35 @@ def test_selective_scan_plain_matches_jax(btdn, backend):
                                atol=ATOL)
     np.testing.assert_allclose(h.numpy(), np.asarray(want_h), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("btdn", [(2, 7, 8, 4), (3, 33, 64, 16)])
+def test_selective_scan_bwd_plain_matches_jax_vjp(btdn):
+    """The reverse scan written out (the plain version of the backward
+    kernel) against ``jax.vjp`` of the JAX reference scan, with cotangents
+    on both y and h_last; and autograd through the CPU path's plain scan
+    against it."""
+    B, T, D, N = btdn
+    inputs = _scan_inputs(*btdn, seed=7 * sum(btdn))
+    rng = np.random.default_rng(sum(btdn))
+    dy = rng.standard_normal((B, T, D)).astype(np.float32)
+    dh = rng.standard_normal((B, D, N)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *x: jops.selective_scan(*x, backend="jnp"),
+                     *(jnp.asarray(x) for x in inputs))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    t_in = [torch.from_numpy(x) for x in inputs]
+    got = sscan.selective_scan_bwd_plain(*t_in, torch.from_numpy(dy),
+                                         torch.from_numpy(dh))
+    leaves = [x.clone().requires_grad_(True) for x in t_in]
+    y, h = ops.selective_scan(*leaves)
+    auto = torch.autograd.grad(
+        (y * torch.from_numpy(dy)).sum() + (h * torch.from_numpy(dh)).sum(),
+        leaves)
+    for name, g, w, a in zip(("da", "dbx", "dc", "dh0"), got, want, auto):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+        assert torch.equal(a, g), name
 
 
 def test_causal_conv_matches_jax():

@@ -51,7 +51,7 @@ RUN = dict(n_clients=4, steps=3, batch_size=2, local_iters=1, subcge_rank=4,
            subcge_tau=2)
 #: fields the port's config does not have, left out of its ``consumes``
 DROPPED = {"trace", "sim_latency_s", "sim_churn_step_s", "kernel_backend",
-           "batched_step", "epoch_replay"}
+           "batched_step"}
 
 
 def _runs(method, **kw):
@@ -175,6 +175,7 @@ def test_method_specs_match_jax():
     for name, spec in METHOD_SPECS.items():
         assert spec.name == name
         assert spec.consumes == JSPECS[name].consumes - DROPPED, name
+        assert spec.supports_churn == JSPECS[name].supports_churn, name
 
 
 REJECTED = [("seedflood", "momentum", 0.9), ("dzsgd", "momentum", 0.5),

@@ -47,6 +47,11 @@ from repro_torch.models import params as tplib, transformer as ttf  # noqa: E402
 from repro_torch.models.perturb import Bundle, epoch_subspace, sample_pert  # noqa: E402
 
 from _torch_parity import jax_slot_bundle, subcge_pair, weights  # noqa: E402
+from _torch_parity import one_thread  # noqa: E402,F401
+
+# one torch thread per test: under pytest-xdist the intra-op pools of the
+# workers wait on each other (tests/_torch_parity.py::one_thread)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 KIMI = "kimi-k2-1t-a32b"
 RTOL = ATOL = 1e-5

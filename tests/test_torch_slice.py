@@ -35,6 +35,12 @@ from repro_torch.dtrain.api import sim_arch  # noqa: E402
 from repro_torch.models import params as tplib  # noqa: E402
 from repro_torch.topology import graphs  # noqa: E402
 
+from _torch_parity import one_thread  # noqa: E402,F401
+
+# one torch thread per test: under pytest-xdist the intra-op pools of the
+# workers wait on each other (tests/_torch_parity.py::one_thread)
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ARCH = dict(d_model=32, n_layers=2, n_heads=2, d_ff=64)
 # a short test split keeps the final accuracy pass cheap; the training
 # split comes first from the task's rng, so it is the default one
