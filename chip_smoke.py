@@ -20,7 +20,9 @@ no result line):
              library call and share of the bound are printed, and each
              unit's sums); the rank-1 products and the update kernel (E <= 2)
              are also held bitwise equal across two calls; the update kernel
-             runs at every matrix leaf of all four paths, beside a
+             runs at every matrix leaf of all four paths and of one
+             TinyLlama-1.1B (the serving fold, client axis 1, E = 2 summed
+             and E = 1 printed), beside a
              ``copy_`` of the same W; the scan's backward
              (``selective_scan_bwd``) at the scan shapes of phase 9's
              first-order arms (4 and 3 clients x 8 sequences, T 33, D 8192,
@@ -29,8 +31,8 @@ no result line):
              dh0 held against the plain reverse scan and autograd of the
              plain forward, dc (a sum over D = 8192) against a float64
              oracle at the same tolerance, its distance to the plain
-             version printed; then ``prng.normal`` on the card held
-             bitwise against the CPU on 2^20 draws.
+             version printed; then ``prng.normal`` and ``prng.gumbel`` on
+             the card held bitwise against the CPU on 2^20 draws each.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
              d1024, vocab 151936), random weights from seed 0.  Launch
@@ -98,14 +100,35 @@ no result line):
              step-2 checkpoint must end bitwise equal to the uninterrupted
              one (leaves, loss and consensus curves, ledger).  Prints the
              checkpoint's size and its write and read seconds.
-12. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+12. serve  — ``repro_torch.serve`` at TinyLlama-1.1B's full width (22
+             layers, d2048, 32 heads of 64 over 4 kv heads, ff 5632, vocab
+             32000, untied), one model of random float32 weights from seed
+             0, 8 slots over a pool of 128 pages of 16 positions: (a) 16
+             greedy requests (prompts of 16-192 tokens from seed 0, 32 new
+             tokens each) must equal, token for token, their monolithic
+             streams (prefill and decode over a ring of 256); steps,
+             prefills, decodes, the steady decode step (median, spread),
+             prefill times, tok/s and peak memory are printed; (b)
+             temperature 0.8 twice must give the same streams; (c) the
+             messages of 8 trainer clients over 2 steps at τ = 1 folded
+             through a ``LiveUpdateBridge`` at the start of step 3 must
+             equal the offline fold (weights bitwise, streams token for
+             token), with one ``subcge_apply_epochs`` launch at E = 2 per
+             matrix leaf; (d) ``ServeSwarmSim`` (2 trainers and 2 servers
+             on a ring of 4, 4 steps, server 3 leaves at 1 and rejoins at
+             2) run twice must replay bitwise, with the JAX
+             FloodTransport's ledger, and each server's final weights
+             must equal, bitwise, the initial weights folded offline over
+             the messages of that server's own folds.
+13. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
 of each slice, of the paper's setting, of each phase-9 baseline and
-first-order Mamba arm, and of phase 10's rejoin step (host spans,
+first-order Mamba arm, of phase 10's rejoin step (host spans,
 device-busy time and share, device launches, top kernels, and the
-hand-written kernels that ran, by name).
+hand-written kernels that ran, by name), and of one steady decode step of
+phase 12 (busy share, launches, top kernels).
 
 It needs a CUDA device and the repository's ``src/`` next to it.
 """
@@ -160,6 +183,23 @@ LEDGER_MESHGRID64_CHURN_6STEPS = (82602, 668088, 15912, 18)
 # phase 11: resume, 8 clients (one OPT-125M checkpoint of 64 clients would
 # be 30.2 GiB)
 RESUME_CLIENTS, RESUME_STEPS = 8, 5
+# phase 12: serving TinyLlama-1.1B whole (float32, random weights from seed
+# 0): 16 requests of prompts drawn between 16 and 192 tokens and 32 new
+# tokens each through 8 slots, so that admission, eviction and page reuse
+# all happen; the monolithic reference decodes over a ring of SERVE_MAX_SEQ
+SERVE_ARCH = "tinyllama-1.1b"
+SERVE_GEOMETRY = dict(max_batch=8, page_size=16, max_seq=256, n_pages=128)
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (16, 192)
+# the live-update fold: the messages of 8 trainer clients over 2 steps at
+# tau = 1 (so E = 2), folded at the start of server step 3, rank 16
+SERVE_FOLD_CLIENTS, SERVE_FOLD_STEPS, SERVE_FOLD_E, SERVE_FOLD_AT = 8, 2, 2, 3
+SERVE_RANK, SERVE_SEED = 16, 0
+# the swarm: 2 trainers and 2 servers on a ring of 4, 4 train steps, server
+# 3 leaves at step 1 and rejoins at 2; what the JAX FloodTransport charges
+# that script (messages, bytes, sync_bytes, n_syncs;
+# tests/test_torch_serve_swarm.py derives it from the JAX transport)
+SWARM_STEPS, SWARM_LEAVE = 4, ((3,), 1, 2)
+LEDGER_SERVE_SWARM_4STEPS = (56, 502, 70, 2)
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -722,19 +762,46 @@ def phase_kernels_baselines(opt, C: int, M: int) -> dict:
     return entries
 
 
+def phase_kernels_serve(arch) -> dict:
+    """The update kernel at the serving fold's shapes: every matrix leaf of
+    ONE TinyLlama-1.1B (client axis 1), as ``LiveUpdateBridge.fold``
+    launches it once per leaf.  E = 2 (phase 12's fold: two τ-epochs) is
+    the main path's and is summed; E = 1 is checked and printed."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    entries = {"subcge_apply_epochs": Entry("subcge_apply_epochs")}
+    one = Entry("subcge_apply_epochs")
+    leaves = update_leaves(arch, 1)
+    check_update(one, leaves, 1, randn)
+    check_update(entries["subcge_apply_epochs"], leaves, SERVE_FOLD_E, randn)
+    log(f"[2] serve E=1 (not summed) {one.line()}")
+    return entries
+
+
 def phase_prng(n: int = 1 << 20) -> None:
-    """prng.normal on the card, bitwise the CPU's (which is bitwise
-    ``jax.random.normal`` on the CPU, tests/test_torch_prng.py)."""
+    """prng.normal and prng.gumbel (the serving path's temperature
+    sampling) on the card, bitwise the CPU's (which is bitwise
+    ``jax.random.normal`` / ``gumbel`` on the CPU,
+    tests/test_torch_{prng,serve}.py)."""
     import torch
     from repro_torch.core import prng
     keys = prng.PRNGKey(torch.arange(16) * 65536 + 7)
-    want = prng.normal(keys, (n // 16,))
-    got = prng.normal(keys.cuda(), (n // 16,)).cpu()
-    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    log(f"  prng.normal card vs CPU on {n} draws: {bad} differ (must be 0)")
-    if bad:
-        raise AssertionError(f"prng.normal: {bad} of {n} draws differ between "
-                             "the card and the CPU")
+    for name in ("normal", "gumbel"):
+        fn = getattr(prng, name)
+        want = fn(keys, (n // 16,))
+        got = fn(keys.cuda(), (n // 16,)).cpu()
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        log(f"  prng.{name} card vs CPU on {n} draws: {bad} differ (must be "
+            "0)")
+        if bad:
+            raise AssertionError(f"prng.{name}: {bad} of {n} draws differ "
+                                 "between the card and the CPU")
 
 
 def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
@@ -1141,6 +1208,402 @@ def phase_resume(opt, B: int, card: str):
     return launches, out
 
 
+def serve_prompts(vocab: int) -> list:
+    """Phase 12's request script: SERVE_REQUESTS prompts whose lengths are
+    drawn from seed 0 between SERVE_PROMPT[0] and SERVE_PROMPT[1] tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE_SEED)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def monolithic_stream(arch, params, prompt, n_new: int, fold_at=None):
+    """One request's greedy stream through the monolithic steps of
+    ``launch/steps.py``: prefill and a decode loop over a ring cache of
+    SERVE_GEOMETRY["max_seq"] positions, switching
+    to ``fold_at[i]`` at decode-step boundary i (0 = before the prefill).
+    Returns the tokens, the smallest gap between the two largest logits of
+    any step (how far the stream is from an argmax tie) and the logits
+    rows (n_new, vocab)."""
+    import torch
+    from repro_torch.launch import steps as steplib
+    fold_at = fold_at or {}
+    prefill = steplib.build_prefill_step(arch, 1, SERVE_GEOMETRY["max_seq"])
+    decode = steplib.build_decode_step(arch)
+
+    def view(p):
+        return {k: t[None] for k, t in p.items()}
+
+    p = view(fold_at.get(0, params))
+    toks = torch.as_tensor(prompt, device="cuda").long()
+    last, cache = prefill(p, toks[None])
+    rows, out = [last[0]], []
+    for i in range(n_new):
+        out.append(rows[-1].argmax())
+        if i == n_new - 1:
+            break
+        if i + 1 in fold_at:
+            p = view(fold_at[i + 1])
+        lg, cache = decode(p, cache, out[-1].reshape(1, 1), len(prompt) + i)
+        rows.append(lg[0])
+    rows = torch.stack(rows)
+    top2 = torch.topk(rows, 2, dim=-1).values
+    return (torch.stack(out).tolist(), float((top2[:, 0] - top2[:, 1]).min()),
+            rows)
+
+
+def serve_run(arch, params, prompts, serve, n_new: int = SERVE_NEW,
+              bridge=None, before_step=None, rows=None) -> tuple:
+    """Drive a DecodeServer over ``prompts`` (rid = index) step by step,
+    timing each step (synchronised) and each prefill; ``before_step(srv)``
+    runs before every step; ``rows``, a dict, receives the logits row each
+    token was sampled from, keyed by (rid, position).  Returns (results,
+    stats, numbers)."""
+    import torch
+    from repro_torch.serve import DecodeServer, Request
+    srv = DecodeServer(arch, params, serve, bridge=bridge, device="cuda")
+    for rid, p in enumerate(prompts):
+        srv.submit(Request(rid=rid, prompt=p, max_new=n_new))
+    prefill_ms, steady_ms, admit_ms = [], [], []
+    prefill = srv._prefill_group
+
+    def timed_prefill(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(*a)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    srv._prefill_group = timed_prefill
+    if rows is not None:
+        sample = srv._sample
+
+        def recorded(logits, rids, emit_pos):
+            host = logits.cpu()      # kept off the card (peak memory)
+            rows.update({(r, p): host[i]
+                         for i, (r, p) in enumerate(zip(rids, emit_pos))})
+            return sample(logits, rids, emit_pos)
+        srv._sample = recorded
+    t_all = time.perf_counter()
+    while not srv.sched.done:
+        if before_step is not None:
+            before_step(srv)
+        n_pre = srv.n_prefills
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        (admit_ms if srv.n_prefills > n_pre else steady_ms).append(
+            1e3 * (time.perf_counter() - t0))
+    wall = time.perf_counter() - t_all
+    st = srv.stats()
+    med = sorted(steady_ms)[len(steady_ms) // 2] if steady_ms else None
+    nums = {"wall_s": wall, "tok_s": st["emitted"] / wall,
+            "steady_step_ms": med,
+            "steady_spread_ms": (min(steady_ms), max(steady_ms))
+            if steady_ms else None, "n_steady": len(steady_ms),
+            "admit_step_ms": admit_ms, "prefill_ms": prefill_ms}
+    return srv.results, st, nums
+
+
+def record_folds(bridge) -> list:
+    """Wrap ``bridge`` so that each fold logs the (seeds, coefs, steps)
+    arrays its ingest_arrays took in since the fold before."""
+    import numpy as np
+    folds, taken = [], []
+    ingest, fold = bridge.ingest_arrays, bridge.fold
+
+    def rec_ingest(*arrays):
+        taken.append(tuple(np.array(a) for a in arrays))
+        return ingest(*arrays)
+
+    def rec_fold(params):
+        folds.append(list(taken))
+        taken.clear()
+        return fold(params)
+    bridge.ingest_arrays, bridge.fold = rec_ingest, rec_fold
+    return folds
+
+
+def own_weights_differ(arch, scfg, seed: int, servers, folds) -> dict:
+    """For each server of a swarm, the leaves of its weights that are not
+    bitwise the initial weights (seed 0, as ServeSwarmSim makes them)
+    folded offline over the messages of that server's own folds, and the
+    number of those folds."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import LiveUpdateBridge
+    out = {}
+    for node, srv in servers.items():
+        want = tf.init_params(arch, 0, "cuda")
+        offline = LiveUpdateBridge(arch, scfg, seed, node)
+        for taken in folds[node]:
+            for arrays in taken:
+                offline.ingest_arrays(*arrays)
+            offline.fold(want)
+        out[node] = (len(folds[node]),
+                     [k for k, t in want.items()
+                      if not torch.equal(srv.params[k].view(torch.int32),
+                                         t.view(torch.int32))])
+        del want
+    return out
+
+
+def profile_step(fn) -> dict:
+    """Device-busy share, device launches and top kernels of one ``fn()``
+    (host wall around it, synchronised) under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(((k[:90], ms, n) for k, (ms, n) in kernels.items()),
+                 key=lambda k: -k[1])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "busy_share": busy / wall_ms,
+            "device_launches": sum(n for _, n in kernels.values()),
+            "top_kernels": top[:12]}
+
+
+def phase_serve(arch, card: str, profile: bool):
+    """Phase 12: the serving path at TinyLlama-1.1B's full width on one
+    model: (a) greedy paged streams equal the monolithic ones, (b)
+    temperature sampling replays, (c) a live-update fold at a step boundary
+    equals the offline fold, (d) the serve swarm under churn replays with
+    the JAX ledger.  Returns the launches (counts zeroed before (c) and (d)
+    and read after each) and the numbers."""
+    import collections
+    import numpy as np
+    import torch
+    from repro_torch.core.seeds import client_seeds
+    from repro_torch.core.subcge import SubCGEConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import n_params, subcge_meta
+    from repro_torch.serve import LiveUpdateBridge, Request, ServeConfig, \
+        ServeSwarmSim
+    from repro_torch.topology.dynamic import ChurnSchedule
+
+    out, launches = {}, collections.Counter()
+    prompts = serve_prompts(arch.vocab)
+    t0 = time.perf_counter()
+    base = tf.init_params(arch, SERVE_SEED, "cuda")
+    torch.cuda.synchronize()
+    out["n_params"] = n_params(tf.arch_spec(arch))
+    out["init_s"] = time.perf_counter() - t0
+    log(f"[12] serve: {arch.name} ({out['n_params']} params, float32) "
+        f"initialised on the card in {out['init_s']:.1f} s; prompt lengths "
+        f"{[len(p) for p in prompts]}")
+
+    # (a) greedy: paged continuous batching against the monolithic streams
+    torch.cuda.reset_peak_memory_stats()
+    paged_rows = {}
+    res, st, nums = serve_run(arch, base, prompts,
+                              ServeConfig(**SERVE_GEOMETRY), rows=paged_rows)
+    nums["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ref, margin = {}, math.inf
+    # logits of the paged path against the monolithic one: the prefill
+    # (token 0) and the decode steps, max |difference| and rows bitwise
+    logit_gap = {"prefill": [0.0, 0, 0], "decode": [0.0, 0, 0]}
+    for rid, p in enumerate(prompts):
+        ref[rid], m, mono = monolithic_stream(arch, base, p, SERVE_NEW)
+        margin, mono = min(margin, m), mono.cpu()
+        for i in range(SERVE_NEW):
+            got = paged_rows[(rid, len(p) + i)]
+            g = logit_gap["prefill" if i == 0 else "decode"]
+            g[0] = max(g[0], float((got - mono[i]).abs().max()))
+            g[1] += int(torch.equal(got, mono[i]))
+            g[2] += 1
+    del paged_rows
+    bad = [rid for rid in ref if res[rid] != ref[rid]]
+    out["greedy"] = {**nums, "stats": st, "min_top2_gap": margin,
+                     "logits_vs_monolithic": logit_gap, "differ": bad}
+    log(f"[12a] greedy: {st['steps']} steps, {st['prefills']} prefills, "
+        f"{st['decodes']} decodes, {st['emitted']} tokens in "
+        f"{nums['wall_s']:.2f} s = {nums['tok_s']:.1f} tok/s; steady decode "
+        f"step median {nums['steady_step_ms']:.2f} ms (spread "
+        f"{nums['steady_spread_ms']}, {nums['n_steady']} steps); admission "
+        f"steps {nums['admit_step_ms']} ms; prefills {nums['prefill_ms']} ms; "
+        f"peak {nums['peak_gib']:.2f} GiB; paged vs monolithic: {len(bad)} of "
+        f"{len(ref)} streams differ (must be 0), smallest top-2 logit gap "
+        f"{margin:.3e}; logits paged vs monolithic (max |diff|, rows "
+        f"bitwise, rows) {logit_gap} ({card})")
+    if bad:
+        raise AssertionError(f"serve: paged greedy streams {bad} differ from "
+                             "their monolithic streams")
+    if st["evicted"] != SERVE_REQUESTS or st["prefills"] < 2:
+        raise AssertionError(f"serve: no queueing behind the slots ({st})")
+
+    # (b) temperature sampling, twice
+    temp = ServeConfig(**SERVE_GEOMETRY, sampling="temperature",
+                       temperature=0.8)
+    ta, _, tnums = serve_run(arch, base, prompts, temp)
+    tb, _, _ = serve_run(arch, base, prompts, temp)
+    same = ta == tb
+    moved = sum(a != b for rid in ta for a, b in zip(ta[rid], res[rid]))
+    out["temperature"] = {**tnums, "replays": same, "moved_vs_greedy": moved}
+    log(f"[12b] temperature 0.8: two runs identical {same}; "
+        f"{tnums['tok_s']:.1f} tok/s, steady step median "
+        f"{tnums['steady_step_ms']:.2f} ms; {moved} tokens differ from "
+        f"greedy ({card})")
+    if not same or not all(0 <= t < arch.vocab for v in ta.values()
+                           for t in v):
+        raise AssertionError("serve: temperature sampling does not replay")
+
+    # (c) a live-update fold at a step boundary against the offline fold
+    scfg = SubCGEConfig(rank=SERVE_RANK, refresh_period=1)
+    n_fold = SERVE_GEOMETRY["max_batch"]
+    msgs = [np.concatenate(a) for a in zip(*(
+        (client_seeds(SERVE_SEED, t, SERVE_FOLD_CLIENTS),
+         np.float32([0.01 / (1 + t + i) for i in range(SERVE_FOLD_CLIENTS)]),
+         np.full(SERVE_FOLD_CLIENTS, t, np.int32))
+        for t in range(SERVE_FOLD_STEPS)))]
+    own = {k: t.clone() for k, t in base.items()}
+    bridge = LiveUpdateBridge(arch, scfg, SERVE_SEED, 0)
+    fold_ms = []
+    fold = bridge.fold
+
+    def timed_fold(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fold(params)
+        torch.cuda.synchronize()
+        fold_ms.append(1e3 * (time.perf_counter() - t0))
+        return params
+    bridge.fold = timed_fold
+
+    def ingest(srv):
+        if srv.n_steps == SERVE_FOLD_AT - 1:
+            bridge.ingest_arrays(*msgs)
+    build.reset_launches()
+    live, lst, _ = serve_run(arch, own, prompts[:n_fold],
+                             ServeConfig(**SERVE_GEOMETRY), bridge=bridge,
+                             before_step=ingest)
+    fold_launches = dict(build.LAUNCHES)
+    epochs = dict(build.EPOCH_LAUNCHES)
+    launches.update(build.LAUNCHES)
+    folded = {k: t.clone() for k, t in base.items()}
+    offline = LiveUpdateBridge(arch, scfg, SERVE_SEED, 0)
+    offline.ingest_arrays(*msgs)
+    offline.fold(folded)
+    differ = [k for k, t in folded.items()
+              if not torch.equal(own[k].view(torch.int32),
+                                 t.view(torch.int32))]
+    del own
+    ref_c = {rid: monolithic_stream(arch, base, p, SERVE_NEW,
+                                    {SERVE_FOLD_AT: folded})[0]
+             for rid, p in enumerate(prompts[:n_fold])}
+    del folded
+    bad = [rid for rid in ref_c if live[rid] != ref_c[rid]]
+    moved = sum(a != b for rid in live for a, b in zip(live[rid], res[rid]))
+    n_matrix = sum(m.is_matrix for m in subcge_meta(tf.arch_spec(arch)).values())
+    out["live_update"] = {"fold_ms": fold_ms, "launches": fold_launches,
+                          "epoch_launches": epochs, "differ": bad,
+                          "leaves_differ": differ, "moved_vs_greedy": moved,
+                          "stats": lst}
+    log(f"[12c] live update: {SERVE_FOLD_CLIENTS} clients x "
+        f"{SERVE_FOLD_STEPS} steps at tau 1 folded at step {SERVE_FOLD_AT} "
+        f"in {fold_ms} ms; launches {fold_launches}, epoch launches by E "
+        f"{epochs} ({n_matrix} matrix leaves); live vs offline fold: "
+        f"{len(bad)} streams and {len(differ)} leaves differ (must be 0); "
+        f"{moved} tokens moved from the unfolded greedy streams ({card})")
+    if bad or differ:
+        raise AssertionError(f"serve: decoding under a live fold differs from "
+                             f"the offline fold (streams {bad}, leaves "
+                             f"{differ})")
+    if fold_launches.get("subcge_apply_epochs") != n_matrix \
+            or epochs != {SERVE_FOLD_E: n_matrix} or len(fold_ms) != 1:
+        raise AssertionError(f"serve: the fold launched {fold_launches} "
+                             f"({epochs}), not one E={SERVE_FOLD_E} update "
+                             f"per matrix leaf")
+    del base
+    torch.cuda.empty_cache()
+
+    # (d) the swarm under churn, twice
+    swarm_scfg = SubCGEConfig(rank=SERVE_RANK, refresh_period=2)
+
+    def swarm():
+        sim = ServeSwarmSim(
+            arch, swarm_scfg,
+            ServeConfig(max_batch=2, page_size=16, max_seq=256, n_pages=32),
+            n_trainers=2, n_servers=2, train_steps=SWARM_STEPS,
+            global_seed=SERVE_SEED,
+            churn=ChurnSchedule.leave_rejoin(*SWARM_LEAVE), device="cuda")
+        folds = {node: record_folds(srv.bridge)
+                 for node, srv in sim.servers.items()}
+        for rid in range(4):
+            sim.submit(2 if rid < 2 else 3,
+                       Request(rid=rid, prompt=prompts[rid], max_new=16))
+        t0 = time.perf_counter()
+        r = sim.run()
+        r["wall_s"] = time.perf_counter() - t0
+        return r, sim.servers, folds
+
+    build.reset_launches()
+    a, servers, folds = swarm()
+    b = swarm()[0]
+    torch.cuda.empty_cache()
+    swarm_launches = dict(build.LAUNCHES)
+    launches.update(swarm_launches)
+    # the offline folds launch after the counts are read
+    own = own_weights_differ(arch, swarm_scfg, SERVE_SEED, servers, folds)
+    del servers, folds
+    torch.cuda.empty_cache()
+    led = a["ledger"]
+    ledger = (led["n_messages"], led["total_bytes"], led["sync_bytes"],
+              led["n_syncs"])
+    replay = (a["tokens"] == b["tokens"] and a["ledger"] == b["ledger"]
+              and a["servers"] == b["servers"])
+    out["swarm"] = {"ledger": ledger, "replays": replay,
+                    "servers": a["servers"], "own_weights": own,
+                    "wall_s": (a["wall_s"], b["wall_s"])}
+    log(f"[12d] swarm: 2 trainers + 2 servers on a ring of 4, "
+        f"{SWARM_STEPS} steps, server 3 leaves at 1 and rejoins at 2: "
+        f"replays bitwise {replay}; ledger (msgs, B, sync B, syncs) "
+        f"{ledger}; servers {a['servers']}; each server's (folds, leaves "
+        f"that differ from its offline fold) {own}; runs "
+        f"{a['wall_s']:.1f} / {b['wall_s']:.1f} s; launches "
+        f"{swarm_launches} ({card})")
+    if not replay:
+        raise AssertionError("serve: the swarm does not replay bitwise")
+    if ledger != LEDGER_SERVE_SWARM_4STEPS:
+        raise AssertionError(f"serve: swarm ledger {ledger} != JAX "
+                             f"FloodTransport's {LEDGER_SERVE_SWARM_4STEPS}")
+    if any(n < 1 or bad for n, bad in own.values()):
+        raise AssertionError(f"serve: a server's weights are not its own "
+                             f"folds of the initial weights ({own})")
+    s3 = a["servers"][3]
+    if s3["suspends"] < 1 or s3["prefills"] < 2 \
+            or s3["bridge"]["messages_folded"] < 1:
+        raise AssertionError(f"serve: the churn did not bite ({s3})")
+
+    if profile:
+        from repro_torch.serve import DecodeServer
+        params = tf.init_params(arch, SERVE_SEED, "cuda")
+        srv = DecodeServer(arch, params, ServeConfig(**SERVE_GEOMETRY),
+                           device="cuda")
+        for rid, p in enumerate(prompts[:n_fold]):
+            srv.submit(Request(rid=rid, prompt=p, max_new=SERVE_NEW))
+        for _ in range(3):
+            srv.step()
+        out["profile"] = profile_step(srv.step)
+        log(f"[p] one steady decode step of {arch.name}, "
+            f"{SERVE_GEOMETRY['max_batch']} slots ({card}): "
+            f"{out['profile']}")
+        del srv, params
+        torch.cuda.empty_cache()
+    return dict(launches), out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write details as JSON")
@@ -1198,6 +1661,12 @@ def main(argv=None) -> int:
     log(f"[2] kernels vs plain versions at OPT-125M shapes, "
         f"{PAPER_CLIENTS} clients ({card})")
     entries["opt"] = phase_kernels_opt(opt, PAPER_CLIENTS, B * T)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tiny = archs.get(SERVE_ARCH)
+    log(f"[2] the update kernel at the serving fold's shapes: one "
+        f"{tiny.name} ({card})")
+    entries["serve"] = phase_kernels_serve(tiny)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for key, es in entries.items():
@@ -1385,6 +1854,10 @@ def main(argv=None) -> int:
     launches["churn"], details["churn"] = phase_churn(opt, B, card)
     launches["resume"], details["resume"] = phase_resume(opt, B, card)
 
+    # 12. serving TinyLlama-1.1B whole (the serve profile runs here too)
+    launches["serve"], details["serve"] = phase_serve(tiny, card,
+                                                      args.profile)
+
     if args.profile:
         for key, arch, clients, topology in (
                 ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
@@ -1419,7 +1892,7 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 12. report: each kernel over the paths that run it
+    # 13. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

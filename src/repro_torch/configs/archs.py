@@ -1,5 +1,6 @@
 """Architectures the port runs (the dense, MoE and SSM subset of
-``repro/configs/archs.py``, and the paper's own OPT family).
+``repro/configs/archs.py``, and the paper's own OPT family).  TinyLlama
+1.1B is the serving path's model (``repro_torch.launch.serve``'s default).
 
 ``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
 slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; an MoE slot keeps 4
@@ -23,6 +24,11 @@ QWEN15_05B = uniform_dense(
     d_ff=2816, vocab=151_936, qkv_bias=True, tie_embeddings=True,
     rope_theta=1e6,
     source="[hf:Qwen/Qwen1.5-0.5B] 24L d1024 16H(kv16) ff2816 v151936, QKV bias")
+
+TINYLLAMA_11B = uniform_dense(
+    "tinyllama-1.1b", n_layers=22, d_model=2048, n_heads=32, n_kv=4,
+    d_ff=5632, vocab=32_000, rope_theta=1e4,
+    source="[arXiv:2401.02385] 22L d2048 32H(kv4) ff5632 v32000, llama2-arch")
 
 KIMI_K2 = ArchConfig(
     name="kimi-k2-1t-a32b", family="moe", d_model=7168, vocab=163_840,
@@ -57,8 +63,8 @@ OPT_1_3B = _opt("opt-1.3b", 24, 2048, 32, 8192)
 OPT_2_7B = _opt("opt-2.7b", 32, 2560, 32, 10_240)
 
 REGISTRY: dict[str, ArchConfig] = {
-    c.name: c for c in [QWEN15_05B, KIMI_K2, FALCON_MAMBA_7B, OPT_125M,
-                        OPT_1_3B, OPT_2_7B]}
+    c.name: c for c in [QWEN15_05B, TINYLLAMA_11B, KIMI_K2, FALCON_MAMBA_7B,
+                        OPT_125M, OPT_1_3B, OPT_2_7B]}
 
 
 def get(name: str) -> ArchConfig:

@@ -286,3 +286,18 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``."""
     return _map_bits(key, shape, lambda b: erf_inv(_unit_to_range(
         _bits_to_unit(b), _NORMAL_LO, 1.0)) * _SQRT2, torch.float32)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default "low" mode:
+    ``-log(-log(uniform(tiny, 1)))``, through XLA CPU's float32 ``log``."""
+    return _map_bits(key, shape, lambda b: -log_xla(-log_xla(_unit_to_range(
+        _bits_to_unit(b), _TINY, 1.0))), torch.float32)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, one key
+    per row: ``key`` (..., 2) with ``...`` = ``logits.shape[:-1]``.  The
+    Gumbel-max trick, ties to the first index as ``jnp.argmax``."""
+    g = gumbel(key, logits.shape[-1:])
+    return torch.argmax(g + logits.float(), dim=-1)

@@ -1,8 +1,14 @@
 """Layers of the decoder, perturbation-aware (the dense, MoE and Mamba-1
 subset of ``repro/models/layers.py``: rmsnorm and layernorm, silu and relu,
-gated and plain MLPs, rope).
+gated and plain MLPs, rope, and attention's decode halves).
 
-Activations carry a leading client axis: ``x (C, B, T, D)``.  Attention,
+Activations carry a leading client axis: ``x (C, B, T, D)``.  A decode
+cache serves one model (C = 1) and carries no client axis: each attention
+layer owns ``{"k": (B, Cap, KV, hd), "v": ..., "kpos": (Cap,) int64}``, a
+ring addressed by ``pos % Cap`` whose ``kpos`` records the absolute
+position a slot holds (-1: empty), or one layer of the paged pool,
+``{"k": (P + 1, page, KV, hd), "v": ...}`` with the dump page last.  Both
+are written in place (the JAX package's donated buffers).  Attention,
 routing, dispatch and combine, the causal conv and the SSM's gates are
 plain PyTorch, as the JAX package computes them outside any Pallas kernel;
 the perturbed projections go through ``Bundle.dense`` and
@@ -60,7 +66,9 @@ ACTS = {"silu": F.silu, "relu": F.relu}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """Rotary embedding.  x (..., T, H, hd), positions (T,)."""
+    """Rotary embedding.  x (..., T, H, hd), positions (T,) or, for the
+    paged decode, per-request (B, T) (the cos/sin tables broadcast over the
+    head axis either way)."""
     hd = x.shape[-1]
     exps = torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
     freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
@@ -74,13 +82,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """(T, S) boolean causal mask (k_pos = -1 marks an empty slot)."""
-    return (k_pos[None, :] <= q_pos[:, None]) & (k_pos[None, :] >= 0)
+    """(T, S) boolean causal mask (k_pos = -1 marks an empty slot); with
+    per-request positions (B, T) / (B, S) it is (B, T, S)."""
+    return (k_pos[..., None, :] <= q_pos[..., :, None]) \
+        & (k_pos[..., None, :] >= 0)
 
 
 def attn_core(q, k, v, q_pos, k_pos):
     """Grouped-query attention.  q (C,B,T,H,hd), k/v (C,B,S,KV,hd)
-    -> (C,B,T,H*hd)."""
+    -> (C,B,T,H*hd).  Positions are shared (T,)/(S,) or per-request
+    (B,T)/(B,S)."""
     C, B, T, H, hd = q.shape
     KV = k.shape[3]
     G = H // KV
@@ -88,28 +99,109 @@ def attn_core(q, k, v, q_pos, k_pos):
     logits = torch.einsum("cbtkgd,cbskd->cbkgts", qg, k).float()
     logits = logits * (1.0 / math.sqrt(hd))
     mask = attn_mask(q_pos, k_pos)
+    if mask.ndim == 3:
+        mask = mask[None, :, None, None]
     logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("cbkgts,cbskd->cbtkgd", probs, v)
     return out.reshape(C, B, T, H * hd)
 
 
-def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float,
-              pos_kind: str = "rope"):
-    """Standard (GQA) attention without a cache (training forward); rope
-    only for ``pos_kind == "rope"`` (learned positions are added to the
-    embeddings)."""
+def _ring_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                pos: int) -> None:
+    """Write T new entries (B, T, KV, hd) ending at absolute position
+    pos + T - 1 into a ring cache of capacity Cap, in place (a full cache
+    is a ring with Cap >= seq); a prefill longer than the ring keeps its
+    last Cap positions."""
+    cap, T = cache["k"].shape[1], k.shape[1]
+    keep = max(0, T - cap)
+    new_pos = pos + torch.arange(keep, T, device=k.device)
+    slots = new_pos % cap
+    cache["k"][:, slots] = k[:, keep:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, keep:].to(cache["v"].dtype)
+    cache["kpos"][slots] = new_pos
+
+
+def _qkv(b: Bundle, x: torch.Tensor, acfg: AttnCfg):
     C, B, T, _ = x.shape
     H, KV, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
     bias = acfg.qkv_bias
     q = b.dense("wq", x, bias="bq" if bias else None).reshape(C, B, T, H, hd)
     k = b.dense("wk", x, bias="bk" if bias else None).reshape(C, B, T, KV, hd)
     v = b.dense("wv", x, bias="bv" if bias else None).reshape(C, B, T, KV, hd)
-    pos = torch.arange(T, device=x.device)
+    return q, k, v
+
+
+def _one_model(x: torch.Tensor) -> None:
+    if x.shape[0] != 1:
+        raise ValueError(f"a decode cache serves one model (client axis 1), "
+                         f"got {x.shape[0]}")
+
+
+def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float,
+              pos_kind: str = "rope", pos: int = 0,
+              cache: dict | None = None):
+    """Standard (GQA) attention; rope only for ``pos_kind == "rope"``
+    (learned positions are added to the embeddings).  ``pos`` is the
+    absolute position of x[:, :, 0].  Without a cache it is the training
+    forward; with one (one model) the new k/v are written into the ring
+    and a decode step (T == 1) attends the ring, while a prefill (T > 1)
+    attends its own raw k/v, as the JAX package's."""
+    T = x.shape[2]
+    q, k, v = _qkv(b, x, acfg)
+    q_pos = pos + torch.arange(T, device=x.device)
     if pos_kind == "rope":
-        q = rope(q, pos, rope_theta)
-        k = rope(k, pos, rope_theta)
-    out = attn_core(q, k, v, pos, pos)
+        q = rope(q, q_pos, rope_theta)
+        k = rope(k, q_pos, rope_theta)
+    if cache is not None:
+        _one_model(x)
+        _ring_write(cache, k[0], v[0], pos)
+    if cache is None or T > 1:
+        out = attn_core(q, k, v, q_pos, q_pos)
+    else:
+        out = attn_core(q, cache["k"][None], cache["v"][None], q_pos,
+                        cache["kpos"])
+    return b.dense("wo", out)
+
+
+def paged_attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg,
+                    rope_theta: float, pos_kind: str, pos_b: torch.Tensor,
+                    pages: dict, table: torch.Tensor):
+    """Decode-only (T == 1) GQA attention of one model over one layer of
+    the paged KV pool, ``pages`` ``{"k": (P + 1, page, KV, hd), "v": ...}``
+    with the dump page last.  ``table`` (B, Pb) holds each request slot's
+    physical pages in logical order (unreserved entries: the dump page);
+    ``pos_b`` (B,) the absolute position of each slot's incoming token.
+
+    The new k/v are scattered into the pool in place (inactive slots all
+    write the dump page, which no live request attends with nonzero
+    probability), then each slot gathers its Pb pages: S = Pb·page
+    positions, those past ``pos_b`` masked to probability exactly 0."""
+    _, B, T, _ = x.shape
+    if T != 1:
+        raise ValueError(f"paged_attention is decode-only (got T={T}; "
+                         "prefill goes through the monolithic path and is "
+                         "scattered into pages afterwards)")
+    _one_model(x)
+    q, k, v = _qkv(b, x, acfg)
+    q_pos = pos_b[:, None]                                     # (B, 1)
+    if pos_kind == "rope":
+        q = rope(q, q_pos, rope_theta)
+        k = rope(k, q_pos, rope_theta)
+    page = pages["k"].shape[1]
+    Pb = table.shape[1]
+    phys = torch.gather(table, 1, (pos_b // page)[:, None])[:, 0]
+    off = pos_b % page
+    pages["k"][phys, off] = k[0, :, 0].to(pages["k"].dtype)
+    pages["v"][phys, off] = v[0, :, 0].to(pages["v"].dtype)
+    S = Pb * page
+    kv_shape = (1, B, S) + tuple(pages["k"].shape[2:])
+    kg = pages["k"][table].reshape(kv_shape)
+    vg = pages["v"][table].reshape(kv_shape)
+    s_iota = torch.arange(S, device=x.device)[None, :]
+    k_pos = torch.where(s_iota <= pos_b[:, None], s_iota,
+                        torch.full_like(s_iota, -1))            # (B, S)
+    out = attn_core(q, kg, vg, q_pos, k_pos)
     return b.dense("wo", out)
 
 

@@ -1,5 +1,5 @@
-"""Decoder: spec builder, forward and loss (the dense, MoE and Mamba-1 part
-of ``repro/models/transformer.py``).
+"""Decoder: spec, forward, loss and the serving caches (the dense,
+MoE and Mamba-1 part of ``repro/models/transformer.py``).
 
 ``arch_spec`` produces the same leaf paths and shapes as the JAX package
 (``embed/tok``, ``embed/out`` when untied, ``embed/pos`` for learned
@@ -8,6 +8,12 @@ positions, ``embed/ln_f_scale`` and, for layernorm, ``embed/ln_f_bias``,
 group's reps, expert weights stacked over (reps, experts)).  The
 ``lax.scan`` over a group's periods becomes a Python loop over the stacked
 layer axis; activations and parameters carry a leading client axis.
+
+The serving caches (``init_cache``, ``init_paged_pool``) are keyed by slot
+(``"g0/s0"``), stacked over the group's reps, and serve one model: the
+forward writes them in place.  Attention slots only: a Mamba slot's
+``(h, conv)`` decode cache is not ported (ROADMAP Queue 1 item 13), and the
+port's configs have no MLA slot (item 9).
 """
 from __future__ import annotations
 
@@ -125,19 +131,119 @@ def arch_spec(cfg: ArchConfig) -> dict[str, LeafSpec]:
     return spec
 
 
+# ---------------------------------------------------------------------------
+# serving caches (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+def _attn_slots(cfg: ArchConfig):
+    """(slot key, reps, AttnCfg) of every attention slot; a Mamba slot
+    raises (its decode cache is not ported)."""
+    out = []
+    for gi, g in enumerate(cfg.groups):
+        for si, slot in enumerate(g.slots):
+            if slot.mixer == "mamba":
+                raise NotImplementedError(
+                    f"{cfg.name}: the decode cache of a Mamba slot (its "
+                    "(h, conv) state) is not ported (ROADMAP Queue 1 item 13)")
+            out.append((f"g{gi}/s{si}", g.reps, slot.attn))
+    return out
+
+
+def init_cache(cfg: ArchConfig, B: int, capacity: int,
+               dtype=torch.float32, device="cpu") -> dict:
+    """Monolithic ring caches of ``capacity`` positions for B sequences of
+    one model: slot -> {"k", "v": (reps, B, capacity, KV, hd), "kpos":
+    (reps, capacity) int64, -1 where empty}."""
+    out = {}
+    for key, reps, a in _attn_slots(cfg):
+        shape = (reps, B, capacity, a.n_kv_heads, a.head_dim)
+        out[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device),
+                    "kpos": torch.full((reps, capacity), -1,
+                                       dtype=torch.int64, device=device)}
+    return out
+
+
+def check_paged_support(cfg: ArchConfig) -> None:
+    """Paged serving covers standard (GQA) attention slots; Mamba's
+    recurrent state needs its own paging story (the port's configs have no
+    MLA slot and no modality frontend, which the JAX package refuses too)."""
+    for g in cfg.groups:
+        for slot in g.slots:
+            if slot.mixer == "mamba":
+                raise ValueError("paged serving does not support mamba slots")
+
+
+def init_paged_pool(cfg: ArchConfig, n_pages: int, page_size: int,
+                    dtype=torch.float32, device="cpu") -> dict:
+    """Per-attention-slot page pools of ``n_pages + 1`` physical pages, the
+    last one the dump page: slot -> {"k", "v": (reps, n_pages + 1,
+    page_size, KV, hd)}."""
+    check_paged_support(cfg)
+    out = {}
+    for key, reps, a in _attn_slots(cfg):
+        shape = (reps, n_pages + 1, page_size, a.n_kv_heads, a.head_dim)
+        out[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return out
+
+
+def write_prefill_to_pages(cache: dict, pool: dict, table: torch.Tensor,
+                           page_size: int) -> dict:
+    """Scatter a freshly prefilled monolithic cache (capacity == prompt
+    length T, so ring slot s holds position s) into pool pages, in place;
+    ``table`` (Bg, pages) holds the Bg admitted requests' page rows.
+    Prefill logits never read the cache layout, so prefill-then-scatter is
+    the monolithic prefill."""
+    for key, c in cache.items():
+        p = pool[key]
+        T = c["k"].shape[2]
+        pos = torch.arange(T, device=table.device)
+        phys = table[:, pos // page_size]                      # (Bg, T)
+        off = (pos % page_size).expand_as(phys)
+        p["k"][:, phys, off] = c["k"].to(p["k"].dtype)
+        p["v"][:, phys, off] = c["v"].to(p["v"].dtype)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cache: dict | None, key: str, layer: int) -> dict | None:
+    if cache is None:
+        return None
+    return {k: t[layer] for k, t in cache[key].items()}
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
-            sub: dict | None = None, pert: Pert | None = None):
+            sub: dict | None = None, pert: Pert | None = None,
+            cache: dict | None = None, pos=0,
+            paged_table: torch.Tensor | None = None):
     """(logits (C, B, T, vocab), aux (C,)) for tokens (C, B, T); params
     stacked (C, ...).  ``aux`` sums the MoE load-balance losses of every
-    layer (0 for a dense decoder)."""
+    layer (0 for a dense decoder).
+
+    Serving (one model, C = 1): with ``cache`` from :func:`init_cache`,
+    ``pos`` (an int) is the absolute position of tokens[..., 0] and the
+    ring is written in place.  With ``paged_table`` (B, Pb) as well,
+    ``cache`` is a pool from :func:`init_paged_pool`, ``pos`` a (B,)
+    tensor of per-request positions, T is 1, and attention runs
+    :func:`~repro_torch.models.layers.paged_attention` (written in place
+    too).  Learned positions are clipped at ``LEARNED_POS_LEN - 1``."""
+    if cache is not None:
+        _attn_slots(cfg)              # a Mamba slot has no decode cache
     emb = Bundle(params, sub, pert, "embed/")
     x = emb.embed("tok", tokens)
     C, _, T = tokens.shape
     if cfg.pos == "learned":
-        # positions 0..T-1, shared by every client and sequence
-        pos = torch.arange(T, device=tokens.device).clamp(
-            max=LEARNED_POS_LEN - 1)
-        x = x + emb.embed("pos", pos.expand(C, 1, T))
+        # positions pos..pos+T-1 shared by every sequence (1, T), or per
+        # request (B, T) on the paged path
+        steps = torch.arange(T, device=tokens.device)
+        q_pos = pos[:, None] + steps if paged_table is not None \
+            else (pos + steps)[None]
+        ids = q_pos.clamp(0, LEARNED_POS_LEN - 1)[None]
+        x = x + emb.embed("pos", ids.expand(C, -1, -1))
     aux = torch.zeros(C, dtype=torch.float32, device=tokens.device)
     for gi, g in enumerate(cfg.groups):
         for layer in range(g.reps):
@@ -146,9 +252,15 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                 h = L.norm(b, "ln_attn", x, cfg.norm)
                 if slot.mixer == "mamba":
                     x = x + L.mamba(b, h, slot.mamba)
+                    continue
+                lc = _layer_cache(cache, f"g{gi}/s{si}", layer)
+                if paged_table is not None:
+                    x = x + L.paged_attention(b, h, slot.attn,
+                                              cfg.rope_theta, cfg.pos, pos,
+                                              lc, paged_table)
                 else:
                     x = x + L.attention(b, h, slot.attn, cfg.rope_theta,
-                                        cfg.pos)
+                                        cfg.pos, pos, lc)
                 if slot.ffn == "moe":
                     y, a = L.moe(b, L.norm(b, "ln_mlp", x, cfg.norm),
                                  slot.moe)

@@ -285,6 +285,84 @@ def test_normal_on_card_is_bitwise_the_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_gumbel_on_card_is_bitwise_the_cpu(cuda):
+    """prng.gumbel (the serving path's temperature sampling) on the card,
+    bitwise the CPU's (which is bitwise jax.random.gumbel)."""
+    from repro_torch.core import prng
+    keys = prng.PRNGKey(torch.tensor([0, 7, 2**32 - 1]))
+    want = prng.gumbel(keys, (1 << 14,))
+    got = prng.gumbel(keys.to(cuda), (1 << 14,)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# TinyLlama-1.1B's matrix leaves as the serving fold gives them (one model,
+# client axis 1), cut to 2 layers: (n, m) of wq, wk/wv, w1/w3, w2
+SERVE_FOLD_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nm", SERVE_FOLD_SHAPES,
+                         ids=lambda a: "x".join(map(str, a)))
+@pytest.mark.parametrize("E", [1, 2])
+def test_update_kernel_at_serving_fold_shapes(cuda, nm, E):
+    """The epoch update in place on W (1, 2, n, m), the unsqueezed view of
+    one model's stacked leaf, against the plain version."""
+    n, m = nm
+    rng = np.random.default_rng(n + m + E)
+    W = torch.from_numpy(_f32(rng, 2, n, m)).to(cuda).unsqueeze(0)
+    U, V = (torch.from_numpy(_f32(rng, E, k, 16)).to(cuda) for k in (n, m))
+    A = torch.from_numpy(_f32(rng, E, 1, 2, 16, 16) / 16).to(cuda)
+    want = ops.subcge_apply_epochs(*(t.cpu() for t in (W, U, A, V)))
+    build.reset_launches()
+    out = ops.subcge_apply_epochs(W, U, A, V, inplace=True)
+    torch.cuda.synchronize()
+    assert out is W and build.LAUNCHES["subcge_apply_epochs"] == 1
+    np.testing.assert_allclose(W.cpu().numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_decode_server_with_live_updates_on_card_matches_cpu(cuda):
+    """A DecodeServer of the reduced TinyLlama with a bridge fold at a step
+    boundary, on the card and on the CPU: the same greedy tokens, folded
+    weights within 1e-5, one ``subcge_apply_epochs`` launch per matrix
+    leaf per fold."""
+    from repro_torch.configs import archs
+    from repro_torch.core.subcge import SubCGEConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import subcge_meta
+    from repro_torch.serve import DecodeServer, LiveUpdateBridge, Request, \
+        ServeConfig
+    arch = archs.reduced(archs.get("tinyllama-1.1b"))
+    serve = ServeConfig(max_batch=2, page_size=4, n_pages=12, max_seq=24)
+    prompts = np.random.default_rng(0).integers(0, arch.vocab, (3, 9))
+    steps = np.array([0, 1, 2, 3], np.int32)
+
+    def run(device):
+        bridge = LiveUpdateBridge(arch, SubCGEConfig(rank=4, refresh_period=2),
+                                  7, 0)
+        params = tf.init_params(arch, 0, device)
+        srv = DecodeServer(arch, params, serve, bridge=bridge, device=device)
+        for rid, p in enumerate(prompts):
+            srv.submit(Request(rid=rid, prompt=p, max_new=6))
+        srv.step()
+        bridge.ingest_arrays(steps + 11, np.full(4, 0.05, np.float32), steps)
+        build.reset_launches()
+        out = srv.run()
+        return out, params, dict(build.LAUNCHES)
+
+    got, p_card, launches = run(cuda)
+    want, p_cpu, _ = run("cpu")
+    assert got == want
+    meta = subcge_meta(tf.arch_spec(arch))
+    n_matrix = sum(m.is_matrix for m in meta.values())
+    assert launches["subcge_apply_epochs"] == n_matrix
+    for k, t in p_cpu.items():
+        np.testing.assert_allclose(p_card[k].cpu().numpy(), t.numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("btdn", [(2, 37, 96, 4), (3, 33, 160, 8),
                                   (2, 70, 72, 16), (8, 33, 8192, 16)],
                          ids=["N4", "N8", "N16", "falcon-B8"])
