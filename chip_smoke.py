@@ -120,7 +120,25 @@ no result line):
              FloodTransport's ledger, and each server's final weights
              must equal, bitwise, the initial weights folded offline over
              the messages of that server's own folds.
-13. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+13. async  — the event engine through the same entry point
+             (``DTrainConfig(trace=...)``) at OPT-125M's full width, τ = 2,
+             4 steps each: (a) 16 clients on a ring, client 3 away for
+             steps 1-2, the event run on ``TraceSet.constant`` bitwise the
+             synchronous run with ``drain`` (loss curve, every leaf,
+             consensus) and both ledgers the JAX package's; (b) 64 clients
+             on the 8 x 8 mesh-grid under ``TraceSet.two_speed`` (half the
+             swarm 4x slower, 1 Gbit/s links, 10 ms latency): the JAX
+             package's ledger, virtual time and cohort times exactly, 144
+             ``rank1_matmul`` and 2 ``rank1_matmul_t`` launches per cohort
+             (each cohort computes every row), a replay with E >= 2, all 64
+             clients within 1e-10 after the drain, peak under 80 GiB; the
+             wall per cohort, each replay's K, E and seconds, and per-client
+             progress beside the barrier schedule are printed; (c) dsgd
+             under the same trace, 16 clients on a ring, a mix every 2
+             steps: the JAX formula's ledger and mix-delay virtual time.
+             Phase 2 also checks the replay at OPT-125M's 64-client leaves
+             with E = 2.
+14. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
@@ -200,6 +218,25 @@ SERVE_RANK, SERVE_SEED = 16, 0
 # tests/test_torch_serve_swarm.py derives it from the JAX transport)
 SWARM_STEPS, SWARM_LEAVE = 4, ((3,), 1, 2)
 LEDGER_SERVE_SWARM_4STEPS = (56, 502, 70, 2)
+# phase 13: the event engine at OPT-125M's full width, 4 steps at tau = 2
+# each; the constants are the JAX package's (tests/test_torch_async.py
+# derives them with stub methods: none depends on the model).  (a) 16
+# clients on a ring, client 3 away for steps 1-2, TraceSet.constant against
+# the synchronous run with drain: (messages, bytes, sync_bytes, n_syncs)
+ASYNC_STEPS, ASYNC_TAU, ASYNC_RING = 4, 2, 16
+LEDGER_ASYNC_RING16_CHURN = (1952, 15802, 426, 2)
+# (b) the 8 x 8 mesh-grid of 64 under two_speed (half the swarm 4x slower,
+# 1 Gbit/s links, 10 ms latency): (messages, bytes), the virtual time, the
+# cohorts' virtual times
+ASYNC_TRACE = dict(fast_s=1.0, slow_s=4.0, bandwidth_bps=1e9, latency_s=0.01)
+LEDGER_ASYNC_MESHGRID64 = (57344, 458752)
+VTIME_ASYNC_MESHGRID64 = 16.300001152000018
+COHORTS_ASYNC_MESHGRID64 = (1.0, 2.0, 3.0, 4.0, 4.0, 8.0, 12.0, 16.0)
+# (c) dsgd, 16 clients on a ring, a mix every 2 steps, the same trace: two
+# exchanges of DSGD_EXCHANGE_BYTES, each a barrier of 2 x 10 ms + 1.01 GB
+# per edge at 1 Gbit/s
+LEDGER_ASYNC_DSGD16 = 2 * DSGD_EXCHANGE_BYTES
+VTIME_ASYNC_DSGD16 = 24.132340992
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -712,7 +749,8 @@ def phase_kernels_opt(opt, C: int, M: int) -> dict:
     layer's six projections (wq, wk, wv, wo of 768 -> 768, w1 768 -> 3072,
     w2 3072 -> 768), the tied logits (W (50272, 768)), and one update of
     every matrix leaf (``embed/tok`` alone is 64 x 50272 x 768 floats, past
-    2^31, checked in slices)."""
+    2^31, checked in slices).  The replay at E = 2 (phase 13's stale
+    arrivals across a τ boundary) is checked and printed, not summed."""
     import torch
 
     dev = torch.device("cuda")
@@ -731,6 +769,9 @@ def phase_kernels_opt(opt, C: int, M: int) -> dict:
     leaves = update_leaves(opt, C)
     for name in ("subcge_apply", "subcge_apply_epochs"):
         check_update(entries[name], leaves, 1, randn)
+    two = Entry("subcge_apply_epochs")
+    check_update(two, leaves, 2, randn)
+    log(f"[2] opt E=2 (not summed) {two.line()}")
     return entries
 
 
@@ -1206,6 +1247,262 @@ def phase_resume(opt, B: int, card: str):
     del whole, resumed, got, want
     torch.cuda.empty_cache()
     return launches, out
+
+
+class CohortLog:
+    """Records, while installed, each SeedFlood dispatch of an event run: a
+    cohort's step (its members, step index, wall seconds) and each replay
+    (padded K, τ-epochs, wall seconds), every wall ending in
+    ``torch.cuda.synchronize()``.  Reporting only: the wrapped methods run
+    unchanged."""
+
+    def __init__(self, tau: int):
+        self.tau, self.steps, self.replays = tau, [], []
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from repro_torch.dtrain.methods.seedflood import SeedFloodMethod
+        self.cls = SeedFloodMethod
+        self.orig = (SeedFloodMethod.local_step, SeedFloodMethod.apply_inbox)
+        local_step, apply_inbox = self.orig
+        log_ = self
+
+        def timed_step(meth, state, tokens, active, t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = local_step(meth, state, tokens, active, t)
+            torch.cuda.synchronize()
+            log_.steps.append((np.flatnonzero(np.asarray(active) > 0).tolist(),
+                               t, time.perf_counter() - t0))
+            return out
+
+        def timed_replay(meth, state, inbox):
+            if inbox is None or inbox.seeds.shape[1] == 0:
+                return apply_inbox(meth, state, inbox)
+            live = inbox.steps[inbox.steps >= 0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = apply_inbox(meth, state, inbox)
+            torch.cuda.synchronize()
+            log_.replays.append((int(inbox.seeds.shape[1]),
+                                 len(set((live // log_.tau).tolist())),
+                                 time.perf_counter() - t0))
+            return out
+
+        SeedFloodMethod.local_step = timed_step
+        SeedFloodMethod.apply_inbox = timed_replay
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.local_step, self.cls.apply_inbox = self.orig
+
+
+def phase_async(opt, B: int, card: str):
+    """Phase 13: the event engine (``run(DTrainConfig(trace=...))``) at
+    OPT-125M's full width.  (a) the oracle: 16 clients on a ring under
+    churn, the event run on ``TraceSet.constant`` bitwise the synchronous
+    run with ``drain`` (curve, leaves, consensus, the JAX ledger); (b) the
+    paper's grid point under heterogeneity: 64 clients on the 8 x 8
+    mesh-grid, half of them 4x slower, on 1 Gbit/s links with 10 ms latency
+    (the JAX package's ledger, virtual time and cohorts, 144 rank-1 launches
+    per cohort, a replay across τ-epochs, consensus after the drain); (c)
+    dsgd under the same trace (the JAX formula's ledger and mix-delay
+    virtual time).  Returns the launches of the three parts' runs and the
+    numbers."""
+    import torch
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+    from repro_torch.sim import TraceSet, barrier_schedule
+    from repro_torch.topology.dynamic import ChurnSchedule
+
+    total, out = {}, {}
+
+    def count(launches):
+        for name, k in launches.items():
+            total[name] = total.get(name, 0) + k
+
+    def finite(res, what):
+        if not all(math.isfinite(v) for v in res.loss_curve):
+            raise AssertionError(f"async {what}: non-finite loss "
+                                 f"{res.loss_curve}")
+
+    # (a) the oracle on the card
+    base = dict(arch=opt, n_clients=ASYNC_RING, topology="ring",
+                steps=ASYNC_STEPS, batch_size=B, subcge_tau=ASYNC_TAU,
+                flood_backend="python", device="cuda",
+                churn=ChurnSchedule.leave_rejoin([3], 1, 3))
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sync = run(DTrainConfig(drain=True, **base))
+    t1 = time.perf_counter()
+    ev = run(DTrainConfig(trace=TraceSet.constant(ASYNC_RING), **base))
+    t2 = time.perf_counter()
+    launches = dict(build.LAUNCHES)
+    count(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ledgers = [(r.extra["n_messages"], r.total_bytes, r.extra["sync_bytes"],
+                r.extra["n_syncs"]) for r in (sync, ev)]
+    got, want = ev.extra["final_stacked"], sync.extra["final_stacked"]
+    differ = [p for p, w in want.items()
+              if not torch.equal(got[p].view(torch.int32), w.view(torch.int32))]
+    out["oracle"] = {"sync_s": t1 - t0, "event_s": t2 - t1, "peak_gib": peak,
+                     "ledger": ledgers[1], "losses": ev.loss_curve,
+                     "consensus": ev.consensus_error,
+                     "virtual_time_s": ev.extra["virtual_time_s"],
+                     "launches": launches}
+    log(f"[13] (a) oracle: {opt.name} x {ASYNC_RING} clients, ring, tau "
+        f"{ASYNC_TAU}, {ASYNC_STEPS} steps, client 3 away for steps 1-2: "
+        f"sync (drain) {t1 - t0:.1f} s, event (TraceSet.constant) "
+        f"{t2 - t1:.1f} s; leaves differing {differ}; losses "
+        f"{sync.loss_curve} / {ev.loss_curve}; consensus "
+        f"{sync.consensus_error:.3e} / {ev.consensus_error:.3e}; ledger (msgs,"
+        f" B, sync B, syncs) {ledgers[0]} / {ledgers[1]} (JAX "
+        f"{LEDGER_ASYNC_RING16_CHURN}); virtual time "
+        f"{ev.extra['virtual_time_s']}; peak mem {peak:.2f} GiB; launches "
+        f"{launches} ({card})")
+    finite(ev, "oracle")
+    if differ or sync.loss_curve != ev.loss_curve \
+            or sync.consensus_error != ev.consensus_error:
+        raise AssertionError("async oracle: the event run is not bitwise the "
+                             "synchronous run")
+    if not ledgers[0] == ledgers[1] == LEDGER_ASYNC_RING16_CHURN:
+        raise AssertionError(f"async oracle: ledgers {ledgers} != the JAX "
+                             f"package's {LEDGER_ASYNC_RING16_CHURN}")
+    if ev.extra["virtual_time_s"] != float(ASYNC_STEPS):
+        raise AssertionError(f"async oracle: virtual time "
+                             f"{ev.extra['virtual_time_s']}")
+    del sync, ev, got, want
+    torch.cuda.empty_cache()
+
+    # (b) the paper's grid point under heterogeneity
+    trace = TraceSet.two_speed(PAPER_CLIENTS, **ASYNC_TRACE)
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CohortLog(ASYNC_TAU) as clog:
+        res = run(DTrainConfig(arch=opt, n_clients=PAPER_CLIENTS,
+                               topology=PAPER_TOPOLOGY, steps=ASYNC_STEPS,
+                               batch_size=B, subcge_tau=ASYNC_TAU, trace=trace,
+                               device="cuda"))
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    epochs = dict(build.EPOCH_LAUNCHES)
+    count(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ledger = (res.extra["n_messages"], res.total_bytes)
+    vt = res.extra["virtual_time_s"]
+    cohorts = tuple(v for v, _ in res.extra["loss_vs_virtual_time"])
+    n_cohorts = len(cohorts)
+    # per-client progress on the virtual clock: when each half finished
+    # its last step, beside the barrier schedule of the same trace
+    done_at = {}
+    for (members, t, _), v in zip(clog.steps, cohorts):
+        for i in members:
+            done_at[i] = v
+    fast = [i for i in range(PAPER_CLIENTS) if trace.compute_s[i] ==
+            ASYNC_TRACE["fast_s"]]
+    slow = [i for i in range(PAPER_CLIENTS) if i not in fast]
+    barrier = barrier_schedule(trace, ASYNC_STEPS)
+    e_hist = {}
+    for _, E, _ in clog.replays:
+        e_hist[E] = e_hist.get(E, 0) + 1
+    out["paper"] = {
+        "run_s": wall, "cohort_s": wall / n_cohorts, "n_cohorts": n_cohorts,
+        "cohort_step_s": [s for _, _, s in clog.steps],
+        "cohort_sizes": [len(m) for m, _, _ in clog.steps],
+        "replays": clog.replays, "max_k": max(k for k, _, _ in clog.replays),
+        "e_hist": e_hist, "epoch_launches": epochs, "peak_gib": peak,
+        "ledger": ledger, "virtual_time_s": vt, "cohorts": cohorts,
+        "losses": res.loss_curve, "consensus": res.consensus_error,
+        "valid_loss": res.extra["valid_loss"],
+        "fast_done_s": max(done_at[i] for i in fast),
+        "slow_done_s": max(done_at[i] for i in slow),
+        "barrier_s": barrier[-1], "launches": launches}
+    o = out["paper"]
+    log(f"[13] (b) {opt.name} x {PAPER_CLIENTS} clients, {PAPER_TOPOLOGY}, "
+        f"{res.extra['engine']}, tau {ASYNC_TAU}, {ASYNC_STEPS} steps, "
+        f"two_speed {ASYNC_TRACE}: {wall:.1f} s of wall, {n_cohorts} cohorts "
+        f"({o['cohort_s']:.2f} s each; steps {[round(s, 3) for s in o['cohort_step_s']]}"
+        f" s over {o['cohort_sizes']} clients); replays (K, E, s) "
+        f"{[(k, e, round(s, 3)) for k, e, s in clog.replays]}, largest K "
+        f"{o['max_k']}, E histogram {e_hist}, epoch launches by E {epochs}; "
+        f"losses {res.loss_curve}; consensus {res.consensus_error:.3e}; "
+        f"ledger {ledger} (JAX {LEDGER_ASYNC_MESHGRID64}); virtual time {vt!r}"
+        f" (JAX {VTIME_ASYNC_MESHGRID64!r}); cohorts at {cohorts}; peak mem "
+        f"{peak:.2f} GiB; launches {launches} ({card})")
+    log(f"[13] (b) progress on the virtual clock: the fast half ends step "
+        f"{ASYNC_STEPS} at {o['fast_done_s']} s, the slow half at "
+        f"{o['slow_done_s']} s; the barrier schedule of the same trace ends "
+        f"step {ASYNC_STEPS} at {barrier[-1]} s ({barrier})")
+    finite(res, "paper")
+    if ledger != LEDGER_ASYNC_MESHGRID64:
+        raise AssertionError(f"async paper: ledger {ledger} != the JAX "
+                             f"package's {LEDGER_ASYNC_MESHGRID64}")
+    if vt != VTIME_ASYNC_MESHGRID64 or cohorts != COHORTS_ASYNC_MESHGRID64:
+        raise AssertionError(f"async paper: virtual time {vt!r}, cohorts "
+                             f"{cohorts}")
+    if res.extra["engine"] != "FloodNetwork":
+        raise AssertionError(f"async paper: flood engine {res.extra['engine']}")
+    # every cohort runs both signed forwards over all 64 rows
+    for name, n in (("rank1_matmul", 6 * opt.n_layers * 2 * n_cohorts),
+                    ("rank1_matmul_t", 2 * n_cohorts)):
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"async paper: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {n}")
+    if not any(E >= 2 for E in epochs):
+        raise AssertionError(f"async paper: subcge_apply_epochs never ran "
+                             f"with E >= 2 ({epochs})")
+    if not res.consensus_error < 1e-10:
+        raise AssertionError(f"async paper: consensus error "
+                             f"{res.consensus_error}")
+    if not peak < 80:
+        raise AssertionError(f"async paper: peak memory {peak} GiB")
+    if o["fast_done_s"] != float(ASYNC_STEPS):
+        raise AssertionError(f"async paper: the fast half ended at "
+                             f"{o['fast_done_s']} s")
+    del res
+    torch.cuda.empty_cache()
+
+    # (c) gossip under the same trace
+    trace = TraceSet.two_speed(ASYNC_RING, **ASYNC_TRACE)
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run(DTrainConfig(method="dsgd", arch=opt, n_clients=ASYNC_RING,
+                           topology="ring", steps=ASYNC_STEPS, batch_size=B,
+                           local_iters=2, trace=trace, device="cuda"))
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    count(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    vt = res.extra["virtual_time_s"]
+    out["dsgd"] = {"run_s": wall, "peak_gib": peak,
+                   "total_bytes": res.total_bytes, "virtual_time_s": vt,
+                   "cohorts": [v for v, _ in res.extra["loss_vs_virtual_time"]],
+                   "losses": res.loss_curve,
+                   "consensus": res.consensus_error, "launches": launches}
+    log(f"[13] (c) dsgd: {opt.name} x {ASYNC_RING} clients, ring, a mix "
+        f"every 2 steps, {ASYNC_STEPS} steps, same trace: {wall:.1f} s of "
+        f"wall; losses {res.loss_curve}; consensus "
+        f"{res.consensus_error:.3e}; ledger {res.total_bytes} B (JAX formula "
+        f"{LEDGER_ASYNC_DSGD16}); virtual time {vt!r} (JAX mix-delay formula "
+        f"{VTIME_ASYNC_DSGD16!r}) against seedflood's "
+        f"{out['paper']['virtual_time_s']!r} on the 8 x 8 grid; cohorts at "
+        f"{out['dsgd']['cohorts']}; peak mem {peak:.2f} GiB ({card})")
+    finite(res, "dsgd")
+    if res.total_bytes != LEDGER_ASYNC_DSGD16:
+        raise AssertionError(f"async dsgd: ledger {res.total_bytes} != the "
+                             f"JAX formula's {LEDGER_ASYNC_DSGD16}")
+    if vt != VTIME_ASYNC_DSGD16:
+        raise AssertionError(f"async dsgd: virtual time {vt!r} != "
+                             f"{VTIME_ASYNC_DSGD16!r}")
+    if not peak < 80:
+        raise AssertionError(f"async dsgd: peak memory {peak} GiB")
+    del res
+    torch.cuda.empty_cache()
+    return total, out
 
 
 def serve_prompts(vocab: int) -> list:
@@ -1858,6 +2155,9 @@ def main(argv=None) -> int:
     launches["serve"], details["serve"] = phase_serve(tiny, card,
                                                       args.profile)
 
+    # 13. the event engine at OPT-125M's full width
+    launches["async"], details["async"] = phase_async(opt, B, card)
+
     if args.profile:
         for key, arch, clients, topology in (
                 ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
@@ -1892,7 +2192,7 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 13. report: each kernel over the paths that run it
+    # 14. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

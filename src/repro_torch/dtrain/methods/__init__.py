@@ -9,11 +9,13 @@ non-default values of any other method-specific field instead of dropping
 them on the floor.
 
 The names and the ``consumes`` sets are the JAX package's, less the fields
-the port's config does not have: ``trace``, ``sim_latency_s`` and
-``sim_churn_step_s`` (the event engine), ``kernel_backend`` (the port
-dispatches on the device) and ``batched_step`` (the port runs only the
-batched path).  ``supports_churn`` marks the methods a churn schedule may
-drive: seedflood and the six gossip variants.
+the port's config does not have: ``kernel_backend`` (the port dispatches
+on the device) and ``batched_step`` (the port runs only the batched path).
+The event engine's ``trace`` and ``sim_latency_s`` belong to seedflood and
+the six gossip variants, ``sim_churn_step_s`` to seedflood alone (churn
+under a trace needs the flood substrate); central_zo and gossip_sr reject a
+trace.  ``supports_churn`` marks the methods a churn schedule may drive:
+seedflood and the six gossip variants.
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ def _gossip_spec(name: str, *, zeroth_order: bool, use_lora: bool,
                    else None)
         return GossipMethod(cfg, name, local_cls(), adapter)
 
-    consumes = set()
+    consumes = {"trace", "sim_latency_s"}
     if choco:
         consumes.add("choco_density")
     if use_lora:
@@ -85,7 +87,8 @@ METHOD_SPECS: dict[str, MethodSpec] = {
         name="seedflood", make_method=SeedFloodMethod,
         make_transport=_flood_transport,
         consumes=frozenset({"flood_k", "flood_backend", "epoch_replay",
-                            "drain"}),
+                            "drain", "trace", "sim_latency_s",
+                            "sim_churn_step_s"}),
         supports_churn=True),
     "dsgd": _gossip_spec("dsgd", zeroth_order=False, use_lora=False,
                          choco=False),

@@ -3,8 +3,10 @@
 One step over the stacked client axis:
 
 * ``estimate_and_update`` — every client's ±ε dual forward through the
-  fused rank-1 kernels, its coefficient ``-η·α/n_eff`` (n_eff the online
-  clients, at least 1), and each online client's own rank-r update
+  fused rank-1 kernels, its coefficient ``-η·α/n_eff`` (n_eff the sum of
+  ``active``, at least 1: the online clients, or under the event engine
+  the float cohort weights that sum to them), and each client's own
+  rank-r update where its weight is nonzero
   (``subcge.apply_messages`` → ``subcge_apply``), in place.  An offline
   client applies a coefficient of 0, an exact no-op: this method's offline
   freeze;
@@ -65,9 +67,11 @@ class SeedFloodMethod(MethodBase):
                             pert=pert.with_scale(-scfg.eps))
         alphas = (lp - lm) / (2 * scfg.eps)
         losses = 0.5 * (lp + lm)
-        n_eff = float(max(int(active.sum()), 1))
+        # ``active`` is a boolean mask (the Trainer) or float cohort weights
+        # (the EventTrainer: integer-valued, so the sum is exact)
+        n_eff = float(max(float(np.sum(active)), 1.0))
         coefs = -cfg.lr * alphas / n_eff
-        on = torch.as_tensor(active, device=coefs.device)
+        on = torch.as_tensor(np.asarray(active) > 0, device=coefs.device)
         own = torch.where(on, coefs, torch.zeros_like(coefs))
         with record_function("seedflood.own_update"):
             subcge.apply_messages(stacked, self.meta, scfg, sub,
@@ -84,7 +88,7 @@ class SeedFloodMethod(MethodBase):
         # (C) online clients inject their fresh messages into the flood
         outbox = [(i, Message(seed=int(seeds_np[i]), coef=float(coefs[i]),
                               origin=i, step=t))
-                  for i in range(self.n) if active[i]]
+                  for i in range(self.n) if active[i] > 0]
         return stacked, Outbox(losses=losses.cpu().numpy(), payload=outbox)
 
     @torch.no_grad()

@@ -20,7 +20,16 @@ a Transport and driven by the one ``Trainer``, on any static topology of
 Runs can be subjected to churn (``churn``: a ``ChurnSchedule`` or a
 ``ChurnConfig``; seedflood and the gossip variants) and checkpointed and
 resumed bitwise (``checkpoint_every`` / ``checkpoint_dir`` /
-``resume_from``).
+``resume_from``).  Setting ``trace`` (a ``repro_torch.sim.TraceSet``, a
+trace-JSON dict or a path to one) runs seedflood or a gossip variant on
+the event engine instead (``repro_torch.sim.EventTrainer``): each client
+steps at its trace's rate on a virtual clock and flood messages arrive
+per edge after latency + bytes / bandwidth.
+
+    from repro_torch.sim import TraceSet
+    r = run(DTrainConfig(n_clients=8, steps=4, device="cpu",
+                         trace=TraceSet.two_speed(8, bandwidth_bps=1e9)))
+    r.extra["virtual_time_s"], r.extra["loss_vs_virtual_time"]
 
 The config carries only the fields the port reads.  ``device`` defaults to
 ``"cuda"``; asking for it without a card raises.  The CPU runs the
@@ -36,6 +45,7 @@ from repro_torch.data import synthetic
 from repro_torch.dtrain.api import RunResult, Setup, sim_arch  # noqa: F401  (re-export)
 from repro_torch.dtrain.methods import METHOD_SPECS, MethodSpec
 from repro_torch.dtrain.trainer import Trainer
+from repro_torch.sim import EventTrainer, as_trace, wrap_async
 from repro_torch.topology.dynamic import ChurnSchedule
 
 
@@ -80,6 +90,19 @@ class DTrainConfig:
     checkpoint_every: int = 0
     checkpoint_dir: str = ""
     resume_from: str = ""
+    # event-driven asynchronous runs (DESIGN.md §9): a TraceSet, trace-JSON
+    # dict, or path to one switches the run onto the discrete-event
+    # EventTrainer, where each client steps at its trace rate and flood
+    # messages arrive with per-edge delay.  None keeps the synchronous
+    # barrier loop (with TraceSet.constant defaults the two are bitwise
+    # identical — pinned by tests/test_torch_sim.py)
+    trace: Any = None
+    # extra per-delivery latency added on top of the trace's per-client
+    # propagation terms (one knob for "same trace, slower network")
+    sim_latency_s: float = 0.0
+    # virtual seconds one churn-schedule step index spans; None uses the
+    # trace's median per-step compute time
+    sim_churn_step_s: float | None = None
     device: str = "cuda"
 
 
@@ -87,7 +110,8 @@ class DTrainConfig:
 #: for a field outside its method's ``consumes`` set is a config error, not
 #: a silent no-op.
 _METHOD_FIELDS = ("momentum", "choco_density", "flood_k", "flood_backend",
-                  "epoch_replay", "drain", "lora_r", "lora_alpha")
+                  "epoch_replay", "drain", "lora_r", "lora_alpha", "trace",
+                  "sim_latency_s", "sim_churn_step_s")
 
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(DTrainConfig)}
 
@@ -99,7 +123,10 @@ def validate_config(cfg: DTrainConfig, spec: MethodSpec | None = None) -> None:
     the chosen method does not consume (e.g. ``momentum`` outside
     ``central_zo``, ``choco_density`` outside the choco variants,
     ``flood_k`` outside ``seedflood``), for churn on a static-only method,
-    and for checkpoint settings that would write nothing.
+    for event-engine settings the run cannot honour (the ``sim_*`` fields
+    without a trace; a trace with checkpoints, ``flood_k``, the legacy
+    replay, the bitset engine, ``drain``, or churn under gossip), and for
+    checkpoint settings that would write nothing.
     """
     if spec is None:
         if cfg.method not in METHOD_SPECS:
@@ -118,6 +145,33 @@ def validate_config(cfg: DTrainConfig, spec: MethodSpec | None = None) -> None:
                 f"ignored (only {users} read it)")
     if cfg.churn is not None and not spec.supports_churn:
         raise ValueError(f"method '{spec.name}' does not support churn")
+    if cfg.trace is None:
+        if cfg.sim_latency_s != 0.0 or cfg.sim_churn_step_s is not None:
+            raise ValueError(
+                "sim_latency_s/sim_churn_step_s only apply to event-driven "
+                "runs and would be silently ignored — set 'trace' as well")
+    else:
+        if cfg.checkpoint_every or cfg.resume_from:
+            raise ValueError("event-driven runs do not support "
+                             "checkpoint/resume yet")
+        if cfg.flood_k is not None:
+            raise ValueError("flood_k has no meaning under per-edge "
+                             "timestamped delivery — unset it for trace runs")
+        if not cfg.epoch_replay:
+            raise ValueError("event-driven runs require epoch_replay=True: "
+                             "arbitrarily stale arrivals are only exact "
+                             "under sender-epoch replay")
+        if cfg.flood_backend == "numpy":
+            raise ValueError("the numpy bitset flood engine is "
+                             "round-synchronous; event-driven runs need "
+                             "flood_backend='python' (or 'auto')")
+        if cfg.drain:
+            raise ValueError("event-driven runs always drain — "
+                             "'drain' would be silently ignored")
+        if cfg.churn is not None and spec.name != "seedflood":
+            raise ValueError(f"method '{spec.name}' cannot combine churn "
+                             "with a trace (gossip mixing is a barrier over "
+                             "all clients)")
     if cfg.checkpoint_every and not cfg.checkpoint_dir:
         raise ValueError("checkpoint_every requires checkpoint_dir")
     if cfg.checkpoint_dir and not cfg.checkpoint_every:
@@ -136,9 +190,27 @@ def _churn_schedule(cfg: DTrainConfig) -> ChurnSchedule | None:
                     f"got {type(cfg.churn).__name__}")
 
 
+def _run_event(spec: MethodSpec, cfg: DTrainConfig) -> RunResult:
+    """Trace-clocked asynchronous run: same Method, async-adapted Transport,
+    EventTrainer loop (DESIGN.md §9)."""
+    trace = as_trace(cfg.trace, cfg.n_clients)
+    if "flood_backend" in spec.consumes:
+        # the event engine delivers per edge; only the per-message engine
+        # supports that ("auto" would pick the bitset engine at scale)
+        cfg = dataclasses.replace(cfg, flood_backend="python")
+    setup = Setup(cfg)
+    method = spec.make_method(cfg)
+    transport = wrap_async(spec.make_transport(cfg, setup), trace,
+                           cfg.sim_latency_s)
+    return EventTrainer(cfg, setup, method, transport, trace,
+                        churn=_churn_schedule(cfg)).run()
+
+
 def run(cfg: DTrainConfig) -> RunResult:
     validate_config(cfg)
     spec = METHOD_SPECS[cfg.method]
+    if cfg.trace is not None:
+        return _run_event(spec, cfg)
     setup = Setup(cfg)
     method = spec.make_method(cfg)
     transport = spec.make_transport(cfg, setup)

@@ -50,8 +50,7 @@ TASK = dict(vocab=256, n_valid=8, n_test=64)
 RUN = dict(n_clients=4, steps=3, batch_size=2, local_iters=1, subcge_rank=4,
            subcge_tau=2)
 #: fields the port's config does not have, left out of its ``consumes``
-DROPPED = {"trace", "sim_latency_s", "sim_churn_step_s", "kernel_backend",
-           "batched_step"}
+DROPPED = {"kernel_backend", "batched_step"}
 
 
 def _runs(method, **kw):
