@@ -26,8 +26,10 @@ no result line):
              ``copy_`` of the same W; the scan's backward
              (``selective_scan_bwd``) at the scan shapes of phase 9's
              first-order arms (4 and 3 clients x 8 sequences, T 33, D 8192,
-             N 16)
-             and at small odd shapes, bitwise across two calls; da, dbx and
+             N 16), at T = 197 past its 64-step chunk (the checkpointed
+             path) and at small odd shapes, with its plan, the bytes its
+             design moves and the TB/s it reaches, bitwise across two
+             calls; da, dbx and
              dh0 held against the plain reverse scan and autograd of the
              plain forward, dc (a sum over D = 8192) against a float64
              oracle at the same tolerance, its distance to the plain
@@ -674,13 +676,36 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
     # clients folded into the batch; the unit is dsgd's), and at small odd
     # shapes
     (_, c_dsgd), (_, c_choco) = FO_MAMBA_ARMS
+    for rep in ptxas_report("selective_scan_bwd"):
+        log(f"    ptxas selective_scan_bwd: {rep}")
     check_scan_bwd(entries["selective_scan_bwd"], (c_dsgd * B, T, Di, N),
                    randn)
-    for shape in ((c_choco * B, T, Di, N), (3, 37, 200, N), (2, 7, 8, 4),
-                  (2, 9, 40, 1), (1, 5, 24, 32)):
+    # choco's unit; T past a chunk at the full width (the checkpointed
+    # path, 4 chunks); small odd shapes, one of them D·N = 74 (rows not
+    # 16-byte aligned: the masked copies)
+    chunk = ss.BWD_CHUNK
+    for shape in ((c_choco * B, T, Di, N), (4, 3 * chunk + 5, Di, N),
+                  (3, 37, 200, N), (2, 7, 8, 4), (2, 9, 40, 1), (1, 5, 24, 32),
+                  (2, 11, 37, 2)):
         check_scan_bwd(entries["selective_scan_bwd"], shape, randn,
                        summed=False)
     return entries
+
+
+def scan_bwd_design_bytes(plan, B: int, T: int, D: int, N: int) -> int:
+    """HBM bytes the backward's design moves at (B, T, D, N) under
+    ``plan``: a and bx read once, da and dbx written once, dy, c, h0,
+    dh_last read, dc and dh0 written, the float64 dc partials written and
+    read back; past a chunk also the pre-pass (a and bx up to the last
+    checkpoint), the checkpoints written and read, and the carry parked in
+    dh0 between chunks, written and read."""
+    BDN = B * D * N
+    nbytes = 4 * (4 * B * T * D * N + B * T * D + 2 * B * T * N + 3 * BDN)
+    nbytes += 2 * 8 * B * T * plan.partials * N
+    if plan.chunks > 1:
+        nbytes += 4 * 2 * B * (plan.chunks - 1) * plan.chunk * D * N
+        nbytes += 2 * 2 * 4 * (plan.chunks - 1) * BDN
+    return nbytes
 
 
 def check_scan_bwd(e: Entry, shape, randn, summed: bool = True) -> None:
@@ -730,10 +755,16 @@ def check_scan_bwd(e: Entry, shape, randn, summed: bool = True) -> None:
     p_ms = time_ms(lambda: ss.selective_scan_bwd_plain(*args), 3, 1)
     BTDN = Bs * Ts * D * N
     # what the function must move, once each (4 B): a, bx, c, h0, dy and
-    # dh_last in; da, dbx, dc and dh0 out.  The kernel's own traffic (h
-    # parked in da, dc's float64 block partials) is its design's, not the
-    # function's, and is left out
+    # dh_last in; da, dbx, dc and dh0 out.  The kernel's own traffic (dc's
+    # float64 block partials; past a chunk the checkpoints) is its
+    # design's, not the function's, and is left out of the bound
     nbytes = 4 * (4 * BTDN + 2 * Bs * Ts * N + 3 * Bs * D * N + Bs * Ts * D)
+    plan = ss.scan_bwd_plan(*shape)
+    moved = scan_bwd_design_bytes(plan, *shape)
+    log(f"    scan bwd {shape}: plan {plan}; the design moves {moved} B "
+        f"({moved / BTDN:.2f} B per state element), the function {nbytes} B;"
+        f" {moved / ms / 1e9:.3f} TB/s moved, {nbytes / ms / 1e9:.3f} TB/s "
+        f"of the function's bytes, in {ms:.4f} ms")
     flops = 8 * BTDN
     target = e if summed else Entry(e.name)
     target.add_checked((err, want_max), ms, p_ms, None, nbytes, flops,

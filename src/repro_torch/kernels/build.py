@@ -47,9 +47,8 @@ _SIGNATURES = {
     "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 11 + [_L] * 2
                      + [_P]},
     "selective_scan": {"selective_scan_f32": [_P] * 6 + [_I] * 4 + [_P]},
-    "selective_scan_bwd": {"selective_scan_bwd_f32": [_P] * 11 + [_I] * 4
-                           + [_P],
-                           "selective_scan_bwd_blocks": [_I] * 2},
+    "selective_scan_bwd": {"selective_scan_bwd_f32": [_P] * 12 + [_I] * 10
+                           + [_P]},
 }
 
 

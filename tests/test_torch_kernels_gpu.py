@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import selective_scan as sscan  # noqa: E402
 
 RTOL = ATOL = 1e-5
 
@@ -427,11 +428,17 @@ def test_selective_scan_refuses_a_gradient(cuda):
                                    rtol=RTOL, atol=ATOL)
 
 
-# (B, T, D, N): off the 8-step prefetch and the 256-thread block, every
-# state size the kernel takes, and Falcon Mamba's N = 16 at a wide D
+_CHUNK = sscan.BWD_CHUNK
+# (B, T, D, N): off the 8-step prefetch and the 128-column tile, every
+# state size the kernel takes, and Falcon Mamba's N = 16 at a wide D; T = 1,
+# T = chunk (one chunk), chunk + 1 and 3 chunks + 5 (the checkpointed
+# path, 2 and 4 chunks), and D·N = 74, whose rows are not 16-byte aligned
+# (the masked copies)
 SCAN_BWD_SHAPES = [(2, 7, 8, 4), (3, 37, 200, 16), (2, 9, 40, 1),
                    (1, 5, 24, 32), (2, 13, 72, 2), (1, 6, 64, 8),
-                   (4, 33, 1024, 16)]
+                   (4, 33, 1024, 16), (3, 1, 200, 16), (2, _CHUNK, 72, 16),
+                   (2, _CHUNK + 1, 72, 16), (2, 3 * _CHUNK + 5, 72, 16),
+                   (2, 11, 37, 2)]
 
 
 @pytest.mark.gpu
