@@ -102,7 +102,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = pair21.build_parent()
     measure(lib, "alone")
-    cs.phase_kernels(archs.get("qwen1.5-0.5b"), 8, 8 * 33)
+    cs.phase_kernels_dense(archs.get("qwen1.5-0.5b"), 8, 8 * 33, 0, "qwen",
+                           (2, 4))
     torch.cuda.empty_cache()
     cs.phase_kernels_kimi(archs.kimi_cut(), 8, 8 * 33)
     torch.cuda.empty_cache()

@@ -11,8 +11,10 @@ no result line):
              registers, spills and shared memory from the ``ptxas``
              report; TF32 off everywhere.
 2. kernels — every kernel of the main paths at the Qwen1.5-0.5B, Kimi K2,
-             Falcon Mamba 7B and OPT-125M (64 clients) shapes the paths
-             give it, held against its
+             Falcon Mamba 7B, OPT-125M (64 clients), Gemma 3 1B (8
+             clients; the tied logits at N = 262,144) and Qwen2-72B cut
+             (4 clients; the untied logits at K = 8192, N = 152,064)
+             shapes the paths give it, held against its
              plain PyTorch version (rtol 1e-5, atol 1e-5, float32) and timed
              with CUDA events beside the plain version, one PyTorch library
              call computing the same function (none for the scan), and the
@@ -20,9 +22,9 @@ no result line):
              library call and share of the bound are printed, and each
              unit's sums); the rank-1 products and the update kernel (E <= 2)
              are also held bitwise equal across two calls; the update kernel
-             runs at every matrix leaf of all four paths and of one
-             TinyLlama-1.1B (the serving fold, client axis 1, E = 2 summed
-             and E = 1 printed), beside a
+             runs at every matrix leaf of all six paths and of one
+             TinyLlama-1.1B and one Gemma 3 1B (the serving folds, client
+             axis 1, E = 2 summed and E = 1 printed), beside a
              ``copy_`` of the same W; the scan's backward
              (``selective_scan_bwd``) at the scan shapes of phase 9's
              first-order arms (4 and 3 clients x 8 sequences, T 33, D 8192,
@@ -140,11 +142,34 @@ no result line):
              steps: the JAX formula's ledger and mix-delay virtual time.
              Phase 2 also checks the replay at OPT-125M's 64-client leaves
              with E = 2.
-14. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+14. gemma  — Gemma 3 1B whole (26 layers in two groups: 4 periods of 5
+             local slots with a 512-token window and 1 global, then 2
+             local; d1152, 4 heads of 256 over 1 kv head, ff 6912 gated
+             tanh-gelu, vocab 262,144 tied), random float32 weights from
+             seed 0: (a) the main path, 8 clients on a ring, B 8, T 33, 3
+             steps: the JAX ledger, 1,092 ``rank1_matmul`` and 6
+             ``rank1_matmul_t`` launches, consensus < 1e-10, peak under 80
+             GiB; (b) the window binds: 4 clients on a ring, B 2, 641
+             tokens, 2 steps, the JAX ledger of a ring of 4, and on one
+             model's weights the loss with the windows differs from the
+             loss without them; (c) serving past the window: 8 greedy
+             requests of 520-700 prompt tokens and 32 new through 8 slots
+             over pages of 16 equal their monolithic streams (rings of 512
+             in the local slots) token for token, and one of them a
+             no-cache recompute; then a live fold at C = 1, E = 2 equals
+             the offline fold, as in phase 12 (c).
+15. qwen2  — the same entry point on the Qwen2-72B cut: every published
+             width (d8192, 64 heads of 128 over 8 kv heads, QKV bias, ff
+             29,568) and the untied vocabulary of 152,064, 1 of 80 layers,
+             4 clients on a ring, 3 steps: the JAX ledger, 48
+             ``rank1_matmul`` launches (the untied logits among them),
+             consensus < 1e-10, peak under 80 GiB.
+16. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-of each slice, of the paper's setting, of each phase-9 baseline and
+of each slice (Gemma 3 1B's too), of the paper's setting, of each phase-9
+baseline and
 first-order Mamba arm, of phase 10's rejoin step (host spans,
 device-busy time and share, device launches, top kernels, and the
 hand-written kernels that ran, by name), and of one steady decode step of
@@ -239,6 +264,25 @@ COHORTS_ASYNC_MESHGRID64 = (1.0, 2.0, 3.0, 4.0, 4.0, 8.0, 12.0, 16.0)
 # per edge at 1 Gbit/s
 LEDGER_ASYNC_DSGD16 = 2 * DSGD_EXCHANGE_BYTES
 VTIME_ASYNC_DSGD16 = 24.132340992
+# phase 14: Gemma 3 1B whole (random float32 weights from seed 0).  (b) the
+# window binds: 4 clients on a ring, B 2, 640 tokens and the label slot, 2
+# steps, a short evaluation (at 128 rows of 641 tokens the logits alone
+# would be 86 GB); what the JAX FloodTransport charges a ring of 4
+# (tests/test_torch_slice.py derives it from the JAX transport)
+GEMMA_ARCH = "gemma3-1b"
+LONG_CLIENTS, LONG_B, LONG_STEPS = 4, 2, 2
+LONG_TASK = dict(seq_len=640, n_valid=8, n_test=8)
+LEDGER_RING4_2STEPS = (56, 448)
+# (c) serving past the window: 8 greedy requests of 520-700 prompt tokens
+# (every one past the 512-token window) and SERVE_NEW new, through 8 slots
+# over pages of 16; the monolithic reference decodes over rings of 768
+# (512 in the local slots)
+GEMMA_SERVE = dict(max_batch=8, page_size=16, max_seq=768, n_pages=384)
+GEMMA_REQUESTS, GEMMA_PROMPT = 8, (520, 700)
+# phase 15: the Qwen2-72B cut (archs.qwen2_cut: 1 of 80 layers, every width,
+# the untied 152,064 vocabulary), 4 clients on a ring, 3 steps
+QWEN2_CLIENTS = 4
+LEDGER_RING4_3STEPS = (88, 704)
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -258,6 +302,9 @@ SOURCES = {
 }
 # batch of the final accuracy pass (``data.synthetic.accuracy``)
 EVAL_BATCH = 128
+# the slices' runs: clients on a ring and sequences per client (32 tokens and
+# the label slot each)
+SLICE_CLIENTS, SLICE_B = 8, 8
 # the update check compares the kernel's result with the plain version on
 # slices of W of at most this many bytes (the kernel runs on the whole leaf)
 CHECK_SLICE_BYTES = 2 * 2**30
@@ -529,42 +576,48 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_kernels(qwen, C: int, M: int) -> dict:
-    """Each kernel at the main path's Qwen1.5-0.5B shapes, summed over the
-    shapes one training step gives it (one layer's seven projections, the
-    logits, one update of every matrix leaf)."""
+def run_slice(arch, what, phase, card: str, clients: int = SLICE_CLIENTS,
+              topology="ring", ledger=LEDGER_RING8_3STEPS,
+              engine="FloodNetwork", steps: int = 3, batch: int = SLICE_B,
+              task=None):
+    """``steps`` SeedFlood steps through ``run`` (3 steps of 8 clients on a
+    ring, B 8, T 33, unless told otherwise), launch counters zeroed just
+    before and read just after; returns the launches and the run's
+    numbers."""
     import torch
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=g, device=dev) * scale
-
-    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_t",
-                                     "subcge_apply", "subcge_apply_epochs")}
-    # the delayed-flood shapes (E >= 2) are checked and printed, not summed
-    # into the main path's entry
-    extra = {E: Entry("subcge_apply_epochs") for E in (2, 4)}
-    d, ff, V = qwen.d_model, qwen.groups[0].slots[0].d_ff, qwen.vocab
-
-    # rank1_matmul: the seven projections of one layer, all clients
-    check_rank1(entries["rank1_matmul"], C, M,
-                (((d, d), 4), ((d, ff), 2), ((ff, d), 1)), randn)
-
-    # rank1_matmul_t: the tied logits
-    check_rank1(entries["rank1_matmul_t"], C, M, (((d, V), 1),), randn,
-                trans=True)
-
-    # subcge_apply (own update) and subcge_apply_epochs (replay, E = 2, 4):
-    # every matrix leaf of the stacked client params
-    leaves = update_leaves(qwen, C)
-    for name, E in (("subcge_apply", 1), ("subcge_apply_epochs", 1),
-                    ("subcge_apply_epochs", 2), ("subcge_apply_epochs", 4)):
-        check_update(entries[name] if E == 1 else extra[E], leaves, E, randn)
-    for E, ex in extra.items():
-        log(f"[2] qwen E={E} (delayed replay, not summed) {ex.line()}")
-    return entries
+    from repro_torch.data import synthetic
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run(DTrainConfig(arch=arch, n_clients=clients,
+                           topology=topology, steps=steps,
+                           batch_size=batch, task=task, device="cuda"))
+    launches = dict(build.LAUNCHES)
+    wall = time.perf_counter() - t0
+    check_run(res, ledger, what, engine)
+    steady = res.extra["step_wall_s"]
+    out = {"step_ms": 1e3 * sum(steady) / len(steady),
+           "steady_step_s": steady, "first_step_ms": 1e3 * res.compile_wall_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "n_params": res.extra["n_params"], "losses": res.loss_curve,
+           "gmp": res.gmp, "valid_loss": res.extra["valid_loss"],
+           "consensus": res.consensus_error, "run_s": wall,
+           "launches": launches}
+    log(f"[{phase}] {what}: {arch.name} ({out['n_params']} params) x "
+        f"{clients} clients, {topology}, {res.extra['engine']}, {steps} "
+        f"steps of {batch} x "
+        f"{(task or synthetic.TaskConfig()).seq_len + 1} tokens in "
+        f"{wall:.1f} s; losses {res.loss_curve}; consensus "
+        f"{res.consensus_error:.3e}; gmp {res.gmp}; valid_loss "
+        f"{out['valid_loss']}; ledger {res.extra['n_messages']} msgs / "
+        f"{res.total_bytes} B; first step {out['first_step_ms']:.1f} ms, "
+        f"steady step {out['step_ms']:.1f} ms ({steady}); peak mem "
+        f"{out['peak_gib']:.2f} GiB; launches {launches} ({card})")
+    del res
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
@@ -774,38 +827,6 @@ def check_scan_bwd(e: Entry, shape, randn, summed: bool = True) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_kernels_opt(opt, C: int, M: int) -> dict:
-    """The four kernels of the paper-setting path at OPT-125M's shapes for
-    C = 64 clients, summed over what one training step gives each: one
-    layer's six projections (wq, wk, wv, wo of 768 -> 768, w1 768 -> 3072,
-    w2 3072 -> 768), the tied logits (W (50272, 768)), and one update of
-    every matrix leaf (``embed/tok`` alone is 64 x 50272 x 768 floats, past
-    2^31, checked in slices).  The replay at E = 2 (phase 13's stale
-    arrivals across a τ boundary) is checked and printed, not summed."""
-    import torch
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=g, device=dev) * scale
-
-    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_t",
-                                     "subcge_apply", "subcge_apply_epochs")}
-    d, ff, V = opt.d_model, opt.groups[0].slots[0].d_ff, opt.vocab
-    check_rank1(entries["rank1_matmul"], C, M,
-                (((d, d), 4), ((d, ff), 1), ((ff, d), 1)), randn)
-    check_rank1(entries["rank1_matmul_t"], C, M, (((d, V), 1),), randn,
-                trans=True)
-    leaves = update_leaves(opt, C)
-    for name in ("subcge_apply", "subcge_apply_epochs"):
-        check_update(entries[name], leaves, 1, randn)
-    two = Entry("subcge_apply_epochs")
-    check_update(two, leaves, 2, randn)
-    log(f"[2] opt E=2 (not summed) {two.line()}")
-    return entries
-
-
 def phase_kernels_baselines(opt, C: int, M: int) -> dict:
     """The four kernels at the shapes the phase-9 baselines give them, per
     steady step: central_zo's dual forward over one OPT-125M expanded to C
@@ -834,11 +855,12 @@ def phase_kernels_baselines(opt, C: int, M: int) -> dict:
     return entries
 
 
-def phase_kernels_serve(arch) -> dict:
+def phase_kernels_serve(arch, tag: str = "serve") -> dict:
     """The update kernel at the serving fold's shapes: every matrix leaf of
-    ONE TinyLlama-1.1B (client axis 1), as ``LiveUpdateBridge.fold``
-    launches it once per leaf.  E = 2 (phase 12's fold: two τ-epochs) is
-    the main path's and is summed; E = 1 is checked and printed."""
+    ONE model (client axis 1; TinyLlama-1.1B for phase 12, Gemma 3 1B for
+    phase 14), as ``LiveUpdateBridge.fold`` launches it once per leaf.
+    E = 2 (the folds of phases 12 and 14: two τ-epochs) is the main
+    path's and is summed; E = 1 is checked and printed."""
     import torch
 
     dev = torch.device("cuda")
@@ -852,7 +874,57 @@ def phase_kernels_serve(arch) -> dict:
     leaves = update_leaves(arch, 1)
     check_update(one, leaves, 1, randn)
     check_update(entries["subcge_apply_epochs"], leaves, SERVE_FOLD_E, randn)
-    log(f"[2] serve E=1 (not summed) {one.line()}")
+    log(f"[2] {tag} E=1 (not summed) {one.line()}")
+    return entries
+
+
+def phase_kernels_dense(arch, C: int, M: int, seed: int, tag: str,
+                        extra: tuple = ()) -> dict:
+    """The four kernels of a dense decoder's SeedFlood path at ``arch``'s
+    shapes for C clients (Qwen1.5-0.5B, OPT-125M at 64 clients, Gemma 3
+    1B, the Qwen2-72B cut), summed over what one training step gives each:
+    one layer's projections (wq, wk, wv, wo, w1, w3 when gated, w2) and,
+    for an untied head, the logits (``rank1_matmul``), the tied logits
+    (``rank1_matmul_t``), one update of every matrix leaf by the own
+    update (``subcge_apply``) and by the replay (``subcge_apply_epochs``,
+    E = 1).  Every slot of these decoders has the same widths (Gemma's
+    local and global slots differ only in their window).  The replay at
+    each E of ``extra`` (delayed flooding, stale arrivals across τ-epochs)
+    is checked and printed, not summed.  OPT-125M's ``embed/tok`` alone is
+    64 x 50272 x 768 floats, past 2^31: the update is checked in slices."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    slot = arch.groups[0].slots[0]
+    a, d, ff = slot.attn, arch.d_model, slot.d_ff
+    q, kv = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
+    names = ["rank1_matmul", "subcge_apply", "subcge_apply_epochs"]
+    if arch.tie_embeddings:
+        names.insert(1, "rank1_matmul_t")
+    entries = {n: Entry(n) for n in names}
+    # one timed shape per distinct (K, N), counted as often as the layer
+    # uses it
+    layer: dict = {}
+    for shape in ([(d, q), (d, kv), (d, kv), (q, d), (d, ff)]
+                  + [(d, ff)] * arch.gated_mlp + [(ff, d)]
+                  + [(d, arch.vocab)] * (not arch.tie_embeddings)):
+        layer[shape] = layer.get(shape, 0) + 1
+    check_rank1(entries["rank1_matmul"], C, M, tuple(layer.items()), randn)
+    if arch.tie_embeddings:
+        check_rank1(entries["rank1_matmul_t"], C, M, (((d, arch.vocab), 1),),
+                    randn, trans=True)
+    leaves = update_leaves(arch, C)
+    for name in ("subcge_apply", "subcge_apply_epochs"):
+        check_update(entries[name], leaves, 1, randn)
+    for E in extra:
+        ex = Entry("subcge_apply_epochs")
+        check_update(ex, leaves, E, randn)
+        log(f"[2] {tag} E={E} (not summed) {ex.line()}")
     return entries
 
 
@@ -1536,19 +1608,22 @@ def phase_async(opt, B: int, card: str):
     return total, out
 
 
-def serve_prompts(vocab: int) -> list:
-    """Phase 12's request script: SERVE_REQUESTS prompts whose lengths are
-    drawn from seed 0 between SERVE_PROMPT[0] and SERVE_PROMPT[1] tokens."""
+def serve_prompts(vocab: int, n: int = SERVE_REQUESTS,
+                  lens: tuple = SERVE_PROMPT) -> list:
+    """A request script (phase 12's by default): n prompts whose lengths
+    are drawn from seed 0 between lens[0] and lens[1] tokens."""
     import numpy as np
     rng = np.random.default_rng(SERVE_SEED)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    lens = rng.integers(lens[0], lens[1] + 1, n)
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def monolithic_stream(arch, params, prompt, n_new: int, fold_at=None):
+def monolithic_stream(arch, params, prompt, n_new: int, fold_at=None,
+                      capacity: int = SERVE_GEOMETRY["max_seq"]):
     """One request's greedy stream through the monolithic steps of
-    ``launch/steps.py``: prefill and a decode loop over a ring cache of
-    SERVE_GEOMETRY["max_seq"] positions, switching
+    ``launch/steps.py``: prefill and a decode loop over ring caches of
+    ``capacity`` positions (a sliding-window slot's: of its window, if
+    shorter), switching
     to ``fold_at[i]`` at decode-step boundary i (0 = before the prefill).
     Returns the tokens, the smallest gap between the two largest logits of
     any step (how far the stream is from an argmax tie) and the logits
@@ -1556,7 +1631,7 @@ def monolithic_stream(arch, params, prompt, n_new: int, fold_at=None):
     import torch
     from repro_torch.launch import steps as steplib
     fold_at = fold_at or {}
-    prefill = steplib.build_prefill_step(arch, 1, SERVE_GEOMETRY["max_seq"])
+    prefill = steplib.build_prefill_step(arch, 1, capacity)
     decode = steplib.build_decode_step(arch)
 
     def view(p):
@@ -1675,6 +1750,95 @@ def own_weights_differ(arch, scfg, seed: int, servers, folds) -> dict:
     return out
 
 
+def serve_fold(arch, base, prompts, geometry: dict, capacity: int, greedy,
+               card: str, tag: str) -> tuple:
+    """A live-update fold at a step boundary against the offline fold: the
+    messages of SERVE_FOLD_CLIENTS trainer clients over SERVE_FOLD_STEPS
+    steps at tau = 1 (so E = 2) folded through a ``LiveUpdateBridge`` at
+    the start of server step SERVE_FOLD_AT while ``prompts`` decode (rid =
+    index) over ``geometry``.  The folded weights must be bitwise the
+    offline fold's, the streams the monolithic ones (rings of ``capacity``)
+    under the same fold, token for token, and the fold one E = 2
+    ``subcge_apply_epochs`` launch per matrix leaf.  ``greedy``: the
+    unfolded streams (the tokens the fold moved are counted).  Every
+    request takes a slot at step 1, so the fold lands at the same decode
+    step of each.  Returns the serve run's launches and the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core.seeds import client_seeds
+    from repro_torch.core.subcge import SubCGEConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import subcge_meta
+    from repro_torch.serve import LiveUpdateBridge, ServeConfig
+
+    if len(prompts) > geometry["max_batch"]:
+        raise ValueError(f"{tag}: more requests than slots")
+    scfg = SubCGEConfig(rank=SERVE_RANK, refresh_period=1)
+    msgs = [np.concatenate(a) for a in zip(*(
+        (client_seeds(SERVE_SEED, t, SERVE_FOLD_CLIENTS),
+         np.float32([0.01 / (1 + t + i) for i in range(SERVE_FOLD_CLIENTS)]),
+         np.full(SERVE_FOLD_CLIENTS, t, np.int32))
+        for t in range(SERVE_FOLD_STEPS)))]
+    own = {k: t.clone() for k, t in base.items()}
+    bridge = LiveUpdateBridge(arch, scfg, SERVE_SEED, 0)
+    fold_ms = []
+    fold = bridge.fold
+
+    def timed_fold(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fold(params)
+        torch.cuda.synchronize()
+        fold_ms.append(1e3 * (time.perf_counter() - t0))
+        return params
+    bridge.fold = timed_fold
+
+    def ingest(srv):
+        if srv.n_steps == SERVE_FOLD_AT - 1:
+            bridge.ingest_arrays(*msgs)
+    build.reset_launches()
+    live, lst, _ = serve_run(arch, own, prompts, ServeConfig(**geometry),
+                             bridge=bridge, before_step=ingest)
+    fold_launches = dict(build.LAUNCHES)
+    epochs = dict(build.EPOCH_LAUNCHES)
+    folded = {k: t.clone() for k, t in base.items()}
+    offline = LiveUpdateBridge(arch, scfg, SERVE_SEED, 0)
+    offline.ingest_arrays(*msgs)
+    offline.fold(folded)
+    differ = [k for k, t in folded.items()
+              if not torch.equal(own[k].view(torch.int32),
+                                 t.view(torch.int32))]
+    del own
+    ref_c = {rid: monolithic_stream(arch, base, p, SERVE_NEW,
+                                    {SERVE_FOLD_AT: folded}, capacity)[0]
+             for rid, p in enumerate(prompts)}
+    del folded
+    bad = [rid for rid in ref_c if live[rid] != ref_c[rid]]
+    moved = sum(a != b for rid in live for a, b in zip(live[rid],
+                                                       greedy[rid]))
+    n_matrix = sum(m.is_matrix for m in subcge_meta(tf.arch_spec(arch)).values())
+    out = {"fold_ms": fold_ms, "launches": fold_launches,
+           "epoch_launches": epochs, "differ": bad, "leaves_differ": differ,
+           "moved_vs_greedy": moved, "stats": lst}
+    log(f"[{tag}] live update: {SERVE_FOLD_CLIENTS} clients x "
+        f"{SERVE_FOLD_STEPS} steps at tau 1 folded at step {SERVE_FOLD_AT} "
+        f"in {fold_ms} ms; launches {fold_launches}, epoch launches by E "
+        f"{epochs} ({n_matrix} matrix leaves); live vs offline fold: "
+        f"{len(bad)} streams and {len(differ)} leaves differ (must be 0); "
+        f"{moved} tokens moved from the unfolded greedy streams ({card})")
+    if bad or differ:
+        raise AssertionError(f"{tag}: decoding under a live fold differs from "
+                             f"the offline fold (streams {bad}, leaves "
+                             f"{differ})")
+    if fold_launches.get("subcge_apply_epochs") != n_matrix \
+            or epochs != {SERVE_FOLD_E: n_matrix} or len(fold_ms) != 1:
+        raise AssertionError(f"{tag}: the fold launched {fold_launches} "
+                             f"({epochs}), not one E={SERVE_FOLD_E} update "
+                             f"per matrix leaf")
+    return fold_launches, out
+
+
 def profile_step(fn) -> dict:
     """Device-busy share, device launches and top kernels of one ``fn()``
     (host wall around it, synchronised) under torch.profiler."""
@@ -1710,15 +1874,12 @@ def phase_serve(arch, card: str, profile: bool):
     the JAX ledger.  Returns the launches (counts zeroed before (c) and (d)
     and read after each) and the numbers."""
     import collections
-    import numpy as np
     import torch
-    from repro_torch.core.seeds import client_seeds
     from repro_torch.core.subcge import SubCGEConfig
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
-    from repro_torch.models.params import n_params, subcge_meta
-    from repro_torch.serve import LiveUpdateBridge, Request, ServeConfig, \
-        ServeSwarmSim
+    from repro_torch.models.params import n_params
+    from repro_torch.serve import Request, ServeConfig, ServeSwarmSim
     from repro_torch.topology.dynamic import ChurnSchedule
 
     out, launches = {}, collections.Counter()
@@ -1788,71 +1949,11 @@ def phase_serve(arch, card: str, profile: bool):
         raise AssertionError("serve: temperature sampling does not replay")
 
     # (c) a live-update fold at a step boundary against the offline fold
-    scfg = SubCGEConfig(rank=SERVE_RANK, refresh_period=1)
     n_fold = SERVE_GEOMETRY["max_batch"]
-    msgs = [np.concatenate(a) for a in zip(*(
-        (client_seeds(SERVE_SEED, t, SERVE_FOLD_CLIENTS),
-         np.float32([0.01 / (1 + t + i) for i in range(SERVE_FOLD_CLIENTS)]),
-         np.full(SERVE_FOLD_CLIENTS, t, np.int32))
-        for t in range(SERVE_FOLD_STEPS)))]
-    own = {k: t.clone() for k, t in base.items()}
-    bridge = LiveUpdateBridge(arch, scfg, SERVE_SEED, 0)
-    fold_ms = []
-    fold = bridge.fold
-
-    def timed_fold(params):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fold(params)
-        torch.cuda.synchronize()
-        fold_ms.append(1e3 * (time.perf_counter() - t0))
-        return params
-    bridge.fold = timed_fold
-
-    def ingest(srv):
-        if srv.n_steps == SERVE_FOLD_AT - 1:
-            bridge.ingest_arrays(*msgs)
-    build.reset_launches()
-    live, lst, _ = serve_run(arch, own, prompts[:n_fold],
-                             ServeConfig(**SERVE_GEOMETRY), bridge=bridge,
-                             before_step=ingest)
-    fold_launches = dict(build.LAUNCHES)
-    epochs = dict(build.EPOCH_LAUNCHES)
-    launches.update(build.LAUNCHES)
-    folded = {k: t.clone() for k, t in base.items()}
-    offline = LiveUpdateBridge(arch, scfg, SERVE_SEED, 0)
-    offline.ingest_arrays(*msgs)
-    offline.fold(folded)
-    differ = [k for k, t in folded.items()
-              if not torch.equal(own[k].view(torch.int32),
-                                 t.view(torch.int32))]
-    del own
-    ref_c = {rid: monolithic_stream(arch, base, p, SERVE_NEW,
-                                    {SERVE_FOLD_AT: folded})[0]
-             for rid, p in enumerate(prompts[:n_fold])}
-    del folded
-    bad = [rid for rid in ref_c if live[rid] != ref_c[rid]]
-    moved = sum(a != b for rid in live for a, b in zip(live[rid], res[rid]))
-    n_matrix = sum(m.is_matrix for m in subcge_meta(tf.arch_spec(arch)).values())
-    out["live_update"] = {"fold_ms": fold_ms, "launches": fold_launches,
-                          "epoch_launches": epochs, "differ": bad,
-                          "leaves_differ": differ, "moved_vs_greedy": moved,
-                          "stats": lst}
-    log(f"[12c] live update: {SERVE_FOLD_CLIENTS} clients x "
-        f"{SERVE_FOLD_STEPS} steps at tau 1 folded at step {SERVE_FOLD_AT} "
-        f"in {fold_ms} ms; launches {fold_launches}, epoch launches by E "
-        f"{epochs} ({n_matrix} matrix leaves); live vs offline fold: "
-        f"{len(bad)} streams and {len(differ)} leaves differ (must be 0); "
-        f"{moved} tokens moved from the unfolded greedy streams ({card})")
-    if bad or differ:
-        raise AssertionError(f"serve: decoding under a live fold differs from "
-                             f"the offline fold (streams {bad}, leaves "
-                             f"{differ})")
-    if fold_launches.get("subcge_apply_epochs") != n_matrix \
-            or epochs != {SERVE_FOLD_E: n_matrix} or len(fold_ms) != 1:
-        raise AssertionError(f"serve: the fold launched {fold_launches} "
-                             f"({epochs}), not one E={SERVE_FOLD_E} update "
-                             f"per matrix leaf")
+    fold_launches, out["live_update"] = serve_fold(
+        arch, base, prompts[:n_fold], SERVE_GEOMETRY,
+        SERVE_GEOMETRY["max_seq"], res, card, "12c")
+    launches.update(fold_launches)
     del base
     torch.cuda.empty_cache()
 
@@ -1932,6 +2033,168 @@ def phase_serve(arch, card: str, profile: bool):
     return dict(launches), out
 
 
+def window_binds(arch, task, card: str) -> dict:
+    """Phase 14 (b)'s last check: on one model's weights (seed 0) and the
+    first validation rows of ``task``, the loss with ``arch``'s windows
+    must differ from the loss with every window taken away (plain
+    forwards: no kernel launches)."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as tf
+    glob = dataclasses.replace(arch, groups=tuple(
+        dataclasses.replace(g, slots=tuple(
+            dataclasses.replace(s, attn=dataclasses.replace(s.attn,
+                                                            window=None))
+            for s in g.slots)) for g in arch.groups))
+    params = {k: t[None] for k, t in tf.init_params(arch, 0, "cuda").items()}
+    toks = torch.as_tensor(synthetic.make_splits(task)[1].tokens,
+                           device="cuda")[None]
+    with torch.no_grad():
+        losses = [float(tf.lm_loss(a, params, toks)[0]) for a in (arch, glob)]
+    del params
+    torch.cuda.empty_cache()
+    log(f"[14b] the window binds: {tuple(toks.shape[1:])} tokens, loss with "
+        f"the windows {losses[0]!r}, without {losses[1]!r} (must differ) "
+        f"({card})")
+    if losses[0] == losses[1]:
+        raise AssertionError("14b: the windows do not change the loss")
+    return {"windowed_loss": losses[0], "global_loss": losses[1]}
+
+
+def phase_serve_window(arch, card: str):
+    """Phase 14 (c): serving Gemma 3 1B whole past its window.  Greedy
+    paged streams of GEMMA_REQUESTS prompts of 520-700 tokens must equal
+    their monolithic streams (rings of 512 in the local slots, of 768 in
+    the global ones) token for token, and request 0's stream a no-cache
+    recompute (a full ``forward`` over prompt + generated at every step):
+    ring eviction, the paged mask and the plain mask against each other.
+    Then a live fold at C = 1, E = 2 (``serve_fold``).  Returns the fold
+    run's launches and the numbers."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeConfig
+
+    out = {}
+    cap = GEMMA_SERVE["max_seq"]
+    window = max(s.attn.window or 0 for g in arch.groups for s in g.slots)
+    prompts = serve_prompts(arch.vocab, GEMMA_REQUESTS, GEMMA_PROMPT)
+    if min(len(p) for p in prompts) <= window:
+        raise AssertionError("14c: a prompt does not reach past the window")
+    rings = {k: c["k"].shape[2]
+             for k, c in tf.init_cache(arch, 1, cap, device="cuda").items()}
+    base = tf.init_params(arch, SERVE_SEED, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    rows = {}
+    res, st, nums = serve_run(arch, base, prompts, ServeConfig(**GEMMA_SERVE),
+                              rows=rows)
+    nums["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ref, margin, gap = {}, math.inf, 0.0
+    for rid, p in enumerate(prompts):
+        ref[rid], m, mono = monolithic_stream(arch, base, p, SERVE_NEW,
+                                              capacity=cap)
+        margin, mono = min(margin, m), mono.cpu()
+        gap = max(gap, max(float((rows[(rid, len(p) + i)] - mono[i]).abs()
+                                 .max()) for i in range(SERVE_NEW)))
+    del rows
+    bad = [rid for rid in ref if res[rid] != ref[rid]]
+    view = {k: t[None] for k, t in base.items()}
+    seq = torch.as_tensor(prompts[0], device="cuda").long()
+    plain = []
+    with torch.no_grad():
+        for _ in range(SERVE_NEW):
+            lg, _ = tf.forward(arch, view, seq[None, None])
+            tok = lg[0, 0, -1].argmax()
+            del lg
+            plain.append(int(tok))
+            seq = torch.cat([seq, tok[None]])
+    out["greedy"] = {**nums, "stats": st, "rings": rings,
+                     "min_top2_gap": margin, "logit_gap_vs_monolithic": gap,
+                     "differ": bad, "recompute_equal": plain == ref[0]}
+    log(f"[14c] serving past the window: prompts {[len(p) for p in prompts]}"
+        f", rings {rings}; {st['steps']} steps, {st['prefills']} prefills, "
+        f"{st['decodes']} decodes, {st['emitted']} tokens in "
+        f"{nums['wall_s']:.2f} s = {nums['tok_s']:.1f} tok/s; steady decode "
+        f"step median {nums['steady_step_ms']:.2f} ms (spread "
+        f"{nums['steady_spread_ms']}, {nums['n_steady']} steps); prefills "
+        f"{nums['prefill_ms']} ms; peak {nums['peak_gib']:.2f} GiB; paged vs "
+        f"monolithic: {len(bad)} of {len(ref)} streams differ (must be 0), "
+        f"max |logit diff| {gap:.3e}, smallest top-2 gap {margin:.3e}; "
+        f"request 0 recomputed without a cache equal {plain == ref[0]} "
+        f"({card})")
+    if bad or plain != ref[0]:
+        raise AssertionError(f"14c: paged streams {bad} differ from the "
+                             "monolithic ones, or the monolithic stream from "
+                             "a no-cache recompute")
+    if st["evicted"] != GEMMA_REQUESTS:
+        raise AssertionError(f"14c: not every request ran to its end ({st})")
+    n_fold = GEMMA_SERVE["max_batch"]
+    launches, out["live_update"] = serve_fold(arch, base, prompts[:n_fold],
+                                              GEMMA_SERVE, cap, res, card,
+                                              "14c")
+    del base, view
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_gemma(gemma, card: str) -> dict:
+    """Phase 14: Gemma 3 1B whole.  (a) the main path (T = 33: the
+    512-token window runs but never binds); (b) the window binds, 641
+    tokens; (c) serving past the window, and a live fold.  Returns, per
+    arm ("gemma", "gemma_long", "gemma_serve"), its launches (counts zeroed
+    just before its run and read just after) and its numbers."""
+    from repro_torch.data import synthetic
+    out = {"gemma": run_slice(gemma, "gemma", "14a", card)}
+    launches = out["gemma"][0]
+    # the seven projections of each of the 26 layers in both signed
+    # forwards of 3 steps, and the tied logits of each signed forward
+    for name, want in (("rank1_matmul", 7 * gemma.n_layers * 2 * 3),
+                       ("rank1_matmul_t", 2 * 3)):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"gemma: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {want}")
+    long_task = synthetic.TaskConfig(vocab=gemma.vocab, **LONG_TASK)
+    out["gemma_long"] = run_slice(
+        gemma, "gemma past the window", "14b", card, LONG_CLIENTS,
+        ledger=LEDGER_RING4_2STEPS, steps=LONG_STEPS, batch=LONG_B,
+        task=long_task)
+    launches = out["gemma_long"][0]
+    for name, want in (("rank1_matmul", 7 * gemma.n_layers * 2 * LONG_STEPS),
+                       ("rank1_matmul_t", 2 * LONG_STEPS)):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"gemma past the window: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {want}")
+    out["gemma_long"][1]["window"] = window_binds(gemma, long_task, card)
+    for key in ("gemma", "gemma_long"):
+        check_dense_run(key, *out[key])
+    out["gemma_serve"] = phase_serve_window(gemma, card)
+    return out
+
+
+def phase_qwen2(qwen2, card: str) -> tuple:
+    """Phase 15: the Qwen2-72B cut, every width and the untied 152,064
+    vocabulary, 4 clients on a ring, 3 steps."""
+    launches, out = run_slice(qwen2, "qwen2", 15, card, QWEN2_CLIENTS,
+                              ledger=LEDGER_RING4_3STEPS)
+    # the seven projections of its one layer and the untied logits, in both
+    # signed forwards of 3 steps; no tied logits
+    for name, want in (("rank1_matmul", (7 * qwen2.n_layers + 1) * 2 * 3),
+                       ("rank1_matmul_t", 0)):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"qwen2: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {want}")
+    check_dense_run("qwen2", launches, out)
+    return launches, out
+
+
+def check_dense_run(what: str, launches: dict, out: dict) -> None:
+    """Both updates launched, and the run's peak under the card's 80 GiB."""
+    for name in ("subcge_apply", "subcge_apply_epochs"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{what}: kernel {name} never launched")
+    if not out["peak_gib"] < 80:
+        raise AssertionError(f"{what}: peak memory {out['peak_gib']} GiB")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write details as JSON")
@@ -1972,9 +2235,10 @@ def main(argv=None) -> int:
     # 2. kernels at the main paths' shapes
     qwen = archs.get("qwen1.5-0.5b")
     kimi, falcon = archs.kimi_cut(), archs.falcon_cut()
-    C, B, T = 8, 8, 33           # clients, batch, 32 tokens + the label slot
+    C, B, T = SLICE_CLIENTS, SLICE_B, 33   # 32 tokens + the label slot
     log(f"[2] kernels vs plain versions at Qwen1.5-0.5B shapes ({card})")
-    entries = {"qwen": phase_kernels(qwen, C, B * T)}
+    entries = {"qwen": phase_kernels_dense(qwen, C, B * T, 0, "qwen",
+                                           (2, 4))}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[2] kernels vs plain versions at Kimi K2 cut shapes ({card})")
@@ -1988,7 +2252,8 @@ def main(argv=None) -> int:
     opt = archs.get("opt-125m")
     log(f"[2] kernels vs plain versions at OPT-125M shapes, "
         f"{PAPER_CLIENTS} clients ({card})")
-    entries["opt"] = phase_kernels_opt(opt, PAPER_CLIENTS, B * T)
+    entries["opt"] = phase_kernels_dense(opt, PAPER_CLIENTS, B * T, 3, "opt",
+                                         (2,))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tiny = archs.get(SERVE_ARCH)
@@ -1997,48 +2262,28 @@ def main(argv=None) -> int:
     entries["serve"] = phase_kernels_serve(tiny)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    gemma, qwen2 = archs.get(GEMMA_ARCH), archs.qwen2_cut()
+    log(f"[2] kernels vs plain versions at Gemma 3 1B shapes, {C} clients, "
+        f"and the update at its serving fold's ({card})")
+    entries["gemma"] = phase_kernels_dense(gemma, C, B * T, 6, "gemma")
+    torch.cuda.empty_cache()
+    entries["gemma_serve"] = phase_kernels_serve(gemma, "gemma serve")
+    torch.cuda.empty_cache()
+    log(f"[2] kernels vs plain versions at Qwen2-72B cut shapes, "
+        f"{QWEN2_CLIENTS} clients ({card})")
+    entries["qwen2"] = phase_kernels_dense(qwen2, QWEN2_CLIENTS, B * T, 7,
+                                           "qwen2")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     for key, es in entries.items():
         for e in es.values():
             log(f"[2] {key} {e.line()}")
     phase_prng()
 
-    def run_slice(arch, what, phase, clients=C, topology="ring",
-                  ledger=LEDGER_RING8_3STEPS, engine="FloodNetwork"):
-        """3 SeedFlood steps (8 clients on a ring unless told otherwise),
-        launch counters zeroed just before and read just after; returns
-        the launches and the run's numbers."""
-        build.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = run(DTrainConfig(arch=arch, n_clients=clients,
-                               topology=topology, steps=3, batch_size=B,
-                               device="cuda"))
-        launches = dict(build.LAUNCHES)
-        wall = time.perf_counter() - t0
-        check_run(res, ledger, what, engine)
-        steady = res.extra["step_wall_s"]
-        out = {"step_ms": 1e3 * sum(steady) / len(steady),
-               "steady_step_s": steady, "first_step_ms": 1e3 * res.compile_wall_s,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "n_params": res.extra["n_params"], "losses": res.loss_curve,
-               "gmp": res.gmp, "valid_loss": res.extra["valid_loss"],
-               "consensus": res.consensus_error, "run_s": wall,
-               "launches": launches}
-        log(f"[{phase}] {what}: {arch.name} ({out['n_params']} params) x "
-            f"{clients} clients, {topology}, {res.extra['engine']}, 3 steps "
-            f"in {wall:.1f} s; losses {res.loss_curve}; consensus "
-            f"{res.consensus_error:.3e}; gmp {res.gmp}; valid_loss "
-            f"{out['valid_loss']}; ledger {res.extra['n_messages']} msgs / "
-            f"{res.total_bytes} B; first step {out['first_step_ms']:.1f} ms, "
-            f"steady step {out['step_ms']:.1f} ms ({steady}); peak mem "
-            f"{out['peak_gib']:.2f} GiB; launches {launches} ({card})")
-        del res
-        torch.cuda.empty_cache()
-        return launches, out
 
     # 3. the Qwen slice: full width
     launches, details = {}, {}
-    launches["qwen"], details["qwen"] = run_slice(qwen, "slice", 3)
+    launches["qwen"], details["qwen"] = run_slice(qwen, "slice", 3, card)
     for name in ("rank1_matmul", "rank1_matmul_t", "subcge_apply",
                  "subcge_apply_epochs"):
         if launches["qwen"].get(name, 0) <= 0:
@@ -2046,10 +2291,10 @@ def main(argv=None) -> int:
 
     # 4. delayed flooding across τ-epochs, 2 layers
     slot = qwen.groups[0].slots[0]
-    qwen2 = dataclasses.replace(qwen, name=qwen.name + "-2l",
-                                groups=(Group((slot,), 2),))
+    qwen_2l = dataclasses.replace(qwen, name=qwen.name + "-2l",
+                                  groups=(Group((slot,), 2),))
     build.reset_launches()
-    res = run(DTrainConfig(arch=qwen2, n_clients=C, topology="ring", steps=6,
+    res = run(DTrainConfig(arch=qwen_2l, n_clients=C, topology="ring", steps=6,
                            batch_size=B, flood_k=1, subcge_tau=2, drain=True,
                            device="cuda"))
     check_run(res, LEDGER_RING8_6STEPS_K1_DRAIN, "delayed")
@@ -2063,7 +2308,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 5. the Kimi K2 slice: the MoE layer at its published widths
-    launches["kimi"], details["kimi"] = run_slice(kimi, "kimi", 5)
+    launches["kimi"], details["kimi"] = run_slice(kimi, "kimi", 5, card)
     for name in ("rank1_matmul", "rank1_matmul_expert", "subcge_apply",
                  "subcge_apply_epochs"):
         if launches["kimi"].get(name, 0) <= 0:
@@ -2076,7 +2321,7 @@ def main(argv=None) -> int:
                              f"times, not {want}")
 
     # 6. the Falcon Mamba 7B slice: the Mamba-1 layer at its published widths
-    launches["falcon"], details["falcon"] = run_slice(falcon, "falcon", 6)
+    launches["falcon"], details["falcon"] = run_slice(falcon, "falcon", 6, card)
     for name in ("rank1_matmul", "subcge_apply", "subcge_apply_epochs"):
         if launches["falcon"].get(name, 0) <= 0:
             raise AssertionError(f"falcon: kernel {name} never launched")
@@ -2094,7 +2339,7 @@ def main(argv=None) -> int:
     # 7. the paper's setting: OPT-125M at full width, 64 clients on the
     # 8 x 8 mesh-grid, the bitset flood engine chosen by "auto"
     launches["opt"], details["opt"] = run_slice(
-        opt, "paper", 7, PAPER_CLIENTS, PAPER_TOPOLOGY,
+        opt, "paper", 7, card, PAPER_CLIENTS, PAPER_TOPOLOGY,
         LEDGER_MESHGRID64_3STEPS, "VectorFloodNetwork")
     # the six projections of each of the 12 layers in both signed forwards
     # of 3 steps, and the tied logits of each signed forward; the accuracy
@@ -2189,11 +2434,17 @@ def main(argv=None) -> int:
     # 13. the event engine at OPT-125M's full width
     launches["async"], details["async"] = phase_async(opt, B, card)
 
+    # 14. Gemma 3 1B whole; 15. the Qwen2-72B cut
+    for key, (ln, dt) in phase_gemma(gemma, card).items():
+        launches[key], details[key] = ln, dt
+    launches["qwen2"], details["qwen2"] = phase_qwen2(qwen2, card)
+
     if args.profile:
         for key, arch, clients, topology in (
                 ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
                 ("falcon", falcon, C, "ring"),
-                ("opt", opt, PAPER_CLIENTS, PAPER_TOPOLOGY)):
+                ("opt", opt, PAPER_CLIENTS, PAPER_TOPOLOGY),
+                ("gemma", gemma, C, "ring")):
             details[key]["profile"] = phase_profile(arch, clients, B, "cuda",
                                                     topology=topology)
             torch.cuda.empty_cache()
@@ -2223,7 +2474,7 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 14. report: each kernel over the paths that run it
+    # 16. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

@@ -3,21 +3,22 @@
 1.1B is the serving path's model (``repro_torch.launch.serve``'s default).
 
 ``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
-slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; an MoE slot keeps 4
-experts, top-min(2, k), expert width 2·d, at most one shared expert and
-capacity factor 8 (drop-free); a Mamba slot gets d_inner 2·d, state 4,
-conv 4 and dt_rank 8.
+slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; a sliding-window
+slot keeps a window of 16; an MoE slot keeps 4 experts, top-min(2, k),
+expert width 2·d, at most one shared expert and capacity factor 8
+(drop-free); a Mamba slot gets d_inner 2·d, state 4, conv 4 and dt_rank 8.
 
-``kimi_cut`` and ``falcon_cut`` are the one-card cuts of Kimi K2 and Falcon
-Mamba 7B that ``chip_smoke.py`` trains: every width as published, depth and
-experts cut (``KIMI_*``, ``FALCON_LAYERS``).
+``kimi_cut``, ``falcon_cut`` and ``qwen2_cut`` are the one-card cuts of
+Kimi K2, Falcon Mamba 7B and Qwen2-72B that ``chip_smoke.py`` trains:
+every width as published, depth and experts cut (``KIMI_*``,
+``FALCON_LAYERS``, ``QWEN2_LAYERS``).  Gemma 3 1B runs whole.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ArchConfig, AttnCfg, Group, LayerCfg, \
-    MambaCfg, MoECfg, uniform_dense
+    MambaCfg, MoECfg, dense_layer, uniform_dense
 
 QWEN15_05B = uniform_dense(
     "qwen1.5-0.5b", n_layers=24, d_model=1024, n_heads=16, n_kv=16,
@@ -29,6 +30,26 @@ TINYLLAMA_11B = uniform_dense(
     "tinyllama-1.1b", n_layers=22, d_model=2048, n_heads=32, n_kv=4,
     d_ff=5632, vocab=32_000, rope_theta=1e4,
     source="[arXiv:2401.02385] 22L d2048 32H(kv4) ff5632 v32000, llama2-arch")
+
+QWEN2_72B = uniform_dense(
+    "qwen2-72b", n_layers=80, d_model=8192, n_heads=64, n_kv=8,
+    d_ff=29_568, vocab=152_064, qkv_bias=True, rope_theta=1e6,
+    source="[arXiv:2407.10671] 80L d8192 64H(kv8) ff29568 v152064, GQA+QKV bias")
+
+
+def _gemma3_groups() -> tuple[Group, ...]:
+    """26 layers, 5 local (sw=512) : 1 global -> 4 full periods + 2 local."""
+    local = dense_layer(1152, 4, 1, 6912, head_dim=256, window=512)
+    glob = dense_layer(1152, 4, 1, 6912, head_dim=256, window=None)
+    return (Group((local,) * 5 + (glob,), 4), Group((local,), 2))
+
+
+GEMMA3_1B = ArchConfig(
+    name="gemma3-1b", family="dense", d_model=1152, vocab=262_144,
+    groups=_gemma3_groups(), act="gelu", tie_embeddings=True,
+    rope_theta=1e6,
+    source="[hf:google/gemma-3-1b-pt] 26L d1152 4H(kv1,hd256) ff6912 "
+           "v262144, 5:1 local(sw512):global, 128k ctx")
 
 KIMI_K2 = ArchConfig(
     name="kimi-k2-1t-a32b", family="moe", d_model=7168, vocab=163_840,
@@ -63,8 +84,9 @@ OPT_1_3B = _opt("opt-1.3b", 24, 2048, 32, 8192)
 OPT_2_7B = _opt("opt-2.7b", 32, 2560, 32, 10_240)
 
 REGISTRY: dict[str, ArchConfig] = {
-    c.name: c for c in [QWEN15_05B, TINYLLAMA_11B, KIMI_K2, FALCON_MAMBA_7B,
-                        OPT_125M, OPT_1_3B, OPT_2_7B]}
+    c.name: c for c in [QWEN15_05B, TINYLLAMA_11B, QWEN2_72B, GEMMA3_1B,
+                        KIMI_K2, FALCON_MAMBA_7B, OPT_125M, OPT_1_3B,
+                        OPT_2_7B]}
 
 
 def get(name: str) -> ArchConfig:
@@ -81,6 +103,11 @@ KIMI_LAYERS, KIMI_EXPERTS, KIMI_VOCAB = 1, 32, 20_480
 #: Falcon Mamba 7B cut in depth only (published: 64 layers): every layer is
 #: the same slot; 64 layers x 8 client replicas would be 232.7 GB
 FALCON_LAYERS = 4
+#: Qwen2-72B cut in depth only (published: 80 layers): every layer is the
+#: same slot; one layer is 0.88 B parameters and the untied embeddings
+#: 2 x 1.25 B, so one client holds 3.37 B float32 (13.5 GB) and 4 clients
+#: 54 GB; 80 layers would be 290 GB for one client alone
+QWEN2_LAYERS = 1
 
 
 def kimi_cut(cfg: ArchConfig = KIMI_K2) -> ArchConfig:
@@ -99,12 +126,21 @@ def falcon_cut(cfg: ArchConfig = FALCON_MAMBA_7B) -> ArchConfig:
         groups=(Group(cfg.groups[0].slots, FALCON_LAYERS),))
 
 
+def qwen2_cut(cfg: ArchConfig = QWEN2_72B) -> ArchConfig:
+    """Qwen2-72B at its published widths and untied vocabulary, cut in
+    depth."""
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-cut",
+        groups=(Group(cfg.groups[0].slots, QWEN2_LAYERS),))
+
+
 def _shrink_attn(a: AttnCfg | None, d: int) -> AttnCfg | None:
     if a is None:
         return None
     h = max(2, min(a.n_heads, 4))
     kv = 1 if a.n_kv_heads < a.n_heads else h
-    return AttnCfg(h, kv, max(8, d // h), a.qkv_bias)
+    return AttnCfg(h, kv, max(8, d // h), a.qkv_bias,
+                   None if a.window is None else 16)
 
 
 def _shrink_slot(s: LayerCfg, d: int) -> LayerCfg:

@@ -1,20 +1,23 @@
 """Architecture configuration dataclasses (the dense, MoE and Mamba-1 subset).
 
 The counterpart of ``repro/configs/base.py`` for the layer types the port
-runs so far: attention (GQA, optional QKV bias) followed by a dense MLP or a
-top-k capacity-dispatch MoE, or a Mamba-1 mixer with no FFN, stacked as
-groups of repeating slots.  Fields the port cannot run yet are kept out
-rather than silently ignored; ``models.transformer.arch_spec`` takes
-rmsnorm or layernorm, silu or relu, a gated or plain MLP (the MoE's experts
-stay gated silu), and rope or learned positions (none only for an
-attention-free stack), and refuses the rest: gelu and sliding windows,
-sinusoidal positions and modality frontends, MLA.  The JAX package's
-``sharding_policy`` and ``moe_gather_weights`` are mesh hints and stay out
-too: the port has no mesh.  ``MambaCfg`` leaves out the JAX ``chunk``: it
-sizes the chunks of the associative scan in jnp, a memory knob with no
-consumer here, where the recurrence runs through the ``selective_scan``
-kernel in one pass over T.  ``ChurnConfig`` is the declarative churn spec
-of a decentralized run.
+runs so far: attention (GQA, optional QKV bias, global or sliding-window)
+followed by a dense MLP or a top-k capacity-dispatch MoE, or a Mamba-1
+mixer with no FFN, stacked as groups of repeating slots.  Fields the port
+cannot run yet are kept out rather than silently ignored;
+``models.transformer.arch_spec`` takes rmsnorm or layernorm, silu, gelu
+(tanh) or relu, a gated or plain MLP (the MoE's experts stay gated silu),
+and rope or learned positions (none only for an attention-free stack), and
+refuses the rest: sinusoidal positions and modality frontends, MLA, a
+Mamba slot with an FFN.  The JAX package's ``sharding_policy`` and
+``moe_gather_weights`` are mesh hints and stay out too: the port has no
+mesh; so do ``long_context_mode`` and its ``for_shape`` rewrite, whose
+only consumers are the pod dry runs (ROADMAP Queue 1 item 14).
+``MambaCfg`` leaves out the JAX ``chunk``: it sizes the chunks of the
+associative scan in jnp, a memory knob with no consumer here, where the
+recurrence runs through the ``selective_scan`` kernel in one pass over
+T.  ``ChurnConfig`` is the declarative churn spec of a decentralized
+run.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ class AttnCfg:
     n_kv_heads: int
     head_dim: int
     qkv_bias: bool = False
+    window: int | None = None          # None = global attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +75,7 @@ class ArchConfig:
     vocab: int
     groups: tuple[Group, ...]
     norm: str = "rmsnorm"             # rmsnorm | layernorm
-    act: str = "silu"                  # silu | relu
+    act: str = "silu"                  # silu | gelu | relu
     gated_mlp: bool = True
     pos: str = "rope"                  # rope | learned | none
     rope_theta: float = 10_000.0
@@ -85,9 +89,11 @@ class ArchConfig:
 
 
 def dense_layer(d_model: int, n_heads: int, n_kv: int, d_ff: int,
-                head_dim: int | None = None, qkv_bias: bool = False) -> LayerCfg:
+                head_dim: int | None = None, qkv_bias: bool = False,
+                window: int | None = None) -> LayerCfg:
     hd = head_dim if head_dim is not None else d_model // n_heads
-    return LayerCfg(mixer="attn", attn=AttnCfg(n_heads, n_kv, hd, qkv_bias),
+    return LayerCfg(mixer="attn",
+                    attn=AttnCfg(n_heads, n_kv, hd, qkv_bias, window),
                     ffn="dense", d_ff=d_ff)
 
 

@@ -49,11 +49,14 @@ def paged_geometry(seq: int, batch: int,
 def build_paged_prefill_step(cfg: ArchConfig, batch: int, seq: int,
                              page_size: int, dtype=torch.float32):
     """Prefill ``batch`` same-length prompts against a throwaway monolithic
-    cache of capacity == prompt length and scatter their KV into the pool
-    rows ``table`` names: step(params, pool, tokens (Bg, T), table (Bg,
-    pages_per_req)) -> (last-position logits (Bg, vocab), pool).  The
-    logits are the monolithic prefill's (the T > 1 path attends the raw
-    k/v, never the cache layout)."""
+    cache of capacity == prompt length (a sliding-window slot's ring holds
+    its last ``window`` positions) and scatter their KV into the pool rows
+    ``table`` names, each ring slot to the page of the position it holds
+    (``transformer.write_prefill_to_pages``, which unlike the JAX
+    package's is right past the window): step(params, pool, tokens (Bg,
+    T), table (Bg, pages_per_req)) -> (last-position logits (Bg, vocab),
+    pool).  The logits are the monolithic prefill's (the T > 1 path
+    attends the raw k/v, never the cache layout)."""
     tf.check_paged_support(cfg)
     prefill = build_prefill_step(cfg, batch, seq, dtype)
 

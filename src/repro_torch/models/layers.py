@@ -1,6 +1,7 @@
 """Layers of the decoder, perturbation-aware (the dense, MoE and Mamba-1
-subset of ``repro/models/layers.py``: rmsnorm and layernorm, silu and relu,
-gated and plain MLPs, rope, and attention's decode halves).
+subset of ``repro/models/layers.py``: rmsnorm and layernorm, silu, gelu and
+relu, gated and plain MLPs, rope, global and sliding-window attention, and
+attention's decode halves).
 
 Activations carry a leading client axis: ``x (C, B, T, D)``.  A decode
 cache serves one model (C = 1) and carries no client axis: each attention
@@ -17,6 +18,7 @@ the perturbed projections go through ``Bundle.dense`` and
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -62,7 +64,10 @@ def norm(b: Bundle, key: str, x: torch.Tensor, kind: str) -> torch.Tensor:
     return rmsnorm(x, b.vec(key + "_scale"))
 
 
-ACTS = {"silu": F.silu, "relu": F.relu}
+#: ``jax.nn.gelu`` defaults to the tanh approximation, and so does the port
+#: (the erf form is another function)
+ACTS = {"silu": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh"),
+        "relu": F.relu}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -81,24 +86,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """(T, S) boolean causal mask (k_pos = -1 marks an empty slot); with
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+              window: int | None) -> torch.Tensor:
+    """(T, S) boolean causal mask, optionally sliding-window (a query at q
+    sees keys q - window < k <= q); k_pos = -1 marks an empty slot.  With
     per-request positions (B, T) / (B, S) it is (B, T, S)."""
-    return (k_pos[..., None, :] <= q_pos[..., :, None]) \
+    m = (k_pos[..., None, :] <= q_pos[..., :, None]) \
         & (k_pos[..., None, :] >= 0)
+    if window is not None:
+        m &= k_pos[..., None, :] > q_pos[..., :, None] - window
+    return m
 
 
-def attn_core(q, k, v, q_pos, k_pos):
+def attn_core(q, k, v, q_pos, k_pos, window: int | None):
     """Grouped-query attention.  q (C,B,T,H,hd), k/v (C,B,S,KV,hd)
     -> (C,B,T,H*hd).  Positions are shared (T,)/(S,) or per-request
-    (B,T)/(B,S)."""
+    (B,T)/(B,S); ``window`` None is global attention."""
     C, B, T, H, hd = q.shape
     KV = k.shape[3]
     G = H // KV
     qg = q.reshape(C, B, T, KV, G, hd)
     logits = torch.einsum("cbtkgd,cbskd->cbkgts", qg, k).float()
     logits = logits * (1.0 / math.sqrt(hd))
-    mask = attn_mask(q_pos, k_pos)
+    mask = attn_mask(q_pos, k_pos, window)
     if mask.ndim == 3:
         mask = mask[None, :, None, None]
     logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
@@ -146,7 +156,8 @@ def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float,
     absolute position of x[:, :, 0].  Without a cache it is the training
     forward; with one (one model) the new k/v are written into the ring
     and a decode step (T == 1) attends the ring, while a prefill (T > 1)
-    attends its own raw k/v, as the JAX package's."""
+    attends its own raw k/v, as the JAX package's (a windowed ring may
+    already have evicted the prompt's early positions)."""
     T = x.shape[2]
     q, k, v = _qkv(b, x, acfg)
     q_pos = pos + torch.arange(T, device=x.device)
@@ -157,10 +168,10 @@ def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float,
         _one_model(x)
         _ring_write(cache, k[0], v[0], pos)
     if cache is None or T > 1:
-        out = attn_core(q, k, v, q_pos, q_pos)
+        out = attn_core(q, k, v, q_pos, q_pos, acfg.window)
     else:
         out = attn_core(q, cache["k"][None], cache["v"][None], q_pos,
-                        cache["kpos"])
+                        cache["kpos"], acfg.window)
     return b.dense("wo", out)
 
 
@@ -176,7 +187,8 @@ def paged_attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg,
     The new k/v are scattered into the pool in place (inactive slots all
     write the dump page, which no live request attends with nonzero
     probability), then each slot gathers its Pb pages: S = Pb·page
-    positions, those past ``pos_b`` masked to probability exactly 0."""
+    positions, those past ``pos_b`` (and, in a sliding-window slot, those
+    at or before ``pos_b - window``) masked to probability exactly 0."""
     _, B, T, _ = x.shape
     if T != 1:
         raise ValueError(f"paged_attention is decode-only (got T={T}; "
@@ -201,7 +213,7 @@ def paged_attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg,
     s_iota = torch.arange(S, device=x.device)[None, :]
     k_pos = torch.where(s_iota <= pos_b[:, None], s_iota,
                         torch.full_like(s_iota, -1))            # (B, S)
-    out = attn_core(q, kg, vg, q_pos, k_pos)
+    out = attn_core(q, kg, vg, q_pos, k_pos, acfg.window)
     return b.dense("wo", out)
 
 

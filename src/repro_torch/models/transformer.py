@@ -11,7 +11,10 @@ layer axis; activations and parameters carry a leading client axis.
 
 The serving caches (``init_cache``, ``init_paged_pool``) are keyed by slot
 (``"g0/s0"``), stacked over the group's reps, and serve one model: the
-forward writes them in place.  Attention slots only: a Mamba slot's
+forward writes them in place.  A sliding-window slot's ring holds
+``min(window, capacity)`` positions, as the JAX package's does; its paged
+pool keeps every position's page, and the mask hides those past the
+window.  Attention slots only: a Mamba slot's
 ``(h, conv)`` decode cache is not ported (ROADMAP Queue 1 item 13), and the
 port's configs have no MLA slot (item 9).
 """
@@ -47,9 +50,9 @@ def _check_supported(cfg: ArchConfig) -> None:
     if not (ok and all(_slot_ok(s, cfg) for s in slots)):
         raise NotImplementedError(
             f"{cfg.name}: the port runs rmsnorm or layernorm decoders with "
-            "rope or learned positions, attention and a dense MLP (silu or "
-            "relu, gated or not) or a gated silu MoE, or a Mamba-1 mixer and "
-            "no FFN")
+            "rope or learned positions, attention (global or sliding-window) "
+            "and a dense MLP (silu, gelu or relu, gated or not) or a gated "
+            "silu MoE, or a Mamba-1 mixer and no FFN")
     if cfg.pos == "none" and any(s.mixer == "attn" for s in slots):
         raise NotImplementedError(
             f"{cfg.name}: attention without positions is not ported (the "
@@ -152,14 +155,16 @@ def _attn_slots(cfg: ArchConfig):
 def init_cache(cfg: ArchConfig, B: int, capacity: int,
                dtype=torch.float32, device="cpu") -> dict:
     """Monolithic ring caches of ``capacity`` positions for B sequences of
-    one model: slot -> {"k", "v": (reps, B, capacity, KV, hd), "kpos":
-    (reps, capacity) int64, -1 where empty}."""
+    one model (``min(window, capacity)`` in a sliding-window slot): slot ->
+    {"k", "v": (reps, B, cap, KV, hd), "kpos": (reps, cap) int64, -1 where
+    empty}."""
     out = {}
     for key, reps, a in _attn_slots(cfg):
-        shape = (reps, B, capacity, a.n_kv_heads, a.head_dim)
+        cap = capacity if a.window is None else min(a.window, capacity)
+        shape = (reps, B, cap, a.n_kv_heads, a.head_dim)
         out[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                     "v": torch.zeros(shape, dtype=dtype, device=device),
-                    "kpos": torch.full((reps, capacity), -1,
+                    "kpos": torch.full((reps, cap), -1,
                                        dtype=torch.int64, device=device)}
     return out
 
@@ -190,19 +195,32 @@ def init_paged_pool(cfg: ArchConfig, n_pages: int, page_size: int,
 
 def write_prefill_to_pages(cache: dict, pool: dict, table: torch.Tensor,
                            page_size: int) -> dict:
-    """Scatter a freshly prefilled monolithic cache (capacity == prompt
-    length T, so ring slot s holds position s) into pool pages, in place;
-    ``table`` (Bg, pages) holds the Bg admitted requests' page rows.
-    Prefill logits never read the cache layout, so prefill-then-scatter is
-    the monolithic prefill."""
+    """Scatter a freshly prefilled monolithic cache into pool pages, in
+    place; ``table`` (Bg, pages) holds the Bg admitted requests' page rows.
+    Every ring slot goes to the page of the position its ``kpos`` records
+    (the same in every layer of a slot: a prefill writes them all at once),
+    and empty slots (-1) are skipped.  A full ring (capacity == prompt
+    length T) holds position s in slot s, and this is the plain scatter; a
+    sliding-window ring shorter than T holds the last ``window`` positions
+    at slots ``p % window``, and they land where paged decode reads them.
+    The pages of older positions stay unwritten: every decode query is at
+    a position >= T, and the window's mask drops them.
+
+    The JAX package's ``write_prefill_to_pages`` assumes slot s holds
+    position s in every ring, so past the window it writes the kept
+    positions to the wrong pages and leaves the window's pages empty; the
+    port does not copy that (its paged decode is held to the JAX package's
+    monolithic path instead).  Prefill logits never read the cache layout,
+    so prefill-then-scatter is the monolithic prefill."""
     for key, c in cache.items():
         p = pool[key]
-        T = c["k"].shape[2]
-        pos = torch.arange(T, device=table.device)
-        phys = table[:, pos // page_size]                      # (Bg, T)
+        kpos = c["kpos"][0]
+        live = torch.nonzero(kpos >= 0)[:, 0]
+        pos = kpos[live]
+        phys = table[:, pos // page_size]                      # (Bg, n)
         off = (pos % page_size).expand_as(phys)
-        p["k"][:, phys, off] = c["k"].to(p["k"].dtype)
-        p["v"][:, phys, off] = c["v"].to(p["v"].dtype)
+        p["k"][:, phys, off] = c["k"][:, :, live].to(p["k"].dtype)
+        p["v"][:, phys, off] = c["v"][:, :, live].to(p["v"].dtype)
     return pool
 
 

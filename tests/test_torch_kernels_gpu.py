@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import rank1_matmul as rank1  # noqa: E402
 from repro_torch.kernels import selective_scan as sscan  # noqa: E402
 
 RTOL = ATOL = 1e-5
@@ -179,6 +180,39 @@ def test_rank1_t_kernel_at_opt_tied_logits(cuda):
     plain = ops.rank1_matmul_t(*(a.cpu() for a in t))
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans,mkn", [(True, (264, 1152, 262_144)),
+                                       (False, (264, 8192, 152_064))],
+                         ids=["gemma-tied-logits", "qwen2-untied-logits"])
+def test_rank1_kernels_at_the_widest_logits(cuda, trans, mkn):
+    """Gemma 3 1B's tied logits (W (262144, 1152), rank1_matmul_t) and
+    Qwen2-72B's untied ones (W (8192, 152064), rank1_matmul) for 2
+    clients, each W past 2^31 bytes across the clients; made on the card
+    and held against the plain version there (a CPU oracle would take
+    minutes and tens of GB of host memory)."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(N)
+    C = 2
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+
+    x = randn(C, M, K)
+    W = randn(C, N, K, scale=K ** -0.5) if trans else \
+        randn(C, K, N, scale=K ** -0.5)
+    u, v = (randn(C, N), randn(C, K, scale=K ** -0.5)) if trans else \
+        (randn(C, K, scale=K ** -0.5), randn(C, N))
+    s = torch.tensor([1e-3, -1e-3], device=cuda)
+    fn = ops.rank1_matmul_t if trans else ops.rank1_matmul
+    plain = rank1.rank1_matmul_t_plain if trans else rank1.rank1_matmul_plain
+    build.reset_launches()
+    got = fn(x, W, u, v, s)
+    torch.cuda.synchronize()
+    assert sum(build.LAUNCHES.values()) == 1
+    want = plain(x, W, u, v, s)
+    assert bool(torch.all((got - want).abs() <= ATOL + RTOL * want.abs()))
 
 
 @pytest.mark.gpu

@@ -1,10 +1,14 @@
 """The port's model and SubCGE updates against the JAX package, on the same
 weights (carried across with ``params.from_numpy``).
 
-* ``lm_loss`` without a perturbation and at ±ε, on the small ``sim_arch``
-  and on the reduced Qwen1.5-0.5B (QKV bias): rtol 1e-5 — float32 matmuls
-  summed in different orders (each side's own Gaussian subspace is bitwise
-  the other's, test_torch_prng).
+* ``lm_loss`` without a perturbation and at ±ε, on the small ``sim_arch``,
+  the reduced Qwen1.5-0.5B (QKV bias), the reduced Gemma 3 1B (gated
+  tanh-gelu, window 16 at 33 tokens), a two-group mini Gemma built the
+  same way in both packages (local, local, global, then local; window 8;
+  head_dim 64 at d64 with 2 heads) and the reduced Qwen2-72B (QKV bias,
+  untied head): rtol 1e-5 — float32 matmuls summed in different orders
+  (each side's own Gaussian subspace is bitwise the other's,
+  test_torch_prng).
 * ``apply_messages`` and ``apply_messages_epoch`` with seeds, coefficients
   and sender steps made for the JAX side, crossing a τ boundary: params
   allclose at atol 1e-6 — an update is coef·U A V^T with coef ~1e-2, summed
@@ -18,42 +22,60 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import archs as jarchs  # noqa: E402
+from repro.configs import archs as jarchs, base as jbase  # noqa: E402
 from repro.core import subcge as jsub  # noqa: E402
 from repro.dtrain.api import sim_arch as jsim_arch  # noqa: E402
 from repro.models import params as jplib, transformer as jtf  # noqa: E402
 from repro.models.perturb import epoch_subspace as jepoch_subspace  # noqa: E402
 from repro.models.perturb import sample_pert as jsample_pert  # noqa: E402
-from repro_torch.configs import archs as tarchs  # noqa: E402
+from repro_torch.configs import archs as tarchs, base as tbase  # noqa: E402
 from repro_torch.core import subcge as tsub  # noqa: E402
 from repro_torch.dtrain.api import sim_arch as tsim_arch  # noqa: E402
 from repro_torch.models import params as tplib, transformer as ttf  # noqa: E402
 from repro_torch.models.perturb import epoch_subspace, sample_pert  # noqa: E402
 
-from _torch_parity import subcge_pair, weights  # noqa: E402
+from _torch_parity import one_thread, subcge_pair, weights  # noqa: E402,F401
 
 EPS = 1e-3
 SEEDS = np.array([12345, 4294967295], np.uint32)
+
+
+def _mini_gemma(base, name):
+    """Gemma 3's pattern at d64 in one package (``base``: its configs.base):
+    two local slots and a global one, then one local; window 8, 2 heads
+    of 64 over one kv head (head_dim is not d / H)."""
+    local = base.dense_layer(64, 2, 1, 128, head_dim=64, window=8)
+    glob = base.dense_layer(64, 2, 1, 128, head_dim=64)
+    return base.ArchConfig(
+        name=name, family="dense", d_model=64, vocab=256,
+        groups=(base.Group((local, local, glob), 1), base.Group((local,), 1)),
+        act="gelu", tie_embeddings=True, rope_theta=1e6, max_seq=128)
 
 
 def _archs(name):
     if name == "sim":
         kw = dict(d_model=32, n_layers=2, n_heads=2, d_ff=64)
         return jsim_arch(**kw), tsim_arch(**kw)
-    return (jarchs.reduced(jarchs.get("qwen1.5-0.5b")),
-            tarchs.reduced(tarchs.get("qwen1.5-0.5b")))
+    if name == "gemma-mini":
+        return _mini_gemma(jbase, name), _mini_gemma(tbase, name)
+    reg = {"qwen-reduced": "qwen1.5-0.5b", "gemma-reduced": "gemma3-1b",
+           "qwen2-reduced": "qwen2-72b"}[name]
+    return jarchs.reduced(jarchs.get(reg)), tarchs.reduced(tarchs.get(reg))
 
 
 def _stack(trees):
     return jax.tree.map(lambda *ls: jnp.stack(ls), *trees)
 
 
-@pytest.mark.parametrize("name", ["sim", "qwen-reduced"])
-def test_lm_loss_matches_jax(name):
+@pytest.mark.parametrize("name", ["sim", "qwen-reduced", "gemma-reduced",
+                                  "gemma-mini", "qwen2-reduced"])
+def test_lm_loss_matches_jax(name, one_thread):
     arch_j, arch_t = _archs(name)
     C = len(SEEDS)
     trees, stacked = weights(arch_j, C)
-    toks = np.random.default_rng(1).integers(0, arch_j.vocab, (C, 2, 9),
+    # Gemma's windows (16 reduced, 8 mini) bind at 33 tokens
+    T = 33 if name.startswith("gemma") else 9
+    toks = np.random.default_rng(1).integers(0, arch_j.vocab, (C, 2, T),
                                              dtype=np.int32)
     meta_j, meta_t, cfg_j, cfg_t = subcge_pair(arch_j, arch_t, EPS)
     sub_t = epoch_subspace(meta_t, cfg_t, 5, 4)

@@ -179,9 +179,19 @@ def test_seedflood_run_matches_jax():
         JSetup(jcfg).valid_loss(rj.extra["final_stacked"]), rtol=1e-4)
 
 
-@pytest.mark.parametrize("change", [dict(act="gelu"), dict(pos="sinusoidal"),
+def _mamba_then_ffn():
+    """A Mamba slot followed by a dense FFN (Jamba's odd slots without the
+    MoE; ROADMAP Queue 1 item 10): ``_slot_ok`` refuses it."""
+    falcon = tarchs.get("falcon-mamba-7b")
+    (slot,) = falcon.groups[0].slots
+    return dict(groups=(dataclasses.replace(
+        falcon.groups[0], slots=(dataclasses.replace(
+            slot, ffn="dense", d_ff=2 * falcon.d_model),)),))
+
+
+@pytest.mark.parametrize("change", [_mamba_then_ffn(), dict(pos="sinusoidal"),
                                     dict(norm="nonorm")],
-                         ids=["gelu", "sinusoidal", "norm"])
+                         ids=["mamba-ffn", "sinusoidal", "norm"])
 def test_unported_settings_are_refused(change):
     arch = dataclasses.replace(tarchs.get("opt-125m"), **change)
     with pytest.raises(NotImplementedError):

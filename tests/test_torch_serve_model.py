@@ -65,11 +65,14 @@ def _prompts(vocab, n=B, L=PL, seed=0):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "opt-125m",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "gemma3-1b"])
 def test_prefill_and_decode_logits_match_jax(name, one_thread):
     """Prefill, 4 monolithic decode steps over a ring, and 4 paged decode
     steps over a pool filled by write_prefill_to_pages (slot 1 of 3 idle,
-    pointing at the dump page), each against JAX's forward."""
+    pointing at the dump page), each against JAX's forward.  The reduced
+    Gemma's window (16) is longer than the prompt (10) here: JAX's paged
+    path is right there (tests/test_torch_gemma.py holds the prompt past
+    the window)."""
     arch_j, arch_t = _pair(name)
     # the JAX decode steps turn moe_gather_weights off
     arch_j = dataclasses.replace(arch_j, moe_gather_weights=False)

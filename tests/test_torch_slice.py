@@ -1,6 +1,6 @@
 """The port's SeedFlood run against ``repro.dtrain.runner.run``, end to end
 on the CPU with full flooding (the delayed-flooding run has its own file),
-and the flood ledger the chip smoke test asserts.
+and the flood ledgers the chip smoke test asserts.
 
 Tolerances (each side draws its own weights and subspaces from the seed;
 those Gaussians are bitwise equal, see test_torch_prng, so the gaps below
@@ -49,6 +49,9 @@ RUN = dict(n_clients=4, steps=3, batch_size=2)
 # what the JAX FloodTransport charges a ring of 8 (chip_smoke.py asserts
 # these for its Qwen1.5-0.5B runs): (steps, flood_k, drain) -> (messages, bytes)
 RING8_LEDGER = {(3, None, False): (368, 2944), (6, 1, True): (768, 6144)}
+# ... and a ring of 4 with full flooding (its Gemma 3 1B long-sequence arm
+# and its Qwen2-72B cut): steps -> (messages, bytes)
+RING4_LEDGER = {2: (56, 448), 3: (88, 704)}
 
 
 def test_full_flood_run_matches_jax():
@@ -82,16 +85,16 @@ def test_run_refuses_what_it_cannot_do():
             run(DTrainConfig(arch=sim_arch(**ARCH), steps=1))
 
 
-@pytest.mark.parametrize("key", sorted(RING8_LEDGER, key=str))
-def test_ring8_ledger_matches_jax(key):
-    steps, k, drain = key
-    tj = JFloodTransport(jgraphs.make("ring", 8), flood_k=k)
-    tt = FloodTransport(graphs.make("ring", 8), flood_k=k)
+def _ring_ledgers(n, steps, k=None, drain=False):
+    """Both packages' FloodTransport over a ring of n, every client sending
+    one message per step: (port, JAX) (messages, bytes), inboxes equal."""
+    tj = JFloodTransport(jgraphs.make("ring", n), flood_k=k)
+    tt = FloodTransport(graphs.make("ring", n), flood_k=k)
     for t in range(steps):
         msgs = [(i, dict(seed=i + 65536 * t, coef=0.1 * i, origin=i, step=t))
-                for i in range(8)]
+                for i in range(n)]
         ij = tj.exchange([(i, JMessage(**m)) for i, m in msgs], t,
-                         np.ones(8, bool))
+                         np.ones(n, bool))
         it = tt.exchange([(i, Message(**m)) for i, m in msgs], t)
         for a in ("seeds", "coefs", "steps"):
             assert (getattr(ij, a) == getattr(it, a)).all()
@@ -99,5 +102,16 @@ def test_ring8_ledger_matches_jax(key):
         for ij, it in zip(tj.drain(steps + 1, steps), tt.drain(steps + 1, steps),
                           strict=True):
             assert (ij.seeds == it.seeds).all() and (ij.steps == it.steps).all()
-    assert (tt.ledger.n_messages, tt.ledger.total_bytes) == RING8_LEDGER[key]
-    assert (tj.ledger.n_messages, tj.ledger.total_bytes) == RING8_LEDGER[key]
+    return ((tt.ledger.n_messages, tt.ledger.total_bytes),
+            (tj.ledger.n_messages, tj.ledger.total_bytes))
+
+
+@pytest.mark.parametrize("key", sorted(RING8_LEDGER, key=str))
+def test_ring8_ledger_matches_jax(key):
+    steps, k, drain = key
+    assert _ring_ledgers(8, steps, k, drain) == (RING8_LEDGER[key],) * 2
+
+
+@pytest.mark.parametrize("steps", sorted(RING4_LEDGER))
+def test_ring4_ledger_matches_jax(steps):
+    assert _ring_ledgers(4, steps) == (RING4_LEDGER[steps],) * 2
