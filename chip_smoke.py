@@ -12,10 +12,15 @@ no result line):
              report; TF32 off everywhere.
 2. kernels — every kernel of the main paths at the Qwen1.5-0.5B, Kimi K2,
              Falcon Mamba 7B, OPT-125M (64 clients), Gemma 3 1B (8
-             clients; the tied logits at N = 262,144) and Qwen2-72B cut
-             (4 clients; the untied logits at K = 8192, N = 152,064)
+             clients; the tied logits at N = 262,144), Qwen2-72B cut
+             (4 clients; the untied logits at K = 8192, N = 152,064) and
+             DeepSeek-V2 cut (4 clients: MLA's projections, 20 experts at
+             capacity 99, the untied logits at N = 102,400)
              shapes the paths give it, held against its
-             plain PyTorch version (rtol 1e-5, atol 1e-5, float32) and timed
+             plain PyTorch version (rtol 1e-5, atol 1e-5, float32; the
+             rank-1 products against it summed over the K ranges of their
+             split-K, since two float32 orders of a 16,384-term sum part
+             by more) and timed
              with CUDA events beside the plain version, one PyTorch library
              call computing the same function (none for the scan), and the
              least time the card could take (each shape's ratio to the
@@ -164,11 +169,30 @@ no result line):
              4 clients on a ring, 3 steps: the JAX ledger, 48
              ``rank1_matmul`` launches (the untied logits among them),
              consensus < 1e-10, peak under 80 GiB.
-16. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+16. deepseek — the same entry point on the DeepSeek-V2 cut: every
+             published width (d5120; MLA with 128 heads, nope 128, rope 64,
+             values 128, q_lora 1536, kv_lora 512; dense ff 12,288; MoE
+             top-6 + 2 shared experts of ff 1536) and the untied vocabulary
+             of 102,400, its dense layer and 1 of 59 MoE layers, 20 of 160
+             experts (the router cut with them): (a) 4 clients on a ring, 3
+             steps: the JAX ledger, 96 ``rank1_matmul`` (``wukv`` is read
+             unperturbed and launches nothing), 18 ``rank1_matmul_expert``
+             and no ``rank1_matmul_t`` launches, both updates, consensus <
+             1e-10, peak under 80 GiB; (b) serving one model of the cut
+             (capacity factor 4.0: no expert overflows): 8 greedy
+             sequences, a 512-token prefill through ``build_prefill_step``
+             into the compressed cache (capacity 544), 32 absorbed decode
+             steps through ``build_decode_step``, then a no-cache forward
+             over the 544 tokens: the prefill's and every decode step's
+             logits within rtol / atol 3e-4 of it; the prefill ms, the
+             decode step's median and spread, tok/s, peak and the cache's
+             bytes against the expanded K/V's are printed.
+17. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-of each slice (Gemma 3 1B's too), of the paper's setting, of each phase-9
+of each slice (Gemma 3 1B's and the DeepSeek-V2 cut's too), of the paper's
+setting, of each phase-9
 baseline and
 first-order Mamba arm, of phase 10's rejoin step (host spans,
 device-busy time and share, device launches, top kernels, and the
@@ -283,6 +307,23 @@ GEMMA_REQUESTS, GEMMA_PROMPT = 8, (520, 700)
 # the untied 152,064 vocabulary), 4 clients on a ring, 3 steps
 QWEN2_CLIENTS = 4
 LEDGER_RING4_3STEPS = (88, 704)
+# phase 16: the DeepSeek-V2 cut (archs.deepseek_cut: the dense layer, 1 of
+# 59 MoE layers, 20 of 160 experts, every width, the untied 102,400
+# vocabulary; 8.2 GB of float32 a client).  (a) 4 clients on a ring, 3 steps
+DEEPSEEK_CLIENTS = 4
+# (b) serving one model of the cut: 8 greedy sequences, a 512-token prefill
+# into a compressed cache of 544, 32 absorbed decode steps, then a no-cache
+# forward over all 544 tokens that the prefill's and every decode step's
+# logits are held to (the JAX package holds its prefill and decode to its
+# forward at 2e-4 and 3e-4, tests/test_models.py)
+DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW = 8, 512, 32
+DEEPSEEK_FORWARD_TOL = 3e-4
+# capacity dispatch drops tokens by batch size and order, so at the
+# published 1.25 a prefill of 4096 tokens, a decode of 8 and a forward of
+# 4352 route differently and no comparison across them holds; 4.0 >= 20
+# experts / top-6, so no expert can overflow (the JAX package's reduced
+# variants take 8 for the same reason).  Training, (a), keeps 1.25
+DEEPSEEK_SERVE_CAPACITY = 4.0
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -460,11 +501,28 @@ def same_bits(a, b, what: str) -> None:
         raise AssertionError(f"{what}: two calls on the same inputs differ")
 
 
+def plain_split(chunk, K: int, kper: int):
+    """The plain version summed over the K ranges a split-K launch takes
+    (``kper`` each, the last shorter), in float32 and ascending order, as
+    ``rank1_reduce`` sums the kernel's partial sums: ``chunk(k0, k1)`` is
+    the plain version on the inputs cut to ``k0:k1`` along K.  The check
+    then compares the kernel's arithmetic, not two summation orders of one
+    long dot product, which part by more than rtol / atol 1e-5 at K =
+    16,384 (the DeepSeek-V2 cut's wo: the unsplit plain version's distance
+    to the kernel is printed beside).  One range is the plain version
+    itself."""
+    want = chunk(0, kper)
+    for k0 in range(kper, K, kper):
+        want += chunk(k0, min(K, k0 + kper))
+    return want
+
+
 def check_rank1(e: Entry, C: int, M: int, shapes, randn,
                 trans: bool = False, shared: bool = False) -> None:
     """rank1_matmul (rank1_matmul_t when ``trans``) at (K, N) shapes,
-    ``count`` uses each per unit; each also held bitwise equal across two
-    calls.  W and the contracted vector are scaled by K^-1/2.  ``shared``:
+    ``count`` uses each per unit, held against the plain version summed
+    over the kernel's K ranges (``plain_split``) and bitwise equal across
+    two calls.  W and the contracted vector are scaled by K^-1/2.  ``shared``:
     one W for all C clients, expanded with a client stride of 0 (central_zo's
     dual forward over its one model)."""
     import torch
@@ -483,7 +541,16 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
             (randn(C, K, scale=K ** -0.5), randn(C, N))
         got = fn(x, W, u, v, s)
         same_bits(got, fn(x, W, u, v, s), e.name)
-        want = plain(x, W, u, v, s)
+        splits, kper = r1.split_plan(C, M, N, K)
+        if trans:
+            def chunk(k0, k1):
+                return plain(x[..., k0:k1], W[..., k0:k1], u, v[:, k0:k1], s)
+        else:
+            def chunk(k0, k1):
+                return plain(x[..., k0:k1], W[:, k0:k1], u[:, k0:k1], v, s)
+        want = plain_split(chunk, K, kper)
+        whole = "" if splits == 1 else " unsplit plain " + format(
+            float((plain(x, W, u, v, s) - got).abs().max()), ".1e")
         cvec, ovec = (v, u) if trans else (u, v)
         R = (s[:, None, None] * torch.bmm(x, cvec[..., None])) * ovec[:, None, :]
         Wn = W.transpose(1, 2) if trans else W
@@ -492,11 +559,10 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
         l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn))
         nbytes = 4 * (C * M * K + CW * K * N + C * K + C * N + C + C * M * N)
         flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
-        splits = r1.split_plan(C, M, N, K)[0]
         shape = f"W({CW},{N},{K})" if trans else f"W({CW},{K},{N})"
         shape += " expanded to C" if shared else ""
         e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
-              f"x({C},{M},{K}) {shape} S={splits}", count)
+              f"x({C},{M},{K}) {shape} S={splits}{whole}", count)
         del x, W, got, want, R, Wn
         torch.cuda.empty_cache()
 
@@ -620,6 +686,46 @@ def run_slice(arch, what, phase, card: str, clients: int = SLICE_CLIENTS,
     return launches, out
 
 
+def check_expert(e: Entry, C: int, M: int, mo, d: int, randn) -> None:
+    """rank1_matmul_expert at one MoE layer's shapes: w1 and w3 (d -> the
+    expert ff) and w2 (back) over the capacity buffer of every client and
+    expert (M tokens a client, top-k, the capacity factor of ``mo``), each
+    held against the plain version summed over the kernel's K ranges
+    (``plain_split``) and bitwise equal across two calls."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank1_matmul as r1
+    dev = torch.device("cuda")
+    E, ff = mo.n_experts, mo.d_ff_expert
+    cap = max(1, math.ceil(M * mo.top_k / E * mo.capacity_factor))
+    s = torch.tensor([1e-3, -1e-3] * (C // 2), device=dev)
+    for (K, N), count in (((d, ff), 2), ((ff, d), 1)):
+        x, W = randn(C, E, cap, K), randn(C, E, K, N, scale=K ** -0.5)
+        u, v = randn(C, E, K), randn(C, E, N)
+        got = ops.rank1_matmul_expert(x, W, u, v, s)
+        same_bits(got, ops.rank1_matmul_expert(x, W, u, v, s),
+                  "rank1_matmul_expert")
+        splits, kper = r1.split_plan(C * E, cap, N, K)
+
+        def chunk(k0, k1):
+            return r1.rank1_matmul_expert_plain(
+                x[..., k0:k1], W[:, :, k0:k1], u[..., k0:k1], v, s)
+        want = plain_split(chunk, K, kper)
+        xb, Wb = x.reshape(C * E, cap, K), W.reshape(C * E, K, N)
+        R = ((s[:, None, None, None] * torch.matmul(x, u[..., None]))
+             * v[:, :, None, :]).reshape(C * E, cap, N)
+        ms = time_ms(lambda: ops.rank1_matmul_expert(x, W, u, v, s), 5)
+        p_ms = time_ms(lambda: r1.rank1_matmul_expert_plain(x, W, u, v, s), 5)
+        l_ms = time_ms(lambda: torch.baddbmm(R, xb, Wb), 5)
+        B = C * E
+        nbytes = 4 * (B * cap * K + B * K * N + B * K + B * N + C + B * cap * N)
+        flops = 2 * B * cap * K * (N + 1) + 3 * B * cap * N
+        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
+              f"x({C},{E},{cap},{K}) W({C},{E},{K},{N}) S={splits}", count)
+        del x, W, got, want, R, xb, Wb
+        torch.cuda.empty_cache()
+
+
 def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
     """rank1_matmul, rank1_matmul_expert and the update kernel at the Kimi
     K2 cut's shapes.  The update: one update of every matrix leaf.  The
@@ -629,8 +735,6 @@ def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
     expert products (w1, w3 of 7168 -> 2048, w2 of 2048 -> 7168) over the
     capacity buffer of every client and expert."""
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import rank1_matmul as r1
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -648,31 +752,77 @@ def phase_kernels_kimi(kimi, C: int, M: int) -> dict:
     check_rank1(entries["rank1_matmul"], C, M,
                 (((d, q), 1), ((d, kv), 2), ((q, d), 1), ((d, mo.n_experts), 1),
                  ((d, fs), 2), ((fs, d), 1), ((d, kimi.vocab), 1)), randn)
+    check_expert(entries["rank1_matmul_expert"], C, M, mo, d, randn)
+    return entries
 
-    E, ff = mo.n_experts, mo.d_ff_expert
-    cap = max(1, math.ceil(M * mo.top_k / E * mo.capacity_factor))
-    s = torch.tensor([1e-3, -1e-3] * (C // 2), device=dev)
-    e = entries["rank1_matmul_expert"]
-    for (K, N), count in (((d, ff), 2), ((ff, d), 1)):
-        x, W = randn(C, E, cap, K), randn(C, E, K, N, scale=K ** -0.5)
-        u, v = randn(C, E, K), randn(C, E, N)
-        got = ops.rank1_matmul_expert(x, W, u, v, s)
-        same_bits(got, ops.rank1_matmul_expert(x, W, u, v, s),
-                  "rank1_matmul_expert")
-        want = r1.rank1_matmul_expert_plain(x, W, u, v, s)
-        xb, Wb = x.reshape(C * E, cap, K), W.reshape(C * E, K, N)
-        R = ((s[:, None, None, None] * torch.matmul(x, u[..., None]))
-             * v[:, :, None, :]).reshape(C * E, cap, N)
-        ms = time_ms(lambda: ops.rank1_matmul_expert(x, W, u, v, s), 5)
-        p_ms = time_ms(lambda: r1.rank1_matmul_expert_plain(x, W, u, v, s), 5)
-        l_ms = time_ms(lambda: torch.baddbmm(R, xb, Wb), 5)
-        B = C * E
-        nbytes = 4 * (B * cap * K + B * K * N + B * K + B * N + C + B * cap * N)
-        flops = 2 * B * cap * K * (N + 1) + 3 * B * cap * N
-        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
-              f"x({C},{E},{cap},{K}) W({C},{E},{K},{N})", count)
-        del x, W, got, want, R, xb, Wb
-        torch.cuda.empty_cache()
+
+def mla_launches(arch) -> tuple:
+    """(rank1_matmul, rank1_matmul_expert) launches of one signed forward
+    of a DeepSeek-style decoder, counted from the code: in each MLA slot
+    ``wdq`` and ``wuq`` (or one ``wq``), ``wdkv`` and ``wo`` through
+    ``Bundle.dense`` (``wukv`` is read unperturbed and launches nothing);
+    a dense FFN's w1, w2 and (gated) w3; an MoE's router and shared w1,
+    w3, w2, and its experts' w1, w3, w2 through ``Bundle.expert_dense``;
+    the untied head."""
+    dense = expert = 0
+    for g in arch.groups:
+        for s in g.slots:
+            n = (2 if s.attn.q_lora else 1) + 2
+            if s.ffn == "dense":
+                n += 2 + arch.gated_mlp
+            else:
+                n += 1 + 3 * (s.moe.n_shared > 0)
+                expert += 3 * g.reps
+            dense += n * g.reps
+    return dense + (not arch.tie_embeddings), expert
+
+
+def phase_kernels_deepseek(ds, C: int, M: int) -> dict:
+    """rank1_matmul, rank1_matmul_expert and both updates at the DeepSeek-V2
+    cut's shapes.  The updates: one update of every matrix leaf (``wukv``
+    included), the own update and the replay at E = 1.  The products: each
+    summed over one signed forward: in each of the two layers the MLA
+    projections (wdq d -> q_lora, wuq q_lora -> heads x (nope + rope),
+    wdkv d -> kv_lora + rope, wo heads x v -> d; ``wukv`` launches
+    nothing), the dense layer's w1, w3, w2, the MoE layer's router and
+    shared-expert w1, w3, w2, the untied head, and the three expert
+    products over the capacity buffer of every client and expert."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_expert",
+                                     "subcge_apply", "subcge_apply_epochs")}
+    leaves = update_leaves(ds, C)
+    for name in ("subcge_apply", "subcge_apply_epochs"):
+        check_update(entries[name], leaves, 1, randn)
+    d = ds.d_model
+    shapes: dict = {}
+    for grp in ds.groups:
+        for slot in grp.slots:
+            a = slot.attn
+            nope, rd = a.head_dim, a.rope_head_dim
+            vd = a.v_head_dim or a.head_dim
+            used = [(d, a.q_lora), (a.q_lora, a.n_heads * (nope + rd)),
+                    (d, a.kv_lora + rd), (a.n_heads * vd, d)]
+            if slot.ffn == "dense":
+                used += [(d, slot.d_ff)] * 2 + [(slot.d_ff, d)]
+            else:
+                fs = slot.moe.n_shared * slot.moe.d_ff_expert
+                used += [(d, slot.moe.n_experts), (d, fs), (d, fs), (fs, d)]
+            for shape in used:
+                shapes[shape] = shapes.get(shape, 0) + grp.reps
+    shapes[(d, ds.vocab)] = 1
+    if sum(shapes.values()) != mla_launches(ds)[0]:
+        raise AssertionError(f"deepseek: {shapes} is not one forward's "
+                             "projections")
+    check_rank1(entries["rank1_matmul"], C, M, tuple(shapes.items()), randn)
+    mo = next(s.moe for grp in ds.groups for s in grp.slots if s.moe)
+    check_expert(entries["rank1_matmul_expert"], C, M, mo, d, randn)
     return entries
 
 
@@ -2186,6 +2336,130 @@ def phase_qwen2(qwen2, card: str) -> tuple:
     return launches, out
 
 
+def serve_mla(arch, card: str) -> dict:
+    """Phase 16 (b): one model of ``arch`` (random float32 weights from
+    SERVE_SEED) serves DEEPSEEK_SERVE_B greedy sequences through the
+    monolithic steps: a DEEPSEEK_PROMPT-token prefill into a compressed
+    cache of DEEPSEEK_PROMPT + DEEPSEEK_NEW positions, DEEPSEEK_NEW
+    absorbed decode steps, then one no-cache forward over every token fed;
+    the prefill's logits and each decode step's must lie within
+    DEEPSEEK_FORWARD_TOL of that forward's at the same positions.  Plain
+    forwards: no kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import transformer as tf
+
+    B, P, new = DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW
+    cap = P + new
+    view = {k: t[None] for k, t in tf.init_params(arch, SERVE_SEED,
+                                                  "cuda").items()}
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = torch.as_tensor(rng.integers(0, arch.vocab, (B, P)),
+                              device="cuda")
+    prefill = steplib.build_prefill_step(arch, B, cap)
+    decode = steplib.build_decode_step(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        last, cache = prefill(view, prompts)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        rows, fed, step_ms = [last], [], []
+        for i in range(new):
+            fed.append(rows[-1].argmax(-1)[:, None])
+            t0 = time.perf_counter()
+            lg, cache = decode(view, cache, fed[-1], P + i)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            rows.append(lg)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kpos = cache["g0/s0"]["kpos"][0]
+        if not torch.equal(kpos.cpu(), torch.arange(cap)):
+            raise AssertionError(f"16b: the compressed cache holds positions "
+                                 f"{kpos.tolist()}, not 0..{cap - 1}")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in cache.values() for k, t in c.items()
+                          if k != "kpos")
+        del cache
+        full = tf.forward(arch, view, torch.cat([prompts] + fed, 1)[None])[0]
+        ref = full[0, :, P - 1:].transpose(0, 1)          # (new + 1, B, V)
+        del full
+    got = torch.stack(rows)
+    diff = (got - ref).abs()
+    ok = bool(torch.all(diff <= DEEPSEEK_FORWARD_TOL
+                        * (1 + ref.abs())).item())
+    gaps = [float(d.max()) for d in diff]
+    finite = bool(torch.isfinite(got).all())
+    del got, ref, diff, rows, view
+    torch.cuda.empty_cache()
+    slots = [(g.reps, s.attn) for g in arch.groups for s in g.slots]
+    expanded = sum(reps * B * cap * a.n_heads
+                   * (a.head_dim + a.rope_head_dim
+                      + (a.v_head_dim or a.head_dim)) * 4
+                   for reps, a in slots)
+    steady = sorted(step_ms[1:])
+    out = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+           "steady_median_ms": steady[len(steady) // 2],
+           "steady_spread_ms": (steady[0], steady[-1]),
+           "tok_s": B * new / (sum(step_ms) / 1e3),
+           "tok_s_with_prefill": B * (new + 1)
+           / ((prefill_ms + sum(step_ms)) / 1e3),
+           "peak_gib": peak, "cache_bytes": cache_bytes,
+           "expanded_kv_bytes": expanded,
+           "prefill_gap": gaps[0], "max_decode_gap": max(gaps[1:])}
+    log(f"[16b] serving {arch.name} (capacity factor "
+        f"{DEEPSEEK_SERVE_CAPACITY}): {B} sequences, a {P}-token prefill in "
+        f"{prefill_ms:.1f} ms into a compressed cache of {cap}, {new} "
+        f"absorbed decode steps: median {out['steady_median_ms']:.2f} ms "
+        f"(spread {out['steady_spread_ms'][0]:.2f}-"
+        f"{out['steady_spread_ms'][1]:.2f}, first {step_ms[0]:.2f}); "
+        f"{out['tok_s']:.1f} tok/s decoding, {out['tok_s_with_prefill']:.1f} "
+        f"with the prefill; peak {peak:.2f} GiB; cache {cache_bytes} B "
+        f"against {expanded} B of expanded K/V "
+        f"({expanded / cache_bytes:.1f}x); against a no-cache forward over "
+        f"{cap} tokens: prefill max |gap| {gaps[0]:.3e}, decode max |gap| "
+        f"{out['max_decode_gap']:.3e} (tol rtol / atol "
+        f"{DEEPSEEK_FORWARD_TOL}) ({card})")
+    if not (ok and finite):
+        raise AssertionError(f"16b: cached logits off the no-cache forward "
+                             f"(gaps {gaps}) or not finite")
+    if not peak < 80:
+        raise AssertionError(f"16b: peak memory {peak} GiB")
+    return out
+
+
+def phase_deepseek(ds, card: str) -> tuple:
+    """Phase 16: the DeepSeek-V2 cut.  (a) SeedFlood, DEEPSEEK_CLIENTS on a
+    ring, 3 steps, at the published capacity factor; (b) serving one model
+    of the cut from the compressed cache (``serve_mla``) at
+    DEEPSEEK_SERVE_CAPACITY.  Returns (a)'s launches and both arms'
+    numbers."""
+    launches, out = run_slice(ds, "deepseek", "16a", card, DEEPSEEK_CLIENTS,
+                              ledger=LEDGER_RING4_3STEPS)
+    dense, expert = mla_launches(ds)
+    for name, want in (("rank1_matmul", dense * 2 * 3),
+                       ("rank1_matmul_expert", expert * 2 * 3),
+                       ("rank1_matmul_t", 0)):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"deepseek: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {want}")
+    check_dense_run("deepseek", launches, out)
+    out["serve"] = serve_mla(deepseek_serving(ds), card)
+    return launches, out
+
+
+def deepseek_serving(ds):
+    """``ds`` with every MoE slot at DEEPSEEK_SERVE_CAPACITY (phase 16 (b))."""
+    return dataclasses.replace(ds, groups=tuple(
+        dataclasses.replace(g, slots=tuple(
+            s if s.moe is None else dataclasses.replace(
+                s, moe=dataclasses.replace(
+                    s.moe, capacity_factor=DEEPSEEK_SERVE_CAPACITY))
+            for s in g.slots)) for g in ds.groups))
+
+
 def check_dense_run(what: str, launches: dict, out: dict) -> None:
     """Both updates launched, and the run's peak under the card's 80 GiB."""
     for name in ("subcge_apply", "subcge_apply_epochs"):
@@ -2273,6 +2547,13 @@ def main(argv=None) -> int:
         f"{QWEN2_CLIENTS} clients ({card})")
     entries["qwen2"] = phase_kernels_dense(qwen2, QWEN2_CLIENTS, B * T, 7,
                                            "qwen2")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    deepseek = archs.deepseek_cut()
+    log(f"[2] kernels vs plain versions at DeepSeek-V2 cut shapes, "
+        f"{DEEPSEEK_CLIENTS} clients ({card})")
+    entries["deepseek"] = phase_kernels_deepseek(deepseek, DEEPSEEK_CLIENTS,
+                                                 B * T)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for key, es in entries.items():
@@ -2439,12 +2720,16 @@ def main(argv=None) -> int:
         launches[key], details[key] = ln, dt
     launches["qwen2"], details["qwen2"] = phase_qwen2(qwen2, card)
 
+    # 16. the DeepSeek-V2 cut: MLA in training and serving
+    launches["deepseek"], details["deepseek"] = phase_deepseek(deepseek, card)
+
     if args.profile:
         for key, arch, clients, topology in (
                 ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
                 ("falcon", falcon, C, "ring"),
                 ("opt", opt, PAPER_CLIENTS, PAPER_TOPOLOGY),
-                ("gemma", gemma, C, "ring")):
+                ("gemma", gemma, C, "ring"),
+                ("deepseek", deepseek, DEEPSEEK_CLIENTS, "ring")):
             details[key]["profile"] = phase_profile(arch, clients, B, "cuda",
                                                     topology=topology)
             torch.cuda.empty_cache()
@@ -2474,7 +2759,7 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 16. report: each kernel over the paths that run it
+    # 17. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

@@ -1,17 +1,20 @@
-"""Architectures the port runs (the dense, MoE and SSM subset of
+"""Architectures the port runs (the dense, MoE, MLA and SSM subset of
 ``repro/configs/archs.py``, and the paper's own OPT family).  TinyLlama
 1.1B is the serving path's model (``repro_torch.launch.serve``'s default).
 
 ``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
 slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; a sliding-window
-slot keeps a window of 16; an MoE slot keeps 4 experts, top-min(2, k),
-expert width 2·d, at most one shared expert and capacity factor 8
-(drop-free); a Mamba slot gets d_inner 2·d, state 4, conv 4 and dt_rank 8.
+slot keeps a window of 16; an MLA slot gets q_lora 32, kv_lora 16, a
+rope head of 8 and a value head of head_dim; an MoE slot keeps 4 experts,
+top-min(2, k), expert width 2·d, at most one shared expert and capacity
+factor 8 (drop-free); a Mamba slot gets d_inner 2·d, state 4, conv 4 and
+dt_rank 8.
 
-``kimi_cut``, ``falcon_cut`` and ``qwen2_cut`` are the one-card cuts of
-Kimi K2, Falcon Mamba 7B and Qwen2-72B that ``chip_smoke.py`` trains:
-every width as published, depth and experts cut (``KIMI_*``,
-``FALCON_LAYERS``, ``QWEN2_LAYERS``).  Gemma 3 1B runs whole.
+``kimi_cut``, ``falcon_cut``, ``qwen2_cut`` and ``deepseek_cut`` are the
+one-card cuts of Kimi K2, Falcon Mamba 7B, Qwen2-72B and DeepSeek-V2 that
+``chip_smoke.py`` trains: every width as published, depth and experts cut
+(``KIMI_*``, ``FALCON_LAYERS``, ``QWEN2_LAYERS``, ``DEEPSEEK_*``).  Gemma 3
+1B runs whole.
 """
 from __future__ import annotations
 
@@ -61,6 +64,25 @@ KIMI_K2 = ArchConfig(
     source="[arXiv:2501.kimi2] 61L d7168 64H(kv8) MoE 384e top-8 +1 shared, "
            "expert ff2048, v163840 — 1T total / ~32B active")
 
+def _dsv2_attn() -> AttnCfg:
+    return AttnCfg(n_heads=128, n_kv_heads=128, head_dim=128,
+                   q_lora=1536, kv_lora=512, rope_head_dim=64, v_head_dim=128)
+
+
+def _dsv2_groups() -> tuple[Group, ...]:
+    dense0 = LayerCfg(mixer="attn", attn=_dsv2_attn(), ffn="dense", d_ff=12_288)
+    moe = LayerCfg(mixer="attn", attn=_dsv2_attn(), ffn="moe",
+                   moe=MoECfg(n_experts=160, top_k=6, d_ff_expert=1536,
+                              n_shared=2, router_aux=0.001))
+    return (Group((dense0,), 1), Group((moe,), 59))
+
+
+DEEPSEEK_V2 = ArchConfig(
+    name="deepseek-v2-236b", family="moe", d_model=5120, vocab=102_400,
+    groups=_dsv2_groups(), rope_theta=1e4,
+    source="[arXiv:2405.04434] 60L d5120 128H MLA(q_lora1536,kv_lora512,"
+           "rope64) MoE 160e top-6 + 2 shared, expert ff1536, v102400")
+
 FALCON_MAMBA_7B = ArchConfig(
     name="falcon-mamba-7b", family="ssm", d_model=4096, vocab=65_024,
     groups=(Group((LayerCfg(
@@ -85,8 +107,8 @@ OPT_2_7B = _opt("opt-2.7b", 32, 2560, 32, 10_240)
 
 REGISTRY: dict[str, ArchConfig] = {
     c.name: c for c in [QWEN15_05B, TINYLLAMA_11B, QWEN2_72B, GEMMA3_1B,
-                        KIMI_K2, FALCON_MAMBA_7B, OPT_125M, OPT_1_3B,
-                        OPT_2_7B]}
+                        KIMI_K2, DEEPSEEK_V2, FALCON_MAMBA_7B, OPT_125M,
+                        OPT_1_3B, OPT_2_7B]}
 
 
 def get(name: str) -> ArchConfig:
@@ -108,6 +130,16 @@ FALCON_LAYERS = 4
 #: 2 x 1.25 B, so one client holds 3.37 B float32 (13.5 GB) and 4 clients
 #: 54 GB; 80 layers would be 290 GB for one client alone
 QWEN2_LAYERS = 1
+#: DeepSeek-V2 cut to one card's share (published: 60 layers, a dense first
+#: layer and then 59 MoE layers of 160 routed experts):
+#: - the dense layer stays whole (its group is one layer);
+#: - 1 of the 59 MoE layers, all alike;
+#: - 20 of 160 routed experts, one rank's share under the 8-way expert
+#:   parallelism the DeepSeek-V2 paper trains with; the router is cut with
+#:   them, as Kimi's is;
+#: every width and the untied 102,400 vocabulary stay as published: 2.05 B
+#: float32 a client (8.2 GB), so 4 clients on a ring take 32.9 GB
+DEEPSEEK_MOE_LAYERS, DEEPSEEK_EXPERTS = 1, 20
 
 
 def kimi_cut(cfg: ArchConfig = KIMI_K2) -> ArchConfig:
@@ -134,13 +166,30 @@ def qwen2_cut(cfg: ArchConfig = QWEN2_72B) -> ArchConfig:
         groups=(Group(cfg.groups[0].slots, QWEN2_LAYERS),))
 
 
+def deepseek_cut(cfg: ArchConfig = DEEPSEEK_V2) -> ArchConfig:
+    """DeepSeek-V2 at its published widths and untied vocabulary: the dense
+    layer, one MoE layer, its experts cut to one rank's share."""
+    dense, moe = cfg.groups
+    slot = moe.slots[0]
+    slot = dataclasses.replace(slot, moe=dataclasses.replace(
+        slot.moe, n_experts=DEEPSEEK_EXPERTS))
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-cut",
+        groups=(dense, Group((slot,), DEEPSEEK_MOE_LAYERS)))
+
+
 def _shrink_attn(a: AttnCfg | None, d: int) -> AttnCfg | None:
     if a is None:
         return None
     h = max(2, min(a.n_heads, 4))
     kv = 1 if a.n_kv_heads < a.n_heads else h
-    return AttnCfg(h, kv, max(8, d // h), a.qkv_bias,
-                   None if a.window is None else 16)
+    hd = max(8, d // h)
+    return AttnCfg(h, kv, hd, a.qkv_bias,
+                   None if a.window is None else 16,
+                   q_lora=32 if a.q_lora else 0,
+                   kv_lora=16 if a.kv_lora else 0,
+                   rope_head_dim=8 if a.rope_head_dim else 0,
+                   v_head_dim=hd if a.v_head_dim else 0)
 
 
 def _shrink_slot(s: LayerCfg, d: int) -> LayerCfg:

@@ -1,18 +1,20 @@
-"""Architecture configuration dataclasses (the dense, MoE and Mamba-1 subset).
+"""Architecture configuration dataclasses (the dense, MoE, MLA and Mamba-1
+subset).
 
 The counterpart of ``repro/configs/base.py`` for the layer types the port
-runs so far: attention (GQA, optional QKV bias, global or sliding-window)
-followed by a dense MLP or a top-k capacity-dispatch MoE, or a Mamba-1
-mixer with no FFN, stacked as groups of repeating slots.  Fields the port
-cannot run yet are kept out rather than silently ignored;
-``models.transformer.arch_spec`` takes rmsnorm or layernorm, silu, gelu
-(tanh) or relu, a gated or plain MLP (the MoE's experts stay gated silu),
-and rope or learned positions (none only for an attention-free stack), and
-refuses the rest: sinusoidal positions and modality frontends, MLA, a
-Mamba slot with an FFN.  The JAX package's ``sharding_policy`` and
-``moe_gather_weights`` are mesh hints and stay out too: the port has no
-mesh; so do ``long_context_mode`` and its ``for_shape`` rewrite, whose
-only consumers are the pod dry runs (ROADMAP Queue 1 item 14).
+runs so far: attention (GQA, optional QKV bias, global or sliding-window,
+or DeepSeek-V2's multi-head latent attention) followed by a dense MLP or a
+top-k capacity-dispatch MoE, or a Mamba-1 mixer with no FFN, stacked as
+groups of repeating slots.  Fields the port cannot run yet are kept out
+rather than silently ignored; ``models.transformer.arch_spec`` takes
+rmsnorm or layernorm, silu, gelu (tanh) or relu, a gated or plain MLP (the
+MoE's experts stay gated silu), and rope or learned positions (none only
+for an attention-free stack), and refuses the rest: sinusoidal positions
+and modality frontends, a Mamba slot with an FFN.  The JAX package's
+``sharding_policy`` and ``moe_gather_weights`` are mesh hints and stay out
+too: the port has no mesh; so do ``long_context_mode`` and its
+``for_shape`` rewrite, whose only consumers are the pod dry runs (ROADMAP
+Queue 1 item 14).
 ``MambaCfg`` leaves out the JAX ``chunk``: it sizes the chunks of the
 associative scan in jnp, a memory knob with no consumer here, where the
 recurrence runs through the ``selective_scan`` kernel in one pass over
@@ -31,6 +33,15 @@ class AttnCfg:
     head_dim: int
     qkv_bias: bool = False
     window: int | None = None          # None = global attention
+    # MLA (DeepSeek-V2): active iff kv_lora > 0
+    q_lora: int = 0
+    kv_lora: int = 0
+    rope_head_dim: int = 0             # decoupled RoPE dims (MLA)
+    v_head_dim: int = 0                # MLA value head dim (0 -> head_dim)
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora > 0
 
 
 @dataclasses.dataclass(frozen=True)

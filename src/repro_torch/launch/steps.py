@@ -17,9 +17,10 @@ from repro_torch.models import transformer as tf
 
 def build_prefill_step(cfg: ArchConfig, batch: int, seq: int,
                        dtype=torch.float32):
-    """Prefill ``batch`` prompts of ``seq`` tokens into a fresh monolithic
-    cache of capacity ``seq``: step(params, tokens (B, T)) -> (last-position
-    logits (B, vocab), cache)."""
+    """Prefill ``batch`` prompts of T <= ``seq`` tokens into a fresh
+    monolithic cache of capacity ``seq`` (an MLA slot's is the compressed
+    one, ``ckv`` and ``krope``): step(params, tokens (B, T)) ->
+    (last-position logits (B, vocab), cache)."""
     def prefill_step(params, tokens):
         cache = tf.init_cache(cfg, batch, seq, dtype, tokens.device)
         logits, _ = tf.forward(cfg, params, tokens[None], cache=cache, pos=0)
@@ -28,7 +29,8 @@ def build_prefill_step(cfg: ArchConfig, batch: int, seq: int,
 
 
 def build_decode_step(cfg: ArchConfig):
-    """One new token per sequence against a monolithic cache:
+    """One new token per sequence against a monolithic cache (an MLA slot
+    decodes in the absorbed formulation over its compressed cache):
     step(params, cache, tokens (B, 1), pos) -> (logits (B, vocab), cache)."""
     def decode_step(params, cache, tokens, pos: int):
         logits, _ = tf.forward(cfg, params, tokens[None], cache=cache,
@@ -56,7 +58,8 @@ def build_paged_prefill_step(cfg: ArchConfig, batch: int, seq: int,
     package's is right past the window): step(params, pool, tokens (Bg,
     T), table (Bg, pages_per_req)) -> (last-position logits (Bg, vocab),
     pool).  The logits are the monolithic prefill's (the T > 1 path
-    attends the raw k/v, never the cache layout)."""
+    attends the raw k/v, never the cache layout).  An MLA or Mamba slot is
+    refused, as the JAX package refuses it."""
     tf.check_paged_support(cfg)
     prefill = build_prefill_step(cfg, batch, seq, dtype)
 

@@ -1,20 +1,23 @@
-"""Layers of the decoder, perturbation-aware (the dense, MoE and Mamba-1
-subset of ``repro/models/layers.py``: rmsnorm and layernorm, silu, gelu and
-relu, gated and plain MLPs, rope, global and sliding-window attention, and
-attention's decode halves).
+"""Layers of the decoder, perturbation-aware (the dense, MoE, MLA and
+Mamba-1 subset of ``repro/models/layers.py``: rmsnorm and layernorm, silu,
+gelu and relu, gated and plain MLPs, rope, global and sliding-window
+attention, DeepSeek-V2's multi-head latent attention, and attention's
+decode halves).
 
 Activations carry a leading client axis: ``x (C, B, T, D)``.  A decode
 cache serves one model (C = 1) and carries no client axis: each attention
 layer owns ``{"k": (B, Cap, KV, hd), "v": ..., "kpos": (Cap,) int64}``, a
 ring addressed by ``pos % Cap`` whose ``kpos`` records the absolute
 position a slot holds (-1: empty), or one layer of the paged pool,
-``{"k": (P + 1, page, KV, hd), "v": ...}`` with the dump page last.  Both
-are written in place (the JAX package's donated buffers).  Attention,
-routing, dispatch and combine, the causal conv and the SSM's gates are
-plain PyTorch, as the JAX package computes them outside any Pallas kernel;
-the perturbed projections go through ``Bundle.dense`` and
-``Bundle.expert_dense`` (the fused kernels), the Mamba recurrence through
-``kernels.ops.selective_scan``.
+``{"k": (P + 1, page, KV, hd), "v": ...}`` with the dump page last.  An
+MLA layer owns the compressed ring ``{"ckv": (B, Cap, kv_lora), "krope":
+(B, Cap, rd), "kpos": (Cap,)}`` and decodes in the absorbed formulation.
+All are written in place (the JAX package's donated buffers).  Attention
+(MLA's expansion and absorption included), routing, dispatch and combine,
+the causal conv and the SSM's gates are plain PyTorch, as the JAX package
+computes them outside any Pallas kernel; the perturbed projections go
+through ``Bundle.dense`` and ``Bundle.expert_dense`` (the fused kernels),
+the Mamba recurrence through ``kernels.ops.selective_scan``.
 """
 from __future__ import annotations
 
@@ -117,18 +120,19 @@ def attn_core(q, k, v, q_pos, k_pos, window: int | None):
     return out.reshape(C, B, T, H * hd)
 
 
-def _ring_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                pos: int) -> None:
-    """Write T new entries (B, T, KV, hd) ending at absolute position
-    pos + T - 1 into a ring cache of capacity Cap, in place (a full cache
-    is a ring with Cap >= seq); a prefill longer than the ring keeps its
-    last Cap positions."""
-    cap, T = cache["k"].shape[1], k.shape[1]
+def _ring_write(cache: dict, pos: int, **new: torch.Tensor) -> None:
+    """Write T new entries per named buffer (``k=``, ``v=`` (B, T, KV,
+    hd); MLA's ``ckv=``, ``krope=`` (B, T, width)) ending at absolute
+    position pos + T - 1 into a ring cache of capacity Cap, in place (a
+    full cache is a ring with Cap >= seq); a prefill longer than the ring
+    keeps its last Cap positions."""
+    cap = cache["kpos"].shape[0]
+    T = next(iter(new.values())).shape[1]
     keep = max(0, T - cap)
-    new_pos = pos + torch.arange(keep, T, device=k.device)
+    new_pos = pos + torch.arange(keep, T, device=cache["kpos"].device)
     slots = new_pos % cap
-    cache["k"][:, slots] = k[:, keep:].to(cache["k"].dtype)
-    cache["v"][:, slots] = v[:, keep:].to(cache["v"].dtype)
+    for name, t in new.items():
+        cache[name][:, slots] = t[:, keep:].to(cache[name].dtype)
     cache["kpos"][slots] = new_pos
 
 
@@ -166,7 +170,7 @@ def attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg, rope_theta: float,
         k = rope(k, q_pos, rope_theta)
     if cache is not None:
         _one_model(x)
-        _ring_write(cache, k[0], v[0], pos)
+        _ring_write(cache, pos, k=k[0], v=v[0])
     if cache is None or T > 1:
         out = attn_core(q, k, v, q_pos, q_pos, acfg.window)
     else:
@@ -215,6 +219,86 @@ def paged_attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg,
                         torch.full_like(s_iota, -1))            # (B, S)
     out = attn_core(q, kg, vg, q_pos, k_pos, acfg.window)
     return b.dense("wo", out)
+
+
+def _mla_dims(acfg: AttnCfg):
+    """(nope, rd, vd): the per-head widths of MLA's non-rope query / key
+    part, its decoupled rope part and its values."""
+    return acfg.head_dim, acfg.rope_head_dim, \
+        acfg.v_head_dim or acfg.head_dim
+
+
+def mla_attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg,
+                  rope_theta: float, pos: int = 0,
+                  cache: dict | None = None):
+    """Multi-head latent attention (DeepSeek-V2): queries through a
+    low-rank ``wdq`` / rmsnorm / ``wuq`` (or one ``wq`` when q_lora is 0),
+    keys and values from a joint compressed ``ckv`` (kv_lora wide, after
+    an rmsnorm) expanded by ``wukv``, plus a decoupled rope key shared by
+    every head.  x (C, B, T, D) -> (C, B, T, D).
+
+    Training and prefill expand ``ckv`` into per-head keys and values; a
+    prefill also writes ``ckv`` and the roped ``krope`` into the compressed
+    ring (one model).  A decode step (T == 1 with a cache) writes its entry
+    and runs the absorbed formulation: ``q_nope · W_uk`` against the cached
+    ``ckv``, plus ``q_rope · krope``, softmax, then ``· ckv · W_uv``, so it
+    never expands the cache.  The nope and rope logits are summed before
+    the float32 cast and the ``1/sqrt(nope + rd)`` scale, as the JAX
+    package's.
+
+    ``wukv`` is read as stored (``Bundle.raw``), as the JAX package reads
+    it through ``b.p``: its SubCGE perturbation never reaches the loss,
+    though the update still moves it (kept for parity, ROADMAP Queue 3).
+    Every other projection goes through ``Bundle.dense``."""
+    C, B, T, _ = x.shape
+    H = acfg.n_heads
+    nope, rd, vd = _mla_dims(acfg)
+    q_pos = pos + torch.arange(T, device=x.device)
+
+    if acfg.q_lora > 0:
+        cq = rmsnorm(b.dense("wdq", x), b.vec("q_ln_scale"))
+        q = b.dense("wuq", cq).reshape(C, B, T, H, nope + rd)
+    else:
+        q = b.dense("wq", x).reshape(C, B, T, H, nope + rd)
+    q_nope = q[..., :nope]
+    q_rope = rope(q[..., nope:], q_pos, rope_theta)
+
+    dkv = b.dense("wdkv", x)                        # (C,B,T,kv_lora + rd)
+    ckv_new = rmsnorm(dkv[..., :acfg.kv_lora], b.vec("kv_ln_scale"))
+    # the rope key: one head, shared by all H
+    krope_new = rope(dkv[..., None, acfg.kv_lora:], q_pos,
+                     rope_theta)[..., 0, :]
+
+    wukv = b.raw("wukv").reshape(C, acfg.kv_lora, H, nope + vd)
+    scale = 1.0 / math.sqrt(nope + rd)
+
+    if cache is not None:
+        _one_model(x)
+        _ring_write(cache, pos, ckv=ckv_new[0], krope=krope_new[0])
+    if cache is not None and T == 1:
+        ckv, krope = cache["ckv"][None], cache["krope"][None]
+        q_abs = torch.einsum("cbthn,clhn->cbthl", q_nope,
+                             wukv[..., :nope])          # (C,B,1,H,kv_lora)
+        lg = torch.einsum("cbthl,cbsl->cbhts", q_abs, ckv)
+        lg = lg + torch.einsum("cbthr,cbsr->cbhts", q_rope, krope)
+        lg = lg.float() * scale
+        mask = attn_mask(q_pos, cache["kpos"], acfg.window)
+        lg = torch.where(mask, lg, torch.full_like(lg, _NEG_INF))
+        probs = torch.softmax(lg, dim=-1).to(ckv.dtype)
+        out_c = torch.einsum("cbhts,cbsl->cbthl", probs, ckv)
+        out = torch.einsum("cbthl,clhv->cbthv", out_c, wukv[..., nope:])
+        return b.dense("wo", out.reshape(C, B, T, H * vd))
+
+    kv = torch.einsum("cbtl,clhe->cbthe", ckv_new, wukv)  # (C,B,T,H,nope+vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    lg = torch.einsum("cbthn,cbshn->cbhts", q_nope, k_nope)
+    lg = lg + torch.einsum("cbthr,cbsr->cbhts", q_rope, krope_new)
+    lg = lg.float() * scale
+    mask = attn_mask(q_pos, q_pos, acfg.window)
+    lg = torch.where(mask, lg, torch.full_like(lg, _NEG_INF))
+    probs = torch.softmax(lg, dim=-1).to(v.dtype)
+    out = torch.einsum("cbhts,cbshv->cbthv", probs, v)
+    return b.dense("wo", out.reshape(C, B, T, H * vd))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):

@@ -93,7 +93,7 @@ class Bundle:
     def dense(self, k: str, x: torch.Tensor, bias: str | None = None):
         """y = x @ W (+b) per client; x (C, ..., n), W (C, n, m).  Perturbed:
         one ``rank1_matmul`` launch for all clients."""
-        W = self._leaf(self.p[self.prefix + k])
+        W = self.raw(k)
         r1 = self._rank1(k)
         C, n = x.shape[0], x.shape[-1]
         if r1 is not None:
@@ -110,7 +110,7 @@ class Bundle:
     def dense_t(self, k: str, x: torch.Tensor):
         """y = x @ W^T per client (tied logits); W (C, m, n), x (C, ..., n).
         Perturbed: one ``rank1_matmul_t`` launch for all clients."""
-        W = self._leaf(self.p[self.prefix + k])
+        W = self.raw(k)
         r1 = self._rank1(k)
         C, n = x.shape[0], x.shape[-1]
         xf = x.reshape(C, -1, n).contiguous()
@@ -126,7 +126,7 @@ class Bundle:
         layer.  Perturbed: one ``rank1_matmul_expert`` launch for all
         clients and experts; unperturbed: a plain batched matmul (the JAX
         package leaves it to XLA outside any kernel)."""
-        W = self._leaf(self.p[self.prefix + k])
+        W = self.raw(k)
         r1 = self._rank1(k)
         if r1 is not None:
             return kops.rank1_matmul_expert(x, W, *r1)
@@ -134,7 +134,7 @@ class Bundle:
 
     def embed(self, k: str, ids: torch.Tensor):
         """(E + s u v^T)[ids] = E[ids] + s·u[ids]·v^T; ids (C, B, T)."""
-        E = self._leaf(self.p[self.prefix + k])
+        E = self.raw(k)
         C = ids.shape[0]
         cidx = torch.arange(C, device=ids.device).reshape(
             (C,) + (1,) * (ids.ndim - 1))
@@ -152,13 +152,18 @@ class Bundle:
         (C, rows, cols), for the small leaves (conv kernel, ``A_log``) that
         the JAX package does not fuse into a matmul either; plain PyTorch in
         the JAX order: the outer product first, then its scale."""
-        W = self._leaf(self.p[self.prefix + k])
+        W = self.raw(k)
         r1 = self._rank1(k)
         if r1 is None:
             return W
         u, v, s = r1
         z = u[..., :, None] * v[..., None, :]
         return W + s.reshape((-1,) + (1,) * (z.ndim - 1)) * z
+
+    def raw(self, k: str) -> torch.Tensor:
+        """The leaf as stored (C, ...) at this layer, with no perturbation:
+        the JAX package's ``b.p[k]``, which MLA reads ``wukv`` through."""
+        return self._leaf(self.p[self.prefix + k])
 
     def vec(self, k: str) -> torch.Tensor:
         """Vector leaf (C, dim) with its dense-Gaussian perturbation."""

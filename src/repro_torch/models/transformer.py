@@ -1,10 +1,11 @@
 """Decoder: spec, forward, loss and the serving caches (the dense,
-MoE and Mamba-1 part of ``repro/models/transformer.py``).
+MoE, MLA and Mamba-1 part of ``repro/models/transformer.py``).
 
 ``arch_spec`` produces the same leaf paths and shapes as the JAX package
 (``embed/tok``, ``embed/out`` when untied, ``embed/pos`` for learned
 positions, ``embed/ln_f_scale`` and, for layernorm, ``embed/ln_f_bias``,
-``g{i}/s{j}/{wq,...}`` or ``g{i}/s{j}/{in_proj,...}`` stacked over the
+``g{i}/s{j}/{wq,...}``, ``g{i}/s{j}/{wdq,...,wukv}`` (MLA) or
+``g{i}/s{j}/{in_proj,...}`` stacked over the
 group's reps, expert weights stacked over (reps, experts)).  The
 ``lax.scan`` over a group's periods becomes a Python loop over the stacked
 layer axis; activations and parameters carry a leading client axis.
@@ -14,15 +15,16 @@ The serving caches (``init_cache``, ``init_paged_pool``) are keyed by slot
 forward writes them in place.  A sliding-window slot's ring holds
 ``min(window, capacity)`` positions, as the JAX package's does; its paged
 pool keeps every position's page, and the mask hides those past the
-window.  Attention slots only: a Mamba slot's
-``(h, conv)`` decode cache is not ported (ROADMAP Queue 1 item 13), and the
-port's configs have no MLA slot (item 9).
+window.  An MLA slot's ring is the compressed one (``ckv``, ``krope``);
+like the JAX package, the port does not page it.  Attention slots only: a
+Mamba slot's ``(h, conv)`` decode cache is not ported (ROADMAP Queue 1
+item 10).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, LayerCfg, MambaCfg
+from repro_torch.configs.base import ArchConfig, AttnCfg, LayerCfg, MambaCfg
 from repro_torch.models import layers as L
 from repro_torch.models import params as plib
 from repro_torch.models.params import LeafSpec, matrix, vector
@@ -50,9 +52,9 @@ def _check_supported(cfg: ArchConfig) -> None:
     if not (ok and all(_slot_ok(s, cfg) for s in slots)):
         raise NotImplementedError(
             f"{cfg.name}: the port runs rmsnorm or layernorm decoders with "
-            "rope or learned positions, attention (global or sliding-window) "
-            "and a dense MLP (silu, gelu or relu, gated or not) or a gated "
-            "silu MoE, or a Mamba-1 mixer and no FFN")
+            "rope or learned positions, attention (global or sliding-window "
+            "GQA, or MLA) and a dense MLP (silu, gelu or relu, gated or "
+            "not) or a gated silu MoE, or a Mamba-1 mixer and no FFN")
     if cfg.pos == "none" and any(s.mixer == "attn" for s in slots):
         raise NotImplementedError(
             f"{cfg.name}: attention without positions is not ported (the "
@@ -82,21 +84,41 @@ def _mamba_spec(m: MambaCfg, d: int, cfg: ArchConfig,
             "out_proj": matrix(Di, d, stack=st)}
 
 
+def _mla_spec(a: AttnCfg, d: int, st: tuple) -> dict[str, LeafSpec]:
+    nope, rd, vd = L._mla_dims(a)
+    H = a.n_heads
+    if a.q_lora > 0:
+        s = {"wdq": matrix(d, a.q_lora, stack=st),
+             "q_ln_scale": vector(a.q_lora, stack=st),
+             "wuq": matrix(a.q_lora, H * (nope + rd), stack=st)}
+    else:
+        s = {"wq": matrix(d, H * (nope + rd), stack=st)}
+    s.update(wdkv=matrix(d, a.kv_lora + rd, stack=st),
+             kv_ln_scale=vector(a.kv_lora, stack=st),
+             wukv=matrix(a.kv_lora, H * (nope + vd), stack=st),
+             wo=matrix(H * vd, d, stack=st))
+    return s
+
+
 def _slot_spec(slot: LayerCfg, cfg: ArchConfig,
                reps: int) -> dict[str, LeafSpec]:
     st, d = (reps,), cfg.d_model
     if slot.mixer == "mamba":
         return _mamba_spec(slot.mamba, d, cfg, st)
     a = slot.attn
-    H, KV, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    s = {**_norm_spec("ln_attn", d, cfg, st),
-         "wq": matrix(d, H * hd, stack=st),
-         "wk": matrix(d, KV * hd, stack=st),
-         "wv": matrix(d, KV * hd, stack=st),
-         "wo": matrix(H * hd, d, stack=st)}
-    if a.qkv_bias:
-        s.update(bq=vector(H * hd, stack=st), bk=vector(KV * hd, stack=st),
-                 bv=vector(KV * hd, stack=st))
+    s = _norm_spec("ln_attn", d, cfg, st)
+    if a.is_mla:
+        s.update(_mla_spec(a, d, st))
+    else:
+        H, KV, hd = a.n_heads, a.n_kv_heads, a.head_dim
+        s.update(wq=matrix(d, H * hd, stack=st),
+                 wk=matrix(d, KV * hd, stack=st),
+                 wv=matrix(d, KV * hd, stack=st),
+                 wo=matrix(H * hd, d, stack=st))
+        if a.qkv_bias:
+            s.update(bq=vector(H * hd, stack=st),
+                     bk=vector(KV * hd, stack=st),
+                     bv=vector(KV * hd, stack=st))
     s.update(_norm_spec("ln_mlp", d, cfg, st))
     if slot.ffn == "dense":
         s["w1"] = matrix(d, slot.d_ff, stack=st)
@@ -147,7 +169,7 @@ def _attn_slots(cfg: ArchConfig):
             if slot.mixer == "mamba":
                 raise NotImplementedError(
                     f"{cfg.name}: the decode cache of a Mamba slot (its "
-                    "(h, conv) state) is not ported (ROADMAP Queue 1 item 13)")
+                    "(h, conv) state) is not ported (ROADMAP Queue 1 item 10)")
             out.append((f"g{gi}/s{si}", g.reps, slot.attn))
     return out
 
@@ -157,26 +179,35 @@ def init_cache(cfg: ArchConfig, B: int, capacity: int,
     """Monolithic ring caches of ``capacity`` positions for B sequences of
     one model (``min(window, capacity)`` in a sliding-window slot): slot ->
     {"k", "v": (reps, B, cap, KV, hd), "kpos": (reps, cap) int64, -1 where
-    empty}."""
+    empty}; an MLA slot's is compressed: {"ckv": (reps, B, cap, kv_lora),
+    "krope": (reps, B, cap, rope_head_dim), "kpos"}."""
     out = {}
     for key, reps, a in _attn_slots(cfg):
         cap = capacity if a.window is None else min(a.window, capacity)
-        shape = (reps, B, cap, a.n_kv_heads, a.head_dim)
-        out[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device),
-                    "kpos": torch.full((reps, cap), -1,
-                                       dtype=torch.int64, device=device)}
+        if a.is_mla:
+            shapes = {"ckv": (reps, B, cap, a.kv_lora),
+                      "krope": (reps, B, cap, a.rope_head_dim)}
+        else:
+            shape = (reps, B, cap, a.n_kv_heads, a.head_dim)
+            shapes = {"k": shape, "v": shape}
+        out[key] = {k: torch.zeros(sh, dtype=dtype, device=device)
+                    for k, sh in shapes.items()}
+        out[key]["kpos"] = torch.full((reps, cap), -1, dtype=torch.int64,
+                                      device=device)
     return out
 
 
 def check_paged_support(cfg: ArchConfig) -> None:
-    """Paged serving covers standard (GQA) attention slots; Mamba's
-    recurrent state needs its own paging story (the port's configs have no
-    MLA slot and no modality frontend, which the JAX package refuses too)."""
+    """Paged serving covers standard (GQA) attention slots; MLA's
+    compressed cache and Mamba's recurrent state need their own paging
+    story, as in the JAX package (the port's configs have no modality
+    frontend, which the JAX package refuses too)."""
     for g in cfg.groups:
         for slot in g.slots:
             if slot.mixer == "mamba":
                 raise ValueError("paged serving does not support mamba slots")
+            if slot.mixer == "attn" and slot.attn.is_mla:
+                raise ValueError("paged serving does not support MLA slots")
 
 
 def init_paged_pool(cfg: ArchConfig, n_pages: int, page_size: int,
@@ -248,9 +279,13 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     ``cache`` is a pool from :func:`init_paged_pool`, ``pos`` a (B,)
     tensor of per-request positions, T is 1, and attention runs
     :func:`~repro_torch.models.layers.paged_attention` (written in place
-    too).  Learned positions are clipped at ``LEARNED_POS_LEN - 1``."""
+    too).  Learned positions are clipped at ``LEARNED_POS_LEN - 1``.
+    An MLA slot runs :func:`~repro_torch.models.layers.mla_attention`
+    (no paged path)."""
     if cache is not None:
         _attn_slots(cfg)              # a Mamba slot has no decode cache
+    if paged_table is not None:
+        check_paged_support(cfg)
     emb = Bundle(params, sub, pert, "embed/")
     x = emb.embed("tok", tokens)
     C, _, T = tokens.shape
@@ -272,7 +307,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                     x = x + L.mamba(b, h, slot.mamba)
                     continue
                 lc = _layer_cache(cache, f"g{gi}/s{si}", layer)
-                if paged_table is not None:
+                if slot.attn.is_mla:
+                    x = x + L.mla_attention(b, h, slot.attn, cfg.rope_theta,
+                                            pos, lc)
+                elif paged_table is not None:
                     x = x + L.paged_attention(b, h, slot.attn,
                                               cfg.rope_theta, cfg.pos, pos,
                                               lc, paged_table)

@@ -1,6 +1,7 @@
 """Shared inputs of the port's parity tests (``tests/test_torch_*.py``):
 the same random weights on both sides, matching SubCGE settings, the JAX
-Bundle of one layer, a JAX run that reports every method's final params,
+Bundle of one layer, a JAX run that reports every method's final params
+(and its SeedFlood coefficients), a port run that records or is fed them,
 and the ``one_thread`` fixture.  Import it after
 ``pytest.importorskip("torch")``.
 """
@@ -14,6 +15,7 @@ from repro.models import params as jplib, transformer as jtf
 from repro.models.perturb import Bundle as JBundle, _child
 from repro.models.perturb import sample_pert as jsample_pert
 from repro_torch.core import subcge as tsub
+from repro_torch.dtrain.methods import seedflood
 from repro_torch.models import params as tplib, transformer as ttf
 
 
@@ -114,3 +116,36 @@ def assert_run_matches(rt, rj, atol=3e-5, rtol=1e-4):
     assert set(got) == set(want)
     for p, w in want.items():
         np.testing.assert_allclose(got[p].numpy(), w, atol=atol, err_msg=p)
+
+
+def record_coefficients(monkeypatch, recorded: dict, fed: dict | None = None):
+    """Record each port step's coefficients of online clients (0 for the
+    others) into ``recorded``.  With ``fed``, each step uses those instead,
+    the JAX run's: for its own update (``subcge.apply_messages``) and for
+    the messages it floods.  The losses, and everything after the
+    coefficient, stay the port's."""
+    estimate = seedflood.SeedFloodMethod.estimate_and_update
+    apply_messages = seedflood.subcge.apply_messages
+
+    def estimate_with(self, stacked, tokens, seeds, step, active):
+        on = torch.as_tensor(active)
+        if fed is None:
+            stacked, losses, coefs = estimate(self, stacked, tokens, seeds,
+                                              step, active)
+            recorded[step] = (coefs * on).numpy()
+            return stacked, losses, coefs
+        coefs = torch.from_numpy(fed[step]) * on
+
+        def fed_apply(params, meta, scfg, sub, seeds_, own):
+            return apply_messages(params, meta, scfg, sub, seeds_,
+                                  coefs[:, None])
+
+        with monkeypatch.context() as m:
+            m.setattr(seedflood.subcge, "apply_messages", fed_apply)
+            stacked, losses, _ = estimate(self, stacked, tokens, seeds, step,
+                                          active)
+        recorded[step] = coefs.numpy()
+        return stacked, losses, coefs
+
+    monkeypatch.setattr(seedflood.SeedFloodMethod, "estimate_and_update",
+                        estimate_with)

@@ -28,12 +28,11 @@ from repro.dtrain.runner import DTrainConfig as JConfig  # noqa: E402
 from repro.topology import dynamic as jdyn  # noqa: E402
 from repro_torch.data.synthetic import TaskConfig  # noqa: E402
 from repro_torch.dtrain.api import sim_arch  # noqa: E402
-from repro_torch.dtrain.methods import seedflood  # noqa: E402
 from repro_torch.dtrain.runner import DTrainConfig, run  # noqa: E402
 from repro_torch.topology import dynamic  # noqa: E402
 
 from _torch_parity import (assert_run_matches, jax_method_run,  # noqa: E402,F401
-                           one_thread)
+                           one_thread, record_coefficients)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -55,39 +54,6 @@ def _port_run():
                             device="cpu", **RUN))
 
 
-def _coefficients(monkeypatch, recorded: dict, fed: dict | None = None):
-    """Record each port step's coefficients of online clients (0 for the
-    others) into ``recorded``.  With ``fed``, each step uses those instead,
-    the JAX run's: for its own update (``subcge.apply_messages``) and for
-    the messages it floods.  The losses, and everything after the
-    coefficient, stay the port's."""
-    estimate = seedflood.SeedFloodMethod.estimate_and_update
-    apply_messages = seedflood.subcge.apply_messages
-
-    def estimate_with(self, stacked, tokens, seeds, step, active):
-        on = torch.as_tensor(active)
-        if fed is None:
-            stacked, losses, coefs = estimate(self, stacked, tokens, seeds,
-                                              step, active)
-            recorded[step] = (coefs * on).numpy()
-            return stacked, losses, coefs
-        coefs = torch.from_numpy(fed[step]) * on
-
-        def fed_apply(params, meta, scfg, sub, seeds_, own):
-            return apply_messages(params, meta, scfg, sub, seeds_,
-                                  coefs[:, None])
-
-        with monkeypatch.context() as m:
-            m.setattr(seedflood.subcge, "apply_messages", fed_apply)
-            stacked, losses, _ = estimate(self, stacked, tokens, seeds, step,
-                                          active)
-        recorded[step] = coefs.numpy()
-        return stacked, losses, coefs
-
-    monkeypatch.setattr(seedflood.SeedFloodMethod, "estimate_and_update",
-                        estimate_with)
-
-
 def _param_gap(rt, rj) -> float:
     import jax
     from repro_torch.models import params as tplib
@@ -101,12 +67,12 @@ def test_seedflood_churn_d64_gap_is_the_coefficients(monkeypatch):
     rj = jax_method_run(JConfig(arch=jsim_arch(), task=JTask(**TASK),
                                 churn=_script(jdyn.ChurnSchedule), **RUN),
                         coefs=jax_coefs)
-    _coefficients(monkeypatch, own_coefs)
+    record_coefficients(monkeypatch, own_coefs)
     own = _port_run()
     assert own.total_bytes == rj.total_bytes
     assert own.extra["sync_bytes"] == rj.extra["sync_bytes"]
     np.testing.assert_allclose(own.loss_curve, rj.loss_curve, rtol=1e-4)
-    _coefficients(monkeypatch, fed_coefs, fed=jax_coefs)
+    record_coefficients(monkeypatch, fed_coefs, fed=jax_coefs)
     fed = _port_run()
     assert_run_matches(fed, rj)
     assert fed.extra["n_syncs"] == rj.extra["n_syncs"] > 0
