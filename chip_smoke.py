@@ -15,8 +15,12 @@ no result line):
              clients; the tied logits at N = 262,144), Qwen2-72B cut
              (4 clients; the untied logits at K = 8192, N = 152,064) and
              DeepSeek-V2 cut (4 clients: MLA's projections, 20 experts at
-             capacity 99, the untied logits at N = 102,400)
-             shapes the paths give it, held against its
+             capacity 99, the untied logits at N = 102,400) and Jamba cut
+             (3 clients: d8192 with d_inner 16,384 and ff 24,576, 2 experts
+             at capacity 330, the untied logits at N = 65,536; the scan at
+             D 16,384) shapes the paths give it, and the scan at the
+             serving shapes of phase 17 (b) and (c) (8 sequences: a
+             512-token prefill and a decode step, T = 1), held against its
              plain PyTorch version (rtol 1e-5, atol 1e-5, float32; the
              rank-1 products against it summed over the K ranges of their
              split-K, since two float32 orders of a 16,384-term sum part
@@ -187,13 +191,33 @@ no result line):
              logits within rtol / atol 3e-4 of it; the prefill ms, the
              decode step's median and spread, tok/s, peak and the cache's
              bytes against the expanded K/V's are printed.
-17. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+17. jamba  — the same entry point on the Jamba-1.5-Large cut: every
+             published width (d8192; attention with 64 heads of 128 over 8
+             kv heads and a dense ff 24,576; Mamba-1 with d_inner 16,384,
+             state 16, conv 4, dt_rank 512 and a top-2 MoE of ff 24,576)
+             and the untied vocabulary of 65,536, the period's first two
+             slots once each (attention + dense, Mamba + MoE), 2 of 16
+             experts: (a) 3 clients on a ring, 3 steps: the JAX ledger, 78
+             ``rank1_matmul``, 18 ``rank1_matmul_expert``, one
+             ``selective_scan`` per forward (the final accuracy pass and
+             validation loss included) and no ``rank1_matmul_t`` launches,
+             both updates, consensus < 1e-10, peak under 80 GiB; (b) one
+             model of the cut and (c) Falcon Mamba 7B whole (64 layers)
+             serve 8 greedy sequences through ``build_prefill_step`` (512
+             tokens into the (h, conv) state, and the attention slot's
+             ring of 544) and 32 decode steps through
+             ``build_decode_step``, then a no-cache forward over the 544
+             tokens: the prefill's and every decode step's logits within
+             rtol / atol 3e-4 of it, one ``selective_scan`` per Mamba slot
+             in each of them and no other launch; prefill ms, the decode
+             step's median, spread and bound, tok/s, the cache's bytes and
+             the peak are printed.
+18. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
-of each slice (Gemma 3 1B's and the DeepSeek-V2 cut's too), of the paper's
-setting, of each phase-9
-baseline and
+of each slice (Gemma 3 1B's and the DeepSeek-V2 and Jamba cuts' too), of
+the paper's setting, of each phase-9 baseline and
 first-order Mamba arm, of phase 10's rejoin step (host spans,
 device-busy time and share, device launches, top kernels, and the
 hand-written kernels that ran, by name), and of one steady decode step of
@@ -307,6 +331,8 @@ GEMMA_REQUESTS, GEMMA_PROMPT = 8, (520, 700)
 # the untied 152,064 vocabulary), 4 clients on a ring, 3 steps
 QWEN2_CLIENTS = 4
 LEDGER_RING4_3STEPS = (88, 704)
+# ... and on a ring of 3 (the Jamba cut, phase 17)
+LEDGER_RING3_3STEPS = (42, 336)
 # phase 16: the DeepSeek-V2 cut (archs.deepseek_cut: the dense layer, 1 of
 # 59 MoE layers, 20 of 160 experts, every width, the untied 102,400
 # vocabulary; 8.2 GB of float32 a client).  (a) 4 clients on a ring, 3 steps
@@ -317,13 +343,28 @@ DEEPSEEK_CLIENTS = 4
 # logits are held to (the JAX package holds its prefill and decode to its
 # forward at 2e-4 and 3e-4, tests/test_models.py)
 DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW = 8, 512, 32
-DEEPSEEK_FORWARD_TOL = 3e-4
+FORWARD_TOL = 3e-4
 # capacity dispatch drops tokens by batch size and order, so at the
 # published 1.25 a prefill of 4096 tokens, a decode of 8 and a forward of
 # 4352 route differently and no comparison across them holds; 4.0 >= 20
 # experts / top-6, so no expert can overflow (the JAX package's reduced
 # variants take 8 for the same reason).  Training, (a), keeps 1.25
 DEEPSEEK_SERVE_CAPACITY = 4.0
+# phase 17: the Jamba-1.5-Large cut (archs.jamba_cut: the period's attention
+# + dense slot and Mamba + MoE slot, 2 of 16 experts, every width, the
+# untied 65,536 vocabulary; 13.8 GB of float32 a client).  (a) 3 clients on
+# a ring, 3 steps: with 4 (51.5 GiB of params and the 12.9 GiB averaged
+# model) the final accuracy pass's Mamba inputs a and bx (4.1 GiB each at
+# 128 rows) overflow the card (first call on the card, NVIDIA H100 80GB
+# HBM3, 700.00 W)
+JAMBA_CLIENTS = 3
+# (b) one model of the cut and (c) Falcon Mamba 7B whole (64 layers, 29.1
+# GB) serve as 16 (b) does: 8 greedy sequences, a 512-token prefill into
+# the (h, conv) state (and the attention slot's ring of 544), 32 decode
+# steps, held to one no-cache forward at FORWARD_TOL.  The MoE sends every
+# token to both of its 2 experts (top-2), so the published capacity factor
+# of 1.25 drops none and prefill, decode and forward route alike
+MAMBA_SERVE_B, MAMBA_PROMPT, MAMBA_NEW = 8, 512, 32
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -528,7 +569,7 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rank1_matmul as r1
-    s = torch.tensor([1e-3, -1e-3] * (C // 2), device="cuda")
+    s = torch.tensor(([1e-3, -1e-3] * C)[:C], device="cuda")
     fn = ops.rank1_matmul_t if trans else ops.rank1_matmul
     plain = r1.rank1_matmul_t_plain if trans else r1.rank1_matmul_plain
     for (K, N), count in shapes:
@@ -698,7 +739,7 @@ def check_expert(e: Entry, C: int, M: int, mo, d: int, randn) -> None:
     dev = torch.device("cuda")
     E, ff = mo.n_experts, mo.d_ff_expert
     cap = max(1, math.ceil(M * mo.top_k / E * mo.capacity_factor))
-    s = torch.tensor([1e-3, -1e-3] * (C // 2), device=dev)
+    s = torch.tensor(([1e-3, -1e-3] * C)[:C], device=dev)
     for (K, N), count in (((d, ff), 2), ((ff, d), 1)):
         x, W = randn(C, E, cap, K), randn(C, E, K, N, scale=K ** -0.5)
         u, v = randn(C, E, K), randn(C, E, N)
@@ -826,6 +867,99 @@ def phase_kernels_deepseek(ds, C: int, M: int) -> dict:
     return entries
 
 
+def hybrid_shapes(arch) -> tuple:
+    """(rank1_matmul's (K, N) shapes with their launches, rank1_matmul_expert
+    launches, selective_scan launches) of one signed forward of a decoder of
+    GQA and Mamba slots (Jamba's), counted from the code: ``wq``, ``wk``,
+    ``wv``, ``wo`` of an attention slot and ``in_proj``, ``x_proj``,
+    ``dt_proj``, ``out_proj`` of a Mamba slot through ``Bundle.dense``
+    (``conv_w`` and ``A_log`` are materialised by ``Bundle.matw``); a dense
+    FFN's w1, w2 and (gated) w3; an MoE's router and shared w1, w3, w2, its
+    experts' w1, w3, w2 through ``Bundle.expert_dense``; one scan per Mamba
+    slot; the untied head."""
+    d = arch.d_model
+    shapes: dict = {}
+    expert = scans = 0
+    for grp in arch.groups:
+        for slot in grp.slots:
+            if slot.mixer == "mamba":
+                m = slot.mamba
+                Di, N = m.d_inner, m.d_state
+                dtr = m.dt_rank or -(-d // 16)
+                used = [(d, 2 * Di), (Di, dtr + 2 * N), (dtr, Di), (Di, d)]
+                scans += grp.reps
+            else:
+                a = slot.attn
+                q, kv = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
+                used = [(d, q), (d, kv), (d, kv), (q, d)]
+            if slot.ffn == "dense":
+                used += [(d, slot.d_ff)] * (1 + arch.gated_mlp) \
+                    + [(slot.d_ff, d)]
+            elif slot.ffn == "moe":
+                fs = slot.moe.n_shared * slot.moe.d_ff_expert
+                used += [(d, slot.moe.n_experts)]
+                used += [(d, fs), (d, fs), (fs, d)] if fs else []
+                expert += 3 * grp.reps
+            for shape in used:
+                shapes[shape] = shapes.get(shape, 0) + grp.reps
+    if not arch.tie_embeddings:
+        shapes[(d, arch.vocab)] = shapes.get((d, arch.vocab), 0) + 1
+    return shapes, expert, scans
+
+
+def phase_kernels_jamba(jamba, C: int, B: int, T: int) -> dict:
+    """rank1_matmul, rank1_matmul_expert, selective_scan and both updates at
+    the Jamba cut's shapes.  The updates: one update of every matrix leaf,
+    the own update and the replay at E = 1.  The products: each summed over
+    one signed forward (``hybrid_shapes``: the attention slot's four
+    projections and dense FFN, the Mamba slot's in_proj, x_proj, dt_proj and
+    out_proj, the router of 2 experts, the untied head; the three expert
+    products over the capacity buffer of every client and expert, 330 rows
+    at top-2 of 2); one scan over the C·B folded batch."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    entries = {n: Entry(n) for n in ("rank1_matmul", "rank1_matmul_expert",
+                                     "selective_scan", "subcge_apply",
+                                     "subcge_apply_epochs")}
+    leaves = update_leaves(jamba, C)
+    for name in ("subcge_apply", "subcge_apply_epochs"):
+        check_update(entries[name], leaves, 1, randn)
+    shapes, _, _ = hybrid_shapes(jamba)
+    check_rank1(entries["rank1_matmul"], C, B * T, tuple(shapes.items()),
+                randn)
+    mam = next(s for grp in jamba.groups for s in grp.slots if s.moe)
+    check_expert(entries["rank1_matmul_expert"], C, B * T, mam.moe,
+                 jamba.d_model, randn)
+    check_scan(entries["selective_scan"],
+               (C * B, T, mam.mamba.d_inner, mam.mamba.d_state), randn)
+    return entries
+
+
+def phase_kernels_mamba_serve(arch, B: int, P: int) -> dict:
+    """selective_scan at the shapes serving ``arch`` gives it (phase 17 (b)
+    and (c)): a prefill of B sequences of P tokens and one decode step (T
+    = 1), each from a nonzero state; the unit is one of each."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    m = next(s.mamba for grp in arch.groups for s in grp.slots if s.mamba)
+    e = Entry("selective_scan")
+    for T in (P, 1):
+        check_scan(e, (B, T, m.d_inner, m.d_state), randn)
+    return {"selective_scan": e}
+
+
 def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
     """rank1_matmul, selective_scan and the update kernel at the Falcon Mamba
     cut's shapes.  The update: one update of every matrix leaf.  The others:
@@ -835,7 +969,6 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
     The scan is also held at a small odd shape (T off the 8-step prefetch,
     D·N off the 256-thread block), printed but not summed."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
 
     dev = torch.device("cuda")
@@ -854,27 +987,9 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
                 (((d, 2 * Di), 1), ((Di, dtr + 2 * N), 1), ((dtr, Di), 1),
                  ((Di, d), 1), ((d, falcon.vocab), 1)), randn)
 
-    for (Bs, Ts, D, Ns), summed in (((C * B, T, Di, N), True),
-                                    ((3, 37, 200, N), False)):
-        # the JAX kernel test's inputs: decays in (0, 1), small drives
-        a = torch.sigmoid(randn(Bs, Ts, D, Ns))
-        bx, c, h0 = randn(Bs, Ts, D, Ns, scale=0.1), randn(Bs, Ts, Ns), \
-            randn(Bs, D, Ns)
-        # y and h_last held together
-        got = torch.cat([t.flatten() for t in ops.selective_scan(a, bx, c, h0)])
-        want = torch.cat([t.flatten()
-                          for t in ss.selective_scan_plain(a, bx, c, h0)])
-        ms = time_ms(lambda: ops.selective_scan(a, bx, c, h0))
-        p_ms = time_ms(lambda: ss.selective_scan_plain(a, bx, c, h0))
-        nbytes = 4 * (2 * Bs * Ts * D * Ns + Bs * Ts * Ns + 2 * Bs * D * Ns
-                      + Bs * Ts * D)
-        flops = 4 * Bs * Ts * D * Ns
-        e = entries["selective_scan"] if summed else Entry("selective_scan")
-        e.add(got, want, ms, p_ms, None, nbytes, flops,
-              f"a({Bs},{Ts},{D},{Ns}) y+h_last" + ("" if summed else
-                                                    " (not summed)"))
-        del a, bx, c, h0, got, want
-        torch.cuda.empty_cache()
+    check_scan(entries["selective_scan"], (C * B, T, Di, N), randn)
+    check_scan(Entry("selective_scan"), (3, 37, 200, N), randn,
+               " (not summed)")
     # the backward at the scan shapes of phase 9's first-order arms (their
     # clients folded into the batch; the unit is dsgd's), and at small odd
     # shapes
@@ -893,6 +1008,31 @@ def phase_kernels_falcon(falcon, C: int, B: int, T: int) -> dict:
         check_scan_bwd(entries["selective_scan_bwd"], shape, randn,
                        summed=False)
     return entries
+
+
+def check_scan(e: Entry, shape, randn, note: str = "") -> None:
+    """selective_scan at (B, T, D, N) on the JAX kernel test's inputs
+    (decays in (0, 1), small drives), y and h_last held together against
+    the plain version and timed beside it; added to ``e``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+    Bs, Ts, D, Ns = shape
+    a = torch.sigmoid(randn(Bs, Ts, D, Ns))
+    bx, c, h0 = randn(Bs, Ts, D, Ns, scale=0.1), randn(Bs, Ts, Ns), \
+        randn(Bs, D, Ns)
+    got = torch.cat([t.flatten() for t in ops.selective_scan(a, bx, c, h0)])
+    want = torch.cat([t.flatten()
+                      for t in ss.selective_scan_plain(a, bx, c, h0)])
+    ms = time_ms(lambda: ops.selective_scan(a, bx, c, h0))
+    p_ms = time_ms(lambda: ss.selective_scan_plain(a, bx, c, h0))
+    nbytes = 4 * (2 * Bs * Ts * D * Ns + Bs * Ts * Ns + 2 * Bs * D * Ns
+                  + Bs * Ts * D)
+    flops = 4 * Bs * Ts * D * Ns
+    e.add(got, want, ms, p_ms, None, nbytes, flops,
+          f"a({Bs},{Ts},{D},{Ns}) y+h_last{note}")
+    del a, bx, c, h0, got, want
+    torch.cuda.empty_cache()
 
 
 def scan_bwd_design_bytes(plan, B: int, T: int, D: int, N: int) -> int:
@@ -2336,22 +2476,30 @@ def phase_qwen2(qwen2, card: str) -> tuple:
     return launches, out
 
 
-def serve_mla(arch, card: str) -> dict:
-    """Phase 16 (b): one model of ``arch`` (random float32 weights from
-    SERVE_SEED) serves DEEPSEEK_SERVE_B greedy sequences through the
-    monolithic steps: a DEEPSEEK_PROMPT-token prefill into a compressed
-    cache of DEEPSEEK_PROMPT + DEEPSEEK_NEW positions, DEEPSEEK_NEW
-    absorbed decode steps, then one no-cache forward over every token fed;
-    the prefill's logits and each decode step's must lie within
-    DEEPSEEK_FORWARD_TOL of that forward's at the same positions.  Plain
-    forwards: no kernel launches."""
+def serve_cached(arch, card: str, tag: str, B: int, P: int,
+                 new: int) -> tuple:
+    """One model of ``arch`` (random float32 weights from SERVE_SEED) serves
+    B greedy sequences through the monolithic steps: a P-token prefill
+    through ``build_prefill_step`` into a cache of P + new positions (an
+    MLA slot's is the compressed ring, a Mamba slot's its (h, conv)
+    state), ``new`` decode steps through ``build_decode_step``, then one
+    no-cache forward over every token fed; the prefill's logits and each
+    decode step's must lie within FORWARD_TOL of that forward's at the
+    same positions.  Launch counters are zeroed just before and read just
+    after: the projections are unperturbed (``torch.bmm``, no kernel), and
+    each Mamba slot launches ``selective_scan`` once in the prefill, in
+    each decode step and in the forward.  The decode step's bound: every
+    weight read once (of the token embedding only B rows), the cache read
+    and written.  Returns the launches and the numbers."""
     import numpy as np
     import torch
+    from repro_torch.kernels import build
     from repro_torch.launch import steps as steplib
+    from repro_torch.models import params as plib
     from repro_torch.models import transformer as tf
 
-    B, P, new = DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW
     cap = P + new
+    spec = tf.arch_spec(arch)
     view = {k: t[None] for k, t in tf.init_params(arch, SERVE_SEED,
                                                   "cuda").items()}
     rng = np.random.default_rng(SERVE_SEED)
@@ -2361,6 +2509,7 @@ def serve_mla(arch, card: str) -> dict:
     decode = steplib.build_decode_step(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
     with torch.no_grad():
         t0 = time.perf_counter()
         last, cache = prefill(view, prompts)
@@ -2375,10 +2524,12 @@ def serve_mla(arch, card: str) -> dict:
             step_ms.append(1e3 * (time.perf_counter() - t0))
             rows.append(lg)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        kpos = cache["g0/s0"]["kpos"][0]
-        if not torch.equal(kpos.cpu(), torch.arange(cap)):
-            raise AssertionError(f"16b: the compressed cache holds positions "
-                                 f"{kpos.tolist()}, not 0..{cap - 1}")
+        for key, c in cache.items():
+            if "kpos" in c and not torch.equal(c["kpos"][0].cpu(),
+                                               torch.arange(cap)):
+                raise AssertionError(f"{tag}: the ring of {key} holds "
+                                     f"positions {c['kpos'][0].tolist()}, "
+                                     f"not 0..{cap - 1}")
         cache_bytes = sum(t.numel() * t.element_size()
                           for c in cache.values() for k, t in c.items()
                           if k != "kpos")
@@ -2386,54 +2537,64 @@ def serve_mla(arch, card: str) -> dict:
         full = tf.forward(arch, view, torch.cat([prompts] + fed, 1)[None])[0]
         ref = full[0, :, P - 1:].transpose(0, 1)          # (new + 1, B, V)
         del full
+    launches = dict(build.LAUNCHES)
     got = torch.stack(rows)
     diff = (got - ref).abs()
-    ok = bool(torch.all(diff <= DEEPSEEK_FORWARD_TOL
-                        * (1 + ref.abs())).item())
+    ok = bool(torch.all(diff <= FORWARD_TOL * (1 + ref.abs())).item())
     gaps = [float(d.max()) for d in diff]
     finite = bool(torch.isfinite(got).all())
     del got, ref, diff, rows, view
     torch.cuda.empty_cache()
-    slots = [(g.reps, s.attn) for g in arch.groups for s in g.slots]
-    expanded = sum(reps * B * cap * a.n_heads
-                   * (a.head_dim + a.rope_head_dim
-                      + (a.v_head_dim or a.head_dim)) * 4
-                   for reps, a in slots)
+    slots = [(g.reps, s) for g in arch.groups for s in g.slots]
+    expanded = sum(reps * B * cap * s.attn.n_heads
+                   * (s.attn.head_dim + s.attn.rope_head_dim
+                      + (s.attn.v_head_dim or s.attn.head_dim)) * 4
+                   for reps, s in slots if s.attn and s.attn.is_mla)
+    scans = sum(reps for reps, s in slots if s.mixer == "mamba")
+    weight_bytes = 4 * (plib.n_params(spec) - (arch.vocab - B) * arch.d_model)
+    bound_ms = (weight_bytes + 2 * cache_bytes) / PEAK_HBM_BYTES * 1e3
     steady = sorted(step_ms[1:])
     out = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
            "steady_median_ms": steady[len(steady) // 2],
            "steady_spread_ms": (steady[0], steady[-1]),
+           "decode_bound_ms": bound_ms,
            "tok_s": B * new / (sum(step_ms) / 1e3),
            "tok_s_with_prefill": B * (new + 1)
            / ((prefill_ms + sum(step_ms)) / 1e3),
            "peak_gib": peak, "cache_bytes": cache_bytes,
-           "expanded_kv_bytes": expanded,
+           "expanded_kv_bytes": expanded, "launches": launches,
            "prefill_gap": gaps[0], "max_decode_gap": max(gaps[1:])}
-    log(f"[16b] serving {arch.name} (capacity factor "
-        f"{DEEPSEEK_SERVE_CAPACITY}): {B} sequences, a {P}-token prefill in "
-        f"{prefill_ms:.1f} ms into a compressed cache of {cap}, {new} "
-        f"absorbed decode steps: median {out['steady_median_ms']:.2f} ms "
+    caps = sorted({s.moe.capacity_factor for _, s in slots if s.moe})
+    kv = (f" against {expanded} B of expanded K/V "
+          f"({expanded / cache_bytes:.1f}x)") if expanded else ""
+    log(f"[{tag}] serving {arch.name} ({plib.n_params(spec)} params"
+        f"{f', capacity factor {caps}' if caps else ''}): {B} sequences, a "
+        f"{P}-token prefill in {prefill_ms:.1f} ms into a cache of {cap}, "
+        f"{new} decode steps: median {out['steady_median_ms']:.2f} ms "
         f"(spread {out['steady_spread_ms'][0]:.2f}-"
-        f"{out['steady_spread_ms'][1]:.2f}, first {step_ms[0]:.2f}); "
-        f"{out['tok_s']:.1f} tok/s decoding, {out['tok_s_with_prefill']:.1f} "
-        f"with the prefill; peak {peak:.2f} GiB; cache {cache_bytes} B "
-        f"against {expanded} B of expanded K/V "
-        f"({expanded / cache_bytes:.1f}x); against a no-cache forward over "
-        f"{cap} tokens: prefill max |gap| {gaps[0]:.3e}, decode max |gap| "
-        f"{out['max_decode_gap']:.3e} (tol rtol / atol "
-        f"{DEEPSEEK_FORWARD_TOL}) ({card})")
+        f"{out['steady_spread_ms'][1]:.2f}, first {step_ms[0]:.2f}; bound "
+        f"{bound_ms:.2f} ms, {bound_ms / out['steady_median_ms']:.1%} "
+        f"reached); {out['tok_s']:.1f} tok/s decoding, "
+        f"{out['tok_s_with_prefill']:.1f} with the prefill; peak "
+        f"{peak:.2f} GiB; cache {cache_bytes} B{kv}; against a no-cache "
+        f"forward over {cap} tokens: prefill max |gap| {gaps[0]:.3e}, "
+        f"decode max |gap| {out['max_decode_gap']:.3e} (tol rtol / atol "
+        f"{FORWARD_TOL}); launches {launches} ({card})")
     if not (ok and finite):
-        raise AssertionError(f"16b: cached logits off the no-cache forward "
+        raise AssertionError(f"{tag}: cached logits off the no-cache forward "
                              f"(gaps {gaps}) or not finite")
+    want = {"selective_scan": scans * (new + 2)} if scans else {}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, not {want}")
     if not peak < 80:
-        raise AssertionError(f"16b: peak memory {peak} GiB")
-    return out
+        raise AssertionError(f"{tag}: peak memory {peak} GiB")
+    return launches, out
 
 
 def phase_deepseek(ds, card: str) -> tuple:
     """Phase 16: the DeepSeek-V2 cut.  (a) SeedFlood, DEEPSEEK_CLIENTS on a
     ring, 3 steps, at the published capacity factor; (b) serving one model
-    of the cut from the compressed cache (``serve_mla``) at
+    of the cut from the compressed cache (``serve_cached``) at
     DEEPSEEK_SERVE_CAPACITY.  Returns (a)'s launches and both arms'
     numbers."""
     launches, out = run_slice(ds, "deepseek", "16a", card, DEEPSEEK_CLIENTS,
@@ -2446,8 +2607,39 @@ def phase_deepseek(ds, card: str) -> tuple:
             raise AssertionError(f"deepseek: {name} launched "
                                  f"{launches.get(name, 0)} times, not {want}")
     check_dense_run("deepseek", launches, out)
-    out["serve"] = serve_mla(deepseek_serving(ds), card)
+    _, out["serve"] = serve_cached(deepseek_serving(ds), card, "16b",
+                                   DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT,
+                                   DEEPSEEK_NEW)
     return launches, out
+
+
+def phase_jamba(jamba, falcon_whole, card: str) -> dict:
+    """Phase 17: (a) SeedFlood on the Jamba cut, JAMBA_CLIENTS on a ring, 3
+    steps: the JAX ledger, the launches ``hybrid_shapes`` counts in both
+    signed forwards of each step (and one scan per Mamba slot in every
+    forward of the final accuracy pass and validation loss), no tied
+    logits, both updates, peak under 80 GiB; (b) one model of the cut and
+    (c) Falcon Mamba 7B whole served through the monolithic steps
+    (``serve_cached``).  Returns {key: (launches, numbers)}."""
+    from repro_torch.data import synthetic
+    launches, out = run_slice(jamba, "jamba", "17a", card, JAMBA_CLIENTS,
+                              ledger=LEDGER_RING3_3STEPS)
+    shapes, expert, scans = hybrid_shapes(jamba)
+    n_eval = -(-synthetic.TaskConfig().n_test // EVAL_BATCH)
+    for name, want in (("rank1_matmul", sum(shapes.values()) * 2 * 3),
+                       ("rank1_matmul_expert", expert * 2 * 3),
+                       ("selective_scan", scans * (2 * 3 + n_eval + 1)),
+                       ("rank1_matmul_t", 0)):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"jamba: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {want}")
+    check_dense_run("jamba", launches, out)
+    return {"jamba": (launches, out),
+            "jamba_serve": serve_cached(jamba, card, "17b", MAMBA_SERVE_B,
+                                        MAMBA_PROMPT, MAMBA_NEW),
+            "falcon_serve": serve_cached(falcon_whole, card, "17c",
+                                         MAMBA_SERVE_B, MAMBA_PROMPT,
+                                         MAMBA_NEW)}
 
 
 def deepseek_serving(ds):
@@ -2554,6 +2746,17 @@ def main(argv=None) -> int:
         f"{DEEPSEEK_CLIENTS} clients ({card})")
     entries["deepseek"] = phase_kernels_deepseek(deepseek, DEEPSEEK_CLIENTS,
                                                  B * T)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    jamba, falcon_whole = archs.jamba_cut(), archs.get("falcon-mamba-7b")
+    log(f"[2] kernels vs plain versions at Jamba cut shapes, "
+        f"{JAMBA_CLIENTS} clients, and the scan at the serving shapes of the "
+        f"Jamba cut and Falcon Mamba 7B ({card})")
+    entries["jamba"] = phase_kernels_jamba(jamba, JAMBA_CLIENTS, B, T)
+    torch.cuda.empty_cache()
+    for key, arch in (("jamba_serve", jamba), ("falcon_serve", falcon_whole)):
+        entries[key] = phase_kernels_mamba_serve(arch, MAMBA_SERVE_B,
+                                                 MAMBA_PROMPT)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for key, es in entries.items():
@@ -2723,13 +2926,18 @@ def main(argv=None) -> int:
     # 16. the DeepSeek-V2 cut: MLA in training and serving
     launches["deepseek"], details["deepseek"] = phase_deepseek(deepseek, card)
 
+    # 17. the Jamba cut trained and served; Falcon Mamba 7B served whole
+    for key, (ln, dt) in phase_jamba(jamba, falcon_whole, card).items():
+        launches[key], details[key] = ln, dt
+
     if args.profile:
         for key, arch, clients, topology in (
                 ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
                 ("falcon", falcon, C, "ring"),
                 ("opt", opt, PAPER_CLIENTS, PAPER_TOPOLOGY),
                 ("gemma", gemma, C, "ring"),
-                ("deepseek", deepseek, DEEPSEEK_CLIENTS, "ring")):
+                ("deepseek", deepseek, DEEPSEEK_CLIENTS, "ring"),
+                ("jamba", jamba, JAMBA_CLIENTS, "ring")):
             details[key]["profile"] = phase_profile(arch, clients, B, "cuda",
                                                     topology=topology)
             torch.cuda.empty_cache()
@@ -2759,7 +2967,7 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 17. report: each kernel over the paths that run it
+    # 18. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

@@ -1,5 +1,5 @@
-"""Architectures the port runs (the dense, MoE, MLA and SSM subset of
-``repro/configs/archs.py``, and the paper's own OPT family).  TinyLlama
+"""Architectures the port runs (the dense, MoE, MLA, SSM and hybrid subset
+of ``repro/configs/archs.py``, and the paper's own OPT family).  TinyLlama
 1.1B is the serving path's model (``repro_torch.launch.serve``'s default).
 
 ``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
@@ -10,11 +10,12 @@ top-min(2, k), expert width 2·d, at most one shared expert and capacity
 factor 8 (drop-free); a Mamba slot gets d_inner 2·d, state 4, conv 4 and
 dt_rank 8.
 
-``kimi_cut``, ``falcon_cut``, ``qwen2_cut`` and ``deepseek_cut`` are the
-one-card cuts of Kimi K2, Falcon Mamba 7B, Qwen2-72B and DeepSeek-V2 that
-``chip_smoke.py`` trains: every width as published, depth and experts cut
-(``KIMI_*``, ``FALCON_LAYERS``, ``QWEN2_LAYERS``, ``DEEPSEEK_*``).  Gemma 3
-1B runs whole.
+``kimi_cut``, ``falcon_cut``, ``qwen2_cut``, ``deepseek_cut`` and
+``jamba_cut`` are the one-card cuts of Kimi K2, Falcon Mamba 7B, Qwen2-72B,
+DeepSeek-V2 and Jamba-1.5-Large that ``chip_smoke.py`` trains: every width
+as published, depth and experts cut (``KIMI_*``, ``FALCON_LAYERS``,
+``QWEN2_LAYERS``, ``DEEPSEEK_*``, ``JAMBA_EXPERTS``).  Gemma 3 1B runs
+whole, and Falcon Mamba 7B serves whole.
 """
 from __future__ import annotations
 
@@ -93,6 +94,32 @@ FALCON_MAMBA_7B = ArchConfig(
            "conv 4), attention-free, v65024")
 
 
+def _jamba_groups() -> tuple[Group, ...]:
+    """Period of 8: attention at slot 0, Mamba at 1..7; MoE (16e top-2) on
+    every other layer [arXiv:2403.19887]."""
+    attn = AttnCfg(n_heads=64, n_kv_heads=8, head_dim=128)
+    mam = MambaCfg(d_inner=2 * 8192, d_state=16, d_conv=4)
+    moe = MoECfg(n_experts=16, top_k=2, d_ff_expert=24_576, router_aux=0.001)
+    slots = []
+    for idx in range(8):
+        mixer = "attn" if idx == 0 else "mamba"
+        ffn = "moe" if idx % 2 == 1 else "dense"
+        slots.append(LayerCfg(
+            mixer=mixer,
+            attn=attn if mixer == "attn" else None,
+            mamba=mam if mixer == "mamba" else None,
+            ffn=ffn, d_ff=24_576 if ffn == "dense" else 0,
+            moe=moe if ffn == "moe" else None))
+    return (Group(tuple(slots), 9),)
+
+
+JAMBA_15_LARGE = ArchConfig(
+    name="jamba-1.5-large-398b", family="hybrid", d_model=8192, vocab=65_536,
+    groups=_jamba_groups(),
+    source="[arXiv:2403.19887] 72L d8192 64H(kv8), Mamba:attn 7:1, "
+           "MoE 16e top-2 every other layer, ff24576, v65536 — 398B total")
+
+
 def _opt(name: str, n_layers: int, d: int, h: int, ff: int) -> ArchConfig:
     return uniform_dense(
         name, n_layers=n_layers, d_model=d, n_heads=h, n_kv=h, d_ff=ff,
@@ -107,8 +134,8 @@ OPT_2_7B = _opt("opt-2.7b", 32, 2560, 32, 10_240)
 
 REGISTRY: dict[str, ArchConfig] = {
     c.name: c for c in [QWEN15_05B, TINYLLAMA_11B, QWEN2_72B, GEMMA3_1B,
-                        KIMI_K2, DEEPSEEK_V2, FALCON_MAMBA_7B, OPT_125M,
-                        OPT_1_3B, OPT_2_7B]}
+                        KIMI_K2, DEEPSEEK_V2, FALCON_MAMBA_7B,
+                        JAMBA_15_LARGE, OPT_125M, OPT_1_3B, OPT_2_7B]}
 
 
 def get(name: str) -> ArchConfig:
@@ -140,6 +167,16 @@ QWEN2_LAYERS = 1
 #: every width and the untied 102,400 vocabulary stay as published: 2.05 B
 #: float32 a client (8.2 GB), so 4 clients on a ring take 32.9 GB
 DEEPSEEK_MOE_LAYERS, DEEPSEEK_EXPERTS = 1, 20
+#: Jamba-1.5-Large cut to one card's share (published: 9 periods of 8
+#: slots, attention at slot 0 and Mamba at 1-7, a 16-expert MoE at the odd
+#: slots and a dense FFN at the even ones):
+#: - the period's first two slots, one rep each: attention with the dense
+#:   FFN, Mamba with the MoE (the two slot kinds ``reduced`` keeps);
+#: - 2 of 16 experts, still top-2, one rank's share under 8-way expert
+#:   parallelism; the router is cut with them;
+#: every width and the untied 65,536 vocabulary stay as published:
+#: 3,457,064,960 float32 a client (13.8 GB), so 4 clients take 55.3 GB
+JAMBA_EXPERTS = 2
 
 
 def kimi_cut(cfg: ArchConfig = KIMI_K2) -> ArchConfig:
@@ -176,6 +213,17 @@ def deepseek_cut(cfg: ArchConfig = DEEPSEEK_V2) -> ArchConfig:
     return dataclasses.replace(
         cfg, name=cfg.name + "-cut",
         groups=(dense, Group((slot,), DEEPSEEK_MOE_LAYERS)))
+
+
+def jamba_cut(cfg: ArchConfig = JAMBA_15_LARGE) -> ArchConfig:
+    """Jamba-1.5-Large at its published widths and untied vocabulary: the
+    period's attention + dense slot and Mamba + MoE slot, once each, the
+    experts cut to one rank's share."""
+    attn, mam = cfg.groups[0].slots[:2]
+    mam = dataclasses.replace(mam, moe=dataclasses.replace(
+        mam.moe, n_experts=JAMBA_EXPERTS))
+    return dataclasses.replace(cfg, name=cfg.name + "-cut",
+                               groups=(Group((attn, mam), 1),))
 
 
 def _shrink_attn(a: AttnCfg | None, d: int) -> AttnCfg | None:

@@ -1,16 +1,17 @@
-"""Architecture configuration dataclasses (the dense, MoE, MLA and Mamba-1
-subset).
+"""Architecture configuration dataclasses (the dense, MoE, MLA, Mamba-1
+and hybrid subset).
 
 The counterpart of ``repro/configs/base.py`` for the layer types the port
-runs so far: attention (GQA, optional QKV bias, global or sliding-window,
-or DeepSeek-V2's multi-head latent attention) followed by a dense MLP or a
-top-k capacity-dispatch MoE, or a Mamba-1 mixer with no FFN, stacked as
-groups of repeating slots.  Fields the port cannot run yet are kept out
+runs so far: a mixer (attention: GQA, optional QKV bias, global or
+sliding-window, or DeepSeek-V2's multi-head latent attention; or Mamba-1)
+followed by a dense MLP, a top-k capacity-dispatch MoE or, after Mamba, no
+FFN, stacked as groups of repeating slots (Jamba's period mixes both
+mixers).  Fields the port cannot run yet are kept out
 rather than silently ignored; ``models.transformer.arch_spec`` takes
 rmsnorm or layernorm, silu, gelu (tanh) or relu, a gated or plain MLP (the
 MoE's experts stay gated silu), and rope or learned positions (none only
 for an attention-free stack), and refuses the rest: sinusoidal positions
-and modality frontends, a Mamba slot with an FFN.  The JAX package's
+and modality frontends, an attention slot with no FFN.  The JAX package's
 ``sharding_policy`` and ``moe_gather_weights`` are mesh hints and stay out
 too: the port has no mesh; so do ``long_context_mode`` and its
 ``for_shape`` rewrite, whose only consumers are the pod dry runs (ROADMAP
@@ -81,7 +82,7 @@ class Group:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                        # dense | moe | ssm
+    family: str                        # dense | moe | ssm | hybrid
     d_model: int
     vocab: int
     groups: tuple[Group, ...]

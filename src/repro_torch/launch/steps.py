@@ -4,8 +4,11 @@ Plain functions on tensors of one model: no mesh, no shardings, no jit.
 Each ``build_*`` function binds an architecture and a geometry and returns
 a step that takes the unstacked parameters viewed with a client axis of 1
 (``{path: t[None]}``, no copy).  Caches and pools are written in place
-and returned, as the JAX package's steps return theirs.  The train steps
-come with the pod runtime (ROADMAP Queue 1 item 14).
+and returned, as the JAX package's steps return theirs.  The monolithic
+steps serve every slot kind (attention, MLA, and Mamba through its
+``(h, conv)`` state, so hybrid and attention-free models too); the paged
+steps serve standard attention only.  The train steps come with the pod
+runtime (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ def build_prefill_step(cfg: ArchConfig, batch: int, seq: int,
                        dtype=torch.float32):
     """Prefill ``batch`` prompts of T <= ``seq`` tokens into a fresh
     monolithic cache of capacity ``seq`` (an MLA slot's is the compressed
-    one, ``ckv`` and ``krope``): step(params, tokens (B, T)) ->
+    one, ``ckv`` and ``krope``; a Mamba slot's is its state after the
+    prompt, ``h`` and ``conv``): step(params, tokens (B, T)) ->
     (last-position logits (B, vocab), cache)."""
     def prefill_step(params, tokens):
         cache = tf.init_cache(cfg, batch, seq, dtype, tokens.device)
@@ -30,7 +34,8 @@ def build_prefill_step(cfg: ArchConfig, batch: int, seq: int,
 
 def build_decode_step(cfg: ArchConfig):
     """One new token per sequence against a monolithic cache (an MLA slot
-    decodes in the absorbed formulation over its compressed cache):
+    decodes in the absorbed formulation over its compressed cache, a Mamba
+    slot advances its state by one step):
     step(params, cache, tokens (B, 1), pos) -> (logits (B, vocab), cache)."""
     def decode_step(params, cache, tokens, pos: int):
         logits, _ = tf.forward(cfg, params, tokens[None], cache=cache,

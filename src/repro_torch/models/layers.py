@@ -301,29 +301,47 @@ def mla_attention(b: Bundle, x: torch.Tensor, acfg: AttnCfg,
     return b.dense("wo", out.reshape(C, B, T, H * vd))
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 tail: torch.Tensor | None = None):
     """Depthwise causal conv1d per client.  x (C, B, T, Di), w (C, Di, Kc),
-    bias (C, Di).  The Kc shifted products are summed in the JAX order
-    (``F.conv1d`` sums in another)."""
+    bias (C, Di).  The Kc − 1 steps before x are ``tail`` (C, B, Kc − 1,
+    Di, of x's dtype), zeros when it is None.  The Kc shifted products are
+    summed in the JAX order (``F.conv1d`` sums in another)."""
     T, Kc = x.shape[2], w.shape[-1]
-    xp = F.pad(x, (0, 0, Kc - 1, 0))
+    xp = F.pad(x, (0, 0, Kc - 1, 0)) if tail is None \
+        else torch.cat([tail, x], dim=2)
     out = sum(xp[:, :, k:k + T] * _per_client(w[..., k], x.ndim)
               for k in range(Kc))
     return out + _per_client(bias, x.ndim)
 
 
-def mamba(b: Bundle, x: torch.Tensor, mcfg: MambaCfg) -> torch.Tensor:
-    """Mamba-1 block, training forward (no cache, h0 = 0).
-    x (C, B, T, D) -> (C, B, T, D).  The clients fold into the scan's batch
-    axis; ``a`` and ``bx`` (C·B, T, Di, N) float32 are freed before
-    ``out_proj``."""
+def mamba(b: Bundle, x: torch.Tensor, mcfg: MambaCfg,
+          cache: dict | None = None) -> torch.Tensor:
+    """Mamba-1 block.  x (C, B, T, D) -> (C, B, T, D).  The clients fold
+    into the scan's batch axis; ``a`` and ``bx`` (C·B, T, Di, N) float32 are
+    freed before ``out_proj``.
+
+    Without ``cache`` (training): h0 = 0 and the conv pads with zeros.
+    With ``cache`` (one model, C = 1: this layer's {"h": (B, Di, N)
+    float32, "conv": (B, Kc − 1, Di)}, written in place), T > 1 is a
+    prefill and T = 1 a decode step, both through the same scan launch:
+    the scan starts from ``h`` and ends in it, the conv reads ``conv`` as
+    the Kc − 1 steps before x and keeps the last Kc − 1 of the two.  On a
+    fresh (zero) cache that is bitwise the JAX ``mamba``'s prefill, which
+    pads with zeros; unlike it, a prefill onto a live cache continues the
+    conv window, and a prompt shorter than Kc − 1 leaves a whole window
+    (ROADMAP Queue 3).  At T = 1 it is the JAX step's formula, ``a·h + bx``
+    and its readout."""
     C, B, T, D = x.shape
     Di, N = mcfg.d_inner, mcfg.d_state
     dtr = mcfg.dt_rank or -(-D // 16)
 
     xz = b.dense("in_proj", x)                            # (C,B,T,2Di)
     xin, z = torch.split(xz, Di, dim=-1)
-    xc = F.silu(_causal_conv(xin, b.matw("conv_w"), b.vec("conv_b")))
+    tail = None if cache is None else cache["conv"][None].to(xin.dtype)
+    xc = F.silu(_causal_conv(xin, b.matw("conv_w"), b.vec("conv_b"), tail))
+    if cache is not None:
+        cache["conv"].copy_(torch.cat([tail, xin], dim=2)[0, :, T:])
 
     xdb = b.dense("x_proj", xc)                           # (C,B,T,dtr+2N)
     dt_in, B_in, C_in = torch.split(xdb, [dtr, N, N], dim=-1)
@@ -335,12 +353,14 @@ def mamba(b: Bundle, x: torch.Tensor, mcfg: MambaCfg) -> torch.Tensor:
 
     a = (dt.float()[..., None] * A[:, None, None]).exp_()
     bx = (dt * xc).float()[..., None] * B_in.float()[..., None, :]
-    h0 = torch.zeros((C * B, Di, N), dtype=torch.float32, device=x.device)
-    y, _ = kops.selective_scan(a.reshape(C * B, T, Di, N),
-                               bx.reshape(C * B, T, Di, N),
-                               C_in.float().reshape(C * B, T, N).contiguous(),
-                               h0)
+    h0 = torch.zeros((C * B, Di, N), dtype=torch.float32, device=x.device) \
+        if cache is None else cache["h"]
+    y, h_last = kops.selective_scan(
+        a.reshape(C * B, T, Di, N), bx.reshape(C * B, T, Di, N),
+        C_in.float().reshape(C * B, T, N).contiguous(), h0)
     del a, bx, h0
+    if cache is not None:
+        cache["h"].copy_(h_last)
 
     y = y.reshape(C, B, T, Di) + _per_client(b.vec("D_skip"), x.ndim) * xc
     y = y * F.silu(z)

@@ -1,24 +1,25 @@
 """Decoder: spec, forward, loss and the serving caches (the dense,
-MoE, MLA and Mamba-1 part of ``repro/models/transformer.py``).
+MoE, MLA, Mamba-1 and hybrid part of ``repro/models/transformer.py``).
 
 ``arch_spec`` produces the same leaf paths and shapes as the JAX package
 (``embed/tok``, ``embed/out`` when untied, ``embed/pos`` for learned
 positions, ``embed/ln_f_scale`` and, for layernorm, ``embed/ln_f_bias``,
 ``g{i}/s{j}/{wq,...}``, ``g{i}/s{j}/{wdq,...,wukv}`` (MLA) or
-``g{i}/s{j}/{in_proj,...}`` stacked over the
-group's reps, expert weights stacked over (reps, experts)).  The
-``lax.scan`` over a group's periods becomes a Python loop over the stacked
-layer axis; activations and parameters carry a leading client axis.
+``g{i}/s{j}/{in_proj,...}`` (Mamba), then the slot's FFN or MoE leaves,
+stacked over the group's reps, expert weights stacked over (reps,
+experts)).  Every slot runs its mixer and then its FFN or MoE, as the JAX
+``_apply_slot`` does.  The ``lax.scan`` over a group's periods becomes a
+Python loop over the stacked layer axis; activations and parameters carry
+a leading client axis.
 
 The serving caches (``init_cache``, ``init_paged_pool``) are keyed by slot
 (``"g0/s0"``), stacked over the group's reps, and serve one model: the
 forward writes them in place.  A sliding-window slot's ring holds
 ``min(window, capacity)`` positions, as the JAX package's does; its paged
 pool keeps every position's page, and the mask hides those past the
-window.  An MLA slot's ring is the compressed one (``ckv``, ``krope``);
-like the JAX package, the port does not page it.  Attention slots only: a
-Mamba slot's ``(h, conv)`` decode cache is not ported (ROADMAP Queue 1
-item 10).
+window.  An MLA slot's ring is the compressed one (``ckv``, ``krope``); a
+Mamba slot's cache is its recurrent state ``(h, conv)``.  Like the JAX
+package, the port pages neither.
 """
 from __future__ import annotations
 
@@ -36,13 +37,15 @@ LEARNED_POS_LEN = 4_096
 
 
 def _slot_ok(s: LayerCfg, cfg: ArchConfig) -> bool:
-    if s.mixer == "mamba":
-        return s.mamba is not None and s.ffn == "none" and s.moe is None
     if s.ffn == "moe" and not (cfg.act == "silu" and cfg.gated_mlp):
         return False                    # the MoE's experts are gated silu
+    if (s.ffn == "moe") != (s.moe is not None):
+        return False
+    if s.mixer == "mamba":
+        return (s.mamba is not None and s.attn is None
+                and s.ffn in ("none", "dense", "moe"))
     return (s.mixer == "attn" and s.attn is not None and s.mamba is None
-            and s.ffn in ("dense", "moe")
-            and (s.ffn == "dense") == (s.moe is None))
+            and s.ffn in ("dense", "moe"))
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -54,7 +57,8 @@ def _check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: the port runs rmsnorm or layernorm decoders with "
             "rope or learned positions, attention (global or sliding-window "
             "GQA, or MLA) and a dense MLP (silu, gelu or relu, gated or "
-            "not) or a gated silu MoE, or a Mamba-1 mixer and no FFN")
+            "not) or a gated silu MoE, or a Mamba-1 mixer followed by one of "
+            "those or by no FFN")
     if cfg.pos == "none" and any(s.mixer == "attn" for s in slots):
         raise NotImplementedError(
             f"{cfg.name}: attention without positions is not ported (the "
@@ -68,12 +72,10 @@ def _norm_spec(key: str, d: int, cfg: ArchConfig, st: tuple) -> dict:
     return s
 
 
-def _mamba_spec(m: MambaCfg, d: int, cfg: ArchConfig,
-                st: tuple) -> dict[str, LeafSpec]:
+def _mamba_spec(m: MambaCfg, d: int, st: tuple) -> dict[str, LeafSpec]:
     Di, N, Kc = m.d_inner, m.d_state, m.d_conv
     dtr = m.dt_rank or -(-d // 16)
-    return {**_norm_spec("ln_attn", d, cfg, st),
-            "in_proj": matrix(d, 2 * Di, stack=st),
+    return {"in_proj": matrix(d, 2 * Di, stack=st),
             "conv_w": matrix(Di, Kc, stack=st),
             "conv_b": vector(Di, stack=st),
             "x_proj": matrix(Di, dtr + 2 * N, stack=st),
@@ -103,11 +105,11 @@ def _mla_spec(a: AttnCfg, d: int, st: tuple) -> dict[str, LeafSpec]:
 def _slot_spec(slot: LayerCfg, cfg: ArchConfig,
                reps: int) -> dict[str, LeafSpec]:
     st, d = (reps,), cfg.d_model
-    if slot.mixer == "mamba":
-        return _mamba_spec(slot.mamba, d, cfg, st)
-    a = slot.attn
     s = _norm_spec("ln_attn", d, cfg, st)
-    if a.is_mla:
+    a = slot.attn
+    if slot.mixer == "mamba":
+        s.update(_mamba_spec(slot.mamba, d, st))
+    elif a.is_mla:
         s.update(_mla_spec(a, d, st))
     else:
         H, KV, hd = a.n_heads, a.n_kv_heads, a.head_dim
@@ -119,6 +121,8 @@ def _slot_spec(slot: LayerCfg, cfg: ArchConfig,
             s.update(bq=vector(H * hd, stack=st),
                      bk=vector(KV * hd, stack=st),
                      bv=vector(KV * hd, stack=st))
+    if slot.ffn == "none":
+        return s
     s.update(_norm_spec("ln_mlp", d, cfg, st))
     if slot.ffn == "dense":
         s["w1"] = matrix(d, slot.d_ff, stack=st)
@@ -160,29 +164,34 @@ def arch_spec(cfg: ArchConfig) -> dict[str, LeafSpec]:
 # serving caches (repro_torch.serve)
 # ---------------------------------------------------------------------------
 
-def _attn_slots(cfg: ArchConfig):
-    """(slot key, reps, AttnCfg) of every attention slot; a Mamba slot
-    raises (its decode cache is not ported)."""
-    out = []
-    for gi, g in enumerate(cfg.groups):
-        for si, slot in enumerate(g.slots):
-            if slot.mixer == "mamba":
-                raise NotImplementedError(
-                    f"{cfg.name}: the decode cache of a Mamba slot (its "
-                    "(h, conv) state) is not ported (ROADMAP Queue 1 item 10)")
-            out.append((f"g{gi}/s{si}", g.reps, slot.attn))
-    return out
+def _slots(cfg: ArchConfig):
+    """(slot key, reps, LayerCfg) of every slot."""
+    return [(f"g{gi}/s{si}", g.reps, slot)
+            for gi, g in enumerate(cfg.groups)
+            for si, slot in enumerate(g.slots)]
 
 
 def init_cache(cfg: ArchConfig, B: int, capacity: int,
                dtype=torch.float32, device="cpu") -> dict:
-    """Monolithic ring caches of ``capacity`` positions for B sequences of
-    one model (``min(window, capacity)`` in a sliding-window slot): slot ->
-    {"k", "v": (reps, B, cap, KV, hd), "kpos": (reps, cap) int64, -1 where
-    empty}; an MLA slot's is compressed: {"ckv": (reps, B, cap, kv_lora),
-    "krope": (reps, B, cap, rope_head_dim), "kpos"}."""
+    """Monolithic caches for B sequences of one model, keyed by slot.  An
+    attention slot's is a ring of ``capacity`` positions (``min(window,
+    capacity)`` in a sliding-window slot): {"k", "v": (reps, B, cap, KV,
+    hd), "kpos": (reps, cap) int64, -1 where empty}; an MLA slot's is
+    compressed: {"ckv": (reps, B, cap, kv_lora), "krope": (reps, B, cap,
+    rope_head_dim), "kpos"}.  A Mamba slot's is its recurrent state, of no
+    capacity: {"h": (reps, B, d_inner, d_state) float32, "conv": (reps, B,
+    d_conv - 1, d_inner)}, the JAX package's shapes."""
     out = {}
-    for key, reps, a in _attn_slots(cfg):
+    for key, reps, slot in _slots(cfg):
+        if slot.mixer == "mamba":
+            m = slot.mamba
+            out[key] = {
+                "h": torch.zeros((reps, B, m.d_inner, m.d_state),
+                                 dtype=torch.float32, device=device),
+                "conv": torch.zeros((reps, B, m.d_conv - 1, m.d_inner),
+                                    dtype=dtype, device=device)}
+            continue
+        a = slot.attn
         cap = capacity if a.window is None else min(a.window, capacity)
         if a.is_mla:
             shapes = {"ckv": (reps, B, cap, a.kv_lora),
@@ -217,7 +226,8 @@ def init_paged_pool(cfg: ArchConfig, n_pages: int, page_size: int,
     page_size, KV, hd)}."""
     check_paged_support(cfg)
     out = {}
-    for key, reps, a in _attn_slots(cfg):
+    for key, reps, slot in _slots(cfg):
+        a = slot.attn
         shape = (reps, n_pages + 1, page_size, a.n_kv_heads, a.head_dim)
         out[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                     "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -274,16 +284,16 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     layer (0 for a dense decoder).
 
     Serving (one model, C = 1): with ``cache`` from :func:`init_cache`,
-    ``pos`` (an int) is the absolute position of tokens[..., 0] and the
-    ring is written in place.  With ``paged_table`` (B, Pb) as well,
+    ``pos`` (an int) is the absolute position of tokens[..., 0] and every
+    slot's cache is written in place.  With ``paged_table`` (B, Pb) as well,
     ``cache`` is a pool from :func:`init_paged_pool`, ``pos`` a (B,)
     tensor of per-request positions, T is 1, and attention runs
     :func:`~repro_torch.models.layers.paged_attention` (written in place
     too).  Learned positions are clipped at ``LEARNED_POS_LEN - 1``.
     An MLA slot runs :func:`~repro_torch.models.layers.mla_attention`
-    (no paged path)."""
-    if cache is not None:
-        _attn_slots(cfg)              # a Mamba slot has no decode cache
+    and a Mamba slot :func:`~repro_torch.models.layers.mamba` (a prefill or
+    one decode step on its ``(h, conv)`` state with a cache; neither has a
+    paged path).  Every slot's FFN or MoE follows its mixer."""
     if paged_table is not None:
         check_paged_support(cfg)
     emb = Bundle(params, sub, pert, "embed/")
@@ -303,11 +313,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             for si, slot in enumerate(g.slots):
                 b = Bundle(params, sub, pert, f"g{gi}/s{si}/", layer)
                 h = L.norm(b, "ln_attn", x, cfg.norm)
-                if slot.mixer == "mamba":
-                    x = x + L.mamba(b, h, slot.mamba)
-                    continue
                 lc = _layer_cache(cache, f"g{gi}/s{si}", layer)
-                if slot.attn.is_mla:
+                if slot.mixer == "mamba":
+                    x = x + L.mamba(b, h, slot.mamba, lc)
+                elif slot.attn.is_mla:
                     x = x + L.mla_attention(b, h, slot.attn, cfg.rope_theta,
                                             pos, lc)
                 elif paged_table is not None:

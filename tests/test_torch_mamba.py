@@ -49,7 +49,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.models.perturb import epoch_subspace as jepoch_subspace  # noqa: E402
 from repro.models.perturb import sample_pert as jsample_pert  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
-from repro_torch.configs.base import AttnCfg, Group, LayerCfg  # noqa: E402
+from repro_torch.configs.base import AttnCfg, Group, LayerCfg, MoECfg  # noqa: E402
 from repro_torch.core import subcge as tsub  # noqa: E402
 from repro_torch.data.synthetic import TaskConfig  # noqa: E402
 from repro_torch.dtrain.runner import DTrainConfig, run  # noqa: E402
@@ -134,9 +134,13 @@ def test_attention_without_positions_is_refused():
     mixed = dataclasses.replace(arch, groups=(Group((attn,), 1),))
     with pytest.raises(NotImplementedError, match="without positions"):
         ttf.arch_spec(mixed)
+    # a Mamba slot may take an FFN (Jamba), but the MoE's experts are gated
+    # silu: one after a Mamba slot of a plain-MLP model is refused
+    moe = MoECfg(n_experts=4, top_k=2, d_ff_expert=64)
     with pytest.raises(NotImplementedError):
-        ttf.arch_spec(dataclasses.replace(arch, groups=(Group((
-            dataclasses.replace(arch.groups[0].slots[0], ffn="dense"),), 1),)))
+        ttf.arch_spec(dataclasses.replace(arch, gated_mlp=False, groups=(
+            Group((dataclasses.replace(arch.groups[0].slots[0], ffn="moe",
+                                       moe=moe),), 1),)))
 
 
 @pytest.mark.parametrize("d_state", [4, 16])

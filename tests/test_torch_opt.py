@@ -33,6 +33,7 @@ from repro.models import layers as jL, transformer as jtf  # noqa: E402
 from repro.models.perturb import epoch_subspace as jepoch_subspace  # noqa: E402
 from repro.models.perturb import sample_pert as jsample_pert  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
+from repro_torch.configs.base import MoECfg  # noqa: E402
 from repro_torch.data.synthetic import TaskConfig  # noqa: E402
 from repro_torch.dtrain.runner import DTrainConfig, run  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
@@ -180,13 +181,15 @@ def test_seedflood_run_matches_jax():
 
 
 def _mamba_then_ffn():
-    """A Mamba slot followed by a dense FFN (Jamba's odd slots without the
-    MoE; ROADMAP Queue 1 item 10): ``_slot_ok`` refuses it."""
+    """A Mamba slot followed by an MoE (Jamba's odd slots) in OPT-125M's
+    plain relu model: a Mamba slot may take an FFN, but the MoE's experts
+    are gated silu, so ``_slot_ok`` refuses it."""
     falcon = tarchs.get("falcon-mamba-7b")
     (slot,) = falcon.groups[0].slots
+    moe = MoECfg(n_experts=4, top_k=2, d_ff_expert=2 * falcon.d_model)
     return dict(groups=(dataclasses.replace(
         falcon.groups[0], slots=(dataclasses.replace(
-            slot, ffn="dense", d_ff=2 * falcon.d_model),)),))
+            slot, ffn="moe", moe=moe),)),))
 
 
 @pytest.mark.parametrize("change", [_mamba_then_ffn(), dict(pos="sinusoidal"),

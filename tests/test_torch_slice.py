@@ -52,6 +52,8 @@ RING8_LEDGER = {(3, None, False): (368, 2944), (6, 1, True): (768, 6144)}
 # ... and a ring of 4 with full flooding (its Gemma 3 1B long-sequence arm
 # and its Qwen2-72B cut): steps -> (messages, bytes)
 RING4_LEDGER = {2: (56, 448), 3: (88, 704)}
+# ... and a ring of 3, 3 steps (its Jamba cut)
+RING3_LEDGER = (42, 336)
 
 
 def test_full_flood_run_matches_jax():
@@ -115,3 +117,7 @@ def test_ring8_ledger_matches_jax(key):
 @pytest.mark.parametrize("steps", sorted(RING4_LEDGER))
 def test_ring4_ledger_matches_jax(steps):
     assert _ring_ledgers(4, steps) == (RING4_LEDGER[steps],) * 2
+
+
+def test_ring3_ledger_matches_jax():
+    assert _ring_ledgers(3, 3) == (RING3_LEDGER,) * 2
