@@ -18,7 +18,13 @@ no result line):
              capacity 99, the untied logits at N = 102,400) and Jamba cut
              (3 clients: d8192 with d_inner 16,384 and ff 24,576, 2 experts
              at capacity 330, the untied logits at N = 65,536; the scan at
-             D 16,384) shapes the paths give it, and the scan at the
+             D 16,384), MusicGen-medium (8 clients: d1536, ff 6144, the
+             untied logits at N = 2048) and InternVL2-26B cut (the pod
+             step's: 8 clients over one W expanded with a client stride of
+             0, M = 2 x 1057 rows a client, the untied logits at N =
+             92,553; the projector, K 3200, N 6144 at M = 2 x 1024, a unit
+             of its own; the update of one model; three timed calls a
+             shape) shapes the paths give it, and the scan at the
              serving shapes of phase 17 (b) and (c) (8 sequences: a
              512-token prefill and a decode step, T = 1), held against its
              plain PyTorch version (rtol 1e-5, atol 1e-5, float32; the
@@ -76,20 +82,25 @@ no result line):
              engine runs on both sides), every other method of the
              registry on the sim arch (d64, 4 clients on a ring, gossip
              every step) and dsgd on the reduced Falcon Mamba (autograd
-             through the scan kernel's backward), on the card and on the
-             CPU (the kernels' plain versions); results must agree.
+             through the scan kernel's backward), the reduced MusicGen
+             through ``run`` and the reduced MusicGen and InternVL with
+             their embeddings through the pod SeedFlood step (the card's
+             coefficients held to the CPU's, the card fed the CPU's), and
+             one update with a frozen matrix and a frozen vector (bitwise
+             untouched), on the card and on the CPU (the kernels' plain
+             versions); results must agree.
 9. baselines — first the four kernels at the shapes these paths give
              them (central_zo's dual forward over one OPT-125M expanded to
              16 clients with a client stride of 0, updates of one model),
              held against their plain versions and timed as in phase 2;
              then every baseline of the paper's §4.2 through the same entry
              point at OPT-125M's full published width, 16 clients on a
-             ring, 3 steps, gossip every step (``local_iters=1``):
+             ring, 2 steps, gossip every step (``local_iters=1``):
              central_zo (plain and with momentum 0.9), gossip_sr, dzsgd,
              dsgd, choco and the three LoRA variants.  Each arm's ledger
              must be the JAX transport's formula, its losses finite and its
              peak memory under 80 GiB; central_zo must launch
-             ``rank1_matmul`` 432 times and ``rank1_matmul_t`` 6 times and
+             ``rank1_matmul`` 288 times and ``rank1_matmul_t`` 4 times and
              ``subcge_apply`` at least once in both arms, gossip_sr
              ``subcge_apply_epochs``.  Then the first-order arms through
              Mamba layers: dsgd (4 clients) and choco (3: at 4 its
@@ -117,7 +128,7 @@ no result line):
              layers, d2048, 32 heads of 64 over 4 kv heads, ff 5632, vocab
              32000, untied), one model of random float32 weights from seed
              0, 8 slots over a pool of 128 pages of 16 positions: (a) 16
-             greedy requests (prompts of 16-192 tokens from seed 0, 32 new
+             greedy requests (prompts of 16-192 tokens from seed 0, 16 new
              tokens each) must equal, token for token, their monolithic
              streams (prefill and decode over a ring of 256); steps,
              prefills, decodes, the steady decode step (median, spread),
@@ -162,7 +173,7 @@ no result line):
              tokens, 2 steps, the JAX ledger of a ring of 4, and on one
              model's weights the loss with the windows differs from the
              loss without them; (c) serving past the window: 8 greedy
-             requests of 520-700 prompt tokens and 32 new through 8 slots
+             requests of 520-700 prompt tokens and 16 new through 8 slots
              over pages of 16 equal their monolithic streams (rings of 512
              in the local slots) token for token, and one of them a
              no-cache recompute; then a live fold at C = 1, E = 2 equals
@@ -212,8 +223,34 @@ no result line):
              in each of them and no other launch; prefill ms, the decode
              step's median, spread and bound, tok/s, the cache's bytes and
              the peak are printed.
-18. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+18. frontend — the frontend archs, random float32 weights from seed 0:
+             (a) MusicGen-medium whole (48 layers, d1536, 24 heads of 64,
+             plain gelu ff 6144, layernorm, sinusoidal positions, untied
+             vocab 2048, the 768 -> 1536 projector) through ``run``, 8
+             clients on a ring, 3 steps, text-only as the JAX Trainer: the
+             JAX ledger, consensus < 1e-10, 1,734 ``rank1_matmul`` and no
+             ``rank1_matmul_t`` launches, both updates, and the projector
+             moved by the update though no loss reads it; (b) the
+             InternVL2-26B cut (1 of 48 layers at every width: d6144, 48
+             heads of 128 over 8 kv, gated silu ff 16,384, the untied
+             92,553 vocabulary and the 3200 -> 6144 projector) through
+             ``launch.steps``' pod SeedFlood step, 8 clients sharing one
+             model, each 2 sequences of 1024 patch embeddings and 33
+             tokens, 3 steps: 54 ``rank1_matmul`` (the projector's among
+             them) and 30 ``subcge_apply`` launches, then one step under
+             torch.profiler (the card's busy share), then the pod DSGD
+             step for 2 steps (no hand-written kernel); steady step, peak
+             and launches printed; (c) ``python -m
+             repro_torch.launch.train`` on MusicGen-medium whole, 2 steps,
+             its step-2 checkpoint read back bitwise; (d) both served
+             through ``build_prefill_step`` with their embeddings (the
+             InternVL cut 1024 patches + 32 tokens, MusicGen 64 frames +
+             512 tokens) and 32 decode steps, held to one no-cache forward
+             at rtol / atol 3e-4; every paged builder refuses both.
+19. report — one JSON line ``{"kernels": [...]}``, the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
+
+A line ``[t] phase N took S s`` follows each phase.
 
 ``--profile`` adds a torch.profiler breakdown of one steady full-width step
 of each slice (Gemma 3 1B's and the DeepSeek-V2 and Jamba cuts' too), of
@@ -251,8 +288,10 @@ LEDGER_RING8_6STEPS_K1_DRAIN = (768, 6144)
 # (tests/test_torch_paper_setting.py pins the port to the same values)
 LEDGER_MESHGRID64_3STEPS = (43000, 344000)
 PAPER_CLIENTS, PAPER_TOPOLOGY = 64, "meshgrid"
-# phase 9: the paper's Table 8 runs its baselines with 16 clients
-BASELINE_CLIENTS, BASELINE_STEPS = 16, 3
+# phase 9: the paper's Table 8 runs its baselines with 16 clients; 2 steps
+# (3 until the frontend phase needed the time: gossip_sr's steady step is
+# 10-15 s)
+BASELINE_CLIENTS, BASELINE_STEPS = 16, 2
 BASELINE_ARMS = (("central_zo", {}), ("central_zo", {"momentum": 0.9}),
                  ("gossip_sr", {}), ("dzsgd", {}), ("dsgd", {}),
                  ("choco", {}), ("dsgd_lora", {}), ("dzsgd_lora", {}),
@@ -277,12 +316,13 @@ LEDGER_MESHGRID64_CHURN_6STEPS = (82602, 668088, 15912, 18)
 # be 30.2 GiB)
 RESUME_CLIENTS, RESUME_STEPS = 8, 5
 # phase 12: serving TinyLlama-1.1B whole (float32, random weights from seed
-# 0): 16 requests of prompts drawn between 16 and 192 tokens and 32 new
-# tokens each through 8 slots, so that admission, eviction and page reuse
-# all happen; the monolithic reference decodes over a ring of SERVE_MAX_SEQ
+# 0): 16 requests of prompts drawn between 16 and 192 tokens and 16 new
+# tokens each (32 until the frontend phase needed the time) through 8
+# slots, so that admission, eviction and page reuse all happen; the
+# monolithic reference decodes over a ring of SERVE_MAX_SEQ
 SERVE_ARCH = "tinyllama-1.1b"
 SERVE_GEOMETRY = dict(max_batch=8, page_size=16, max_seq=256, n_pages=128)
-SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (16, 192)
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 16, (16, 192)
 # the live-update fold: the messages of 8 trainer clients over 2 steps at
 # tau = 1 (so E = 2), folded at the start of server step 3, rank 16
 SERVE_FOLD_CLIENTS, SERVE_FOLD_STEPS, SERVE_FOLD_E, SERVE_FOLD_AT = 8, 2, 2, 3
@@ -365,6 +405,32 @@ JAMBA_CLIENTS = 3
 # token to both of its 2 experts (top-2), so the published capacity factor
 # of 1.25 drops none and prefill, decode and forward route alike
 MAMBA_SERVE_B, MAMBA_PROMPT, MAMBA_NEW = 8, 512, 32
+# phase 18: the frontend archs, random float32 weights from seed 0.  (a)
+# MusicGen-medium whole (48 layers, 1,366,723,584 parameters, 5.09 GiB a
+# client) through run with the DTrainConfig defaults: 8 clients on a ring,
+# B 8, T 33, 3 steps, text-only as the JAX Trainer (its projector takes
+# updates no loss reads: the reference's behaviour); 40.7 GiB of params
+MUSICGEN_ARCH = "musicgen-medium"
+# (b) the InternVL2-26B cut (archs.internvl_cut: 1 of 48 layers at every
+# width, the untied 92,553 vocabulary and the 3200 x 6144 projector; 5.76
+# GiB) through the pod steps: 8 clients share one model, each with B 2
+# sequences of 1024 patch embeddings and 33 tokens; 3 SeedFlood steps and
+# one profiled, then 2 DSGD steps, at the PodConfig defaults (lr 1e-5,
+# rank 32, tau 1000)
+POD_CLIENTS, POD_B, POD_TEXT = 8, 2, 33
+POD_SF_STEPS, POD_DSGD_STEPS = 3, 2
+# (c) the launch.train CLI on MusicGen-medium whole: 2 steps of 8 clients x
+# 2 sequences of 64 conditioning frames and 33 tokens, a checkpoint at
+# step 2, read back bitwise
+CLI_ARGV = ["--arch", MUSICGEN_ARCH, "--steps", "2", "--batch", "16",
+            "--seq", "97", "--n-clients", "8", "--ckpt-every", "2"]
+# (d) serving one model of each: 8 greedy sequences, the embeddings and a
+# prompt prefilled, 32 decode steps, held to one no-cache forward at
+# FORWARD_TOL: the InternVL cut 1024 patches + 32 tokens, MusicGen 64
+# frames + 512 tokens (608 positions: past no table, sinusoidal positions
+# are unclipped)
+FRONTEND_SERVE_B, FRONTEND_NEW = 8, 32
+INTERNVL_PROMPT, MUSICGEN_PROMPT = 32, 512
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -382,6 +448,9 @@ SOURCES = {
     "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
                            "src/repro/models/layers.py:327"),
 }
+# phase 8: steps of each small-input run (3 until the frontend phase needed
+# the time)
+SMALL_STEPS = 2
 # batch of the final accuracy pass (``data.synthetic.accuracy``)
 EVAL_BATCH = 128
 # the slices' runs: clients on a ring and sequences per client (32 tokens and
@@ -559,13 +628,15 @@ def plain_split(chunk, K: int, kper: int):
 
 
 def check_rank1(e: Entry, C: int, M: int, shapes, randn,
-                trans: bool = False, shared: bool = False) -> None:
+                trans: bool = False, shared: bool = False,
+                reps: int = 10) -> None:
     """rank1_matmul (rank1_matmul_t when ``trans``) at (K, N) shapes,
     ``count`` uses each per unit, held against the plain version summed
     over the kernel's K ranges (``plain_split``) and bitwise equal across
     two calls.  W and the contracted vector are scaled by K^-1/2.  ``shared``:
     one W for all C clients, expanded with a client stride of 0 (central_zo's
-    dual forward over its one model)."""
+    dual forward over its one model, and the pod step's over its one).
+    ``reps`` timed calls each (fewer where one call takes a second)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rank1_matmul as r1
@@ -595,9 +666,9 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
         cvec, ovec = (v, u) if trans else (u, v)
         R = (s[:, None, None] * torch.bmm(x, cvec[..., None])) * ovec[:, None, :]
         Wn = W.transpose(1, 2) if trans else W
-        ms = time_ms(lambda: fn(x, W, u, v, s))
-        p_ms = time_ms(lambda: plain(x, W, u, v, s))
-        l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn))
+        ms = time_ms(lambda: fn(x, W, u, v, s), reps)
+        p_ms = time_ms(lambda: plain(x, W, u, v, s), reps)
+        l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn), reps)
         nbytes = 4 * (C * M * K + CW * K * N + C * K + C * N + C + C * M * N)
         flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
         shape = f"W({CW},{N},{K})" if trans else f"W({CW},{K},{N})"
@@ -686,11 +757,11 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
 def run_slice(arch, what, phase, card: str, clients: int = SLICE_CLIENTS,
               topology="ring", ledger=LEDGER_RING8_3STEPS,
               engine="FloodNetwork", steps: int = 3, batch: int = SLICE_B,
-              task=None):
+              task=None, inspect=None):
     """``steps`` SeedFlood steps through ``run`` (3 steps of 8 clients on a
     ring, B 8, T 33, unless told otherwise), launch counters zeroed just
     before and read just after; returns the launches and the run's
-    numbers."""
+    numbers (with ``inspect(result)``'s, when given)."""
     import torch
     from repro_torch.data import synthetic
     from repro_torch.dtrain.runner import DTrainConfig, run
@@ -711,7 +782,7 @@ def run_slice(arch, what, phase, card: str, clients: int = SLICE_CLIENTS,
            "n_params": res.extra["n_params"], "losses": res.loss_curve,
            "gmp": res.gmp, "valid_loss": res.extra["valid_loss"],
            "consensus": res.consensus_error, "run_s": wall,
-           "launches": launches}
+           "launches": launches, **(inspect(res) if inspect else {})}
     log(f"[{phase}] {what}: {arch.name} ({out['n_params']} params) x "
         f"{clients} clients, {topology}, {res.extra['engine']}, {steps} "
         f"steps of {batch} x "
@@ -1410,8 +1481,9 @@ def phase_baselines(opt, B: int, card: str):
         if not peak < 80:
             raise AssertionError(f"baselines {arm}: peak memory {peak} GiB")
         if method == "central_zo":
-            for name, n in (("rank1_matmul", 6 * n_layers * 2 * 3),
-                            ("rank1_matmul_t", 2 * 3)):
+            for name, n in (("rank1_matmul",
+                             6 * n_layers * 2 * BASELINE_STEPS),
+                            ("rank1_matmul_t", 2 * BASELINE_STEPS)):
                 if launches.get(name, 0) != n:
                     raise AssertionError(
                         f"baselines {arm}: {name} launched "
@@ -2488,9 +2560,14 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
     same positions.  Launch counters are zeroed just before and read just
     after: the projections are unperturbed (``torch.bmm``, no kernel), and
     each Mamba slot launches ``selective_scan`` once in the prefill, in
-    each decode step and in the forward.  The decode step's bound: every
-    weight read once (of the token embedding only B rows), the cache read
-    and written.  Returns the launches and the numbers."""
+    each decode step and in the forward.  A frontend arch's prefill takes
+    B x n_embeds stubbed embeddings (standard normal, from SERVE_SEED)
+    ahead of the prompt: the cache then holds n_embeds + P + new
+    positions, decoding starts at n_embeds + P, and the forward takes the
+    same embeddings.  The decode step's bound: every weight read once (of
+    the token embedding only B rows; not the projector, which a decode
+    step does not read), the cache read and written.  Returns the
+    launches and the numbers."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
@@ -2498,13 +2575,18 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
     from repro_torch.models import params as plib
     from repro_torch.models import transformer as tf
 
-    cap = P + new
+    fe = arch.frontend
+    n_e = fe.n_embeds if fe is not None else 0
+    cap = n_e + P + new
     spec = tf.arch_spec(arch)
     view = {k: t[None] for k, t in tf.init_params(arch, SERVE_SEED,
                                                   "cuda").items()}
     rng = np.random.default_rng(SERVE_SEED)
     prompts = torch.as_tensor(rng.integers(0, arch.vocab, (B, P)),
                               device="cuda")
+    embeds = None if fe is None else torch.as_tensor(
+        rng.standard_normal((B, n_e, fe.embed_dim)), dtype=torch.float32,
+        device="cuda")
     prefill = steplib.build_prefill_step(arch, B, cap)
     decode = steplib.build_decode_step(arch)
     torch.cuda.synchronize()
@@ -2512,14 +2594,14 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
     build.reset_launches()
     with torch.no_grad():
         t0 = time.perf_counter()
-        last, cache = prefill(view, prompts)
+        last, cache = prefill(view, prompts, embeds)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         rows, fed, step_ms = [last], [], []
         for i in range(new):
             fed.append(rows[-1].argmax(-1)[:, None])
             t0 = time.perf_counter()
-            lg, cache = decode(view, cache, fed[-1], P + i)
+            lg, cache = decode(view, cache, fed[-1], n_e + P + i)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
             rows.append(lg)
@@ -2534,8 +2616,9 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
                           for c in cache.values() for k, t in c.items()
                           if k != "kpos")
         del cache
-        full = tf.forward(arch, view, torch.cat([prompts] + fed, 1)[None])[0]
-        ref = full[0, :, P - 1:].transpose(0, 1)          # (new + 1, B, V)
+        full = tf.forward(arch, view, torch.cat([prompts] + fed, 1)[None],
+                          embeds=None if fe is None else embeds[None])[0]
+        ref = full[0, :, n_e + P - 1:].transpose(0, 1)    # (new + 1, B, V)
         del full
     launches = dict(build.LAUNCHES)
     got = torch.stack(rows)
@@ -2551,7 +2634,8 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
                       + (s.attn.v_head_dim or s.attn.head_dim)) * 4
                    for reps, s in slots if s.attn and s.attn.is_mla)
     scans = sum(reps for reps, s in slots if s.mixer == "mamba")
-    weight_bytes = 4 * (plib.n_params(spec) - (arch.vocab - B) * arch.d_model)
+    weight_bytes = 4 * (plib.n_params(spec) - (arch.vocab - B) * arch.d_model
+                        - (fe.embed_dim * arch.d_model if fe else 0))
     bound_ms = (weight_bytes + 2 * cache_bytes) / PEAK_HBM_BYTES * 1e3
     steady = sorted(step_ms[1:])
     out = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
@@ -2567,9 +2651,11 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
     caps = sorted({s.moe.capacity_factor for _, s in slots if s.moe})
     kv = (f" against {expanded} B of expanded K/V "
           f"({expanded / cache_bytes:.1f}x)") if expanded else ""
+    front = f"{n_e} embeddings and a " if fe else "a "
     log(f"[{tag}] serving {arch.name} ({plib.n_params(spec)} params"
-        f"{f', capacity factor {caps}' if caps else ''}): {B} sequences, a "
-        f"{P}-token prefill in {prefill_ms:.1f} ms into a cache of {cap}, "
+        f"{f', capacity factor {caps}' if caps else ''}): {B} sequences, "
+        f"{front}{P}-token prefill in {prefill_ms:.1f} ms into a cache of "
+        f"{cap}, "
         f"{new} decode steps: median {out['steady_median_ms']:.2f} ms "
         f"(spread {out['steady_spread_ms'][0]:.2f}-"
         f"{out['steady_spread_ms'][1]:.2f}, first {step_ms[0]:.2f}; bound "
@@ -2642,6 +2728,351 @@ def phase_jamba(jamba, falcon_whole, card: str) -> dict:
                                          MAMBA_NEW)}
 
 
+def phase_kernels_pod(arch, C: int, B: int, T: int) -> dict:
+    """The kernels of the pod SeedFlood step (phase 18 (b)) at ``arch``'s
+    shapes: C clients sharing one model (W expanded with a client stride
+    of 0), each with B sequences of the frontend's P embeddings and T
+    tokens.  ``rank1_matmul``: one layer's seven projections and the
+    untied logits at M = B (P + T) per client; the projector at M = B P,
+    K = embed_dim, as a unit of its own (key ``proj``); ``subcge_apply``:
+    one update of every matrix leaf of the one model.  Three timed calls a
+    shape: at the logits one call computes 19 TFLOP."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    slot = arch.groups[0].slots[0]
+    a, d, ff = slot.attn, arch.d_model, slot.d_ff
+    q, kv = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
+    P = arch.frontend.n_embeds
+    layer: dict = {}
+    for shape in ([(d, q), (d, kv), (d, kv), (q, d), (d, ff)]
+                  + [(d, ff)] * arch.gated_mlp + [(ff, d), (d, arch.vocab)]):
+        layer[shape] = layer.get(shape, 0) + 1
+    units = {"pod": {"rank1_matmul": Entry("rank1_matmul"),
+                     "subcge_apply": Entry("subcge_apply")},
+             "proj": {"rank1_matmul": Entry("rank1_matmul")}}
+    check_rank1(units["pod"]["rank1_matmul"], C, B * (P + T),
+                tuple(layer.items()), randn, shared=True, reps=3)
+    check_rank1(units["proj"]["rank1_matmul"], C, B * P,
+                (((arch.frontend.embed_dim, d), 1),), randn, shared=True,
+                reps=3)
+    check_update(units["pod"]["subcge_apply"], update_leaves(arch, 1), 1,
+                 randn)
+    return units
+
+
+def pod_run(arch, card: str) -> dict:
+    """Phase 18 (b): ``launch.steps``' pod SeedFlood step on one model of
+    ``arch`` shared by POD_CLIENTS clients, each with POD_B sequences of
+    the frontend's embeddings and POD_TEXT tokens (``make_train_batch``,
+    seeded by the step), POD_SF_STEPS steps, launch counters zeroed just
+    before and read just after; one more step under torch.profiler (busy
+    share); then the pod DSGD step, POD_DSGD_STEPS steps, which launches
+    no hand-written kernel (autograd through plain products).  Each
+    signed forward runs the projector, the layer's seven projections and
+    the logits through ``rank1_matmul``, and each step one
+    ``subcge_apply`` per matrix leaf; losses finite, the projector moved,
+    peak under 80 GiB."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+
+    pod = steplib.PodConfig(n_clients=POD_CLIENTS)
+    seq, gb = arch.frontend.n_embeds + POD_TEXT, POD_CLIENTS * POD_B
+    spec = tf.arch_spec(arch)
+    n_params = plib.n_params(spec)
+    n_matrix = sum(m.is_matrix for m in plib.subcge_meta(spec).values())
+    params = tf.init_params(arch, 0, "cuda")
+    init_proj = params["frontend/proj"].clone()
+    out = {}
+    for kind, build_step, steps in (
+            ("seedflood", steplib.build_seedflood_train_step, POD_SF_STEPS),
+            ("dsgd", steplib.build_dsgd_train_step, POD_DSGD_STEPS)):
+        step_fn = build_step(arch, pod)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        wall, metrics = [], []
+        t_run = time.perf_counter()
+        for t in range(steps):
+            batch = steplib.make_train_batch(arch, seq, gb, pod, seed=t,
+                                             device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, m = step_fn(params, batch, t)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = None
+        if kind == "seedflood":
+            batch = steplib.make_train_batch(arch, seq, gb, pod, seed=steps,
+                                             device="cuda")
+            prof = profile_step(lambda: step_fn(params, batch, steps))
+        moved = float((params["frontend/proj"] - init_proj).abs().max())
+        losses = [m["loss"] for m in metrics]
+        o = {"step_s": wall, "steady_step_ms": 1e3 * sum(wall[1:])
+             / len(wall[1:]), "first_step_ms": 1e3 * wall[0],
+             "metrics": metrics, "peak_gib": peak, "launches": launches,
+             "proj_moved": moved, "run_s": time.perf_counter() - t_run,
+             "profile": prof}
+        log(f"[18b] pod {kind}: {arch.name} ({n_params} params, one copy) "
+            f"x {POD_CLIENTS} clients x {POD_B} sequences of "
+            f"{arch.frontend.n_embeds} embeddings + {POD_TEXT} tokens, "
+            f"{steps} steps: metrics {metrics}; first step "
+            f"{o['first_step_ms']:.1f} ms, steady {o['steady_step_ms']:.1f} "
+            f"ms ({wall}); peak {peak:.2f} GiB; projector moved by "
+            f"{moved:.3e}; launches {launches}"
+            + (f"; one profiled step {prof}" if prof else "") + f" ({card})")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"pod {kind}: non-finite loss {losses}")
+        if kind == "seedflood":
+            want = {"rank1_matmul": (arch.n_layers * 7 + 2) * 2 * steps,
+                    "subcge_apply": n_matrix * steps}
+        else:
+            want = {}
+        if launches != want:
+            raise AssertionError(f"pod {kind}: launches {launches}, not "
+                                 f"{want}")
+        if not moved > 0:
+            raise AssertionError(f"pod {kind}: the projector did not move")
+        if not peak < 80:
+            raise AssertionError(f"pod {kind}: peak memory {peak} GiB")
+        init_proj = params["frontend/proj"].clone()
+        out[kind] = o
+        del batch
+        torch.cuda.empty_cache()
+    del params, init_proj
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_run(card: str) -> dict:
+    """Phase 18 (c): ``python -m repro_torch.launch.train`` on
+    MusicGen-medium whole (``CLI_ARGV``), in this process, checkpoints
+    into a temporary directory: the losses finite, the test accuracy
+    printed, the step-2 checkpoint read back bitwise equal to the
+    parameters the CLI ended with, then removed."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as trainlib
+    from repro_torch.models import params as plib
+
+    build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = trainlib.run(CLI_ARGV + ["--ckpt-dir", tmp])
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        (path,) = res["checkpoints"]
+        nbytes = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        tree, meta = ckpt.load(path)
+        read_s = time.perf_counter() - t0
+        flat = plib.flatten(tree)
+        if set(flat) != set(res["params"]) or meta.get("step") != 2:
+            raise AssertionError(f"cli: checkpoint holds {sorted(flat)} at "
+                                 f"step {meta.get('step')}")
+        for p, t in res["params"].items():
+            got = torch.as_tensor(flat[p])
+            if not torch.equal(got.view(torch.int32),
+                               t.cpu().view(torch.int32)):
+                raise AssertionError(f"cli: checkpoint leaf {p} differs")
+    out = {"losses": res["losses"], "accuracy": res["accuracy"],
+           "train_s": res["seconds"], "wall_s": wall, "ckpt_bytes": nbytes,
+           "ckpt_read_s": read_s, "launches": launches}
+    log(f"[18c] cli: {' '.join(CLI_ARGV)}: losses {res['losses']}, test "
+        f"accuracy {res['accuracy']}, {res['seconds']:.1f} s of training, "
+        f"{wall:.1f} s in all; checkpoint {nbytes} B read back bitwise in "
+        f"{read_s:.1f} s; launches {launches} ({card})")
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise AssertionError(f"cli: non-finite loss {res['losses']}")
+    if launches.get("rank1_matmul", 0) <= 0 \
+            or launches.get("subcge_apply", 0) <= 0:
+        raise AssertionError(f"cli: launches {launches}")
+    del res, tree, flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_frontend(musicgen, internvl, card: str) -> dict:
+    """Phase 18: the frontend archs.  (a) MusicGen-medium whole through
+    ``run``: the JAX ledger of the ring of 8, consensus < 1e-10, six
+    projections a layer and the untied logits through ``rank1_matmul`` in
+    both signed forwards of 3 steps, no tied logits, both updates, and the
+    projector ``frontend/proj`` moved by the update though no loss reads
+    it; (b) the InternVL cut through the pod steps (``pod_run``); (c) the
+    train CLI (``cli_run``); (d) both served with their embeddings
+    (``serve_cached``), and every paged builder refusing both.  Returns
+    {key: (launches, numbers)}."""
+    import torch
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+
+    spec = tf.arch_spec(musicgen)
+    init_proj = plib.init_params({"frontend/proj": spec["frontend/proj"]}, 0,
+                                 "cuda")["frontend/proj"]
+
+    def proj_moved(res):
+        fin = res.extra["final_stacked"]["frontend/proj"]
+        return {"proj_moved": float((fin - init_proj).abs().max())}
+
+    launches, a = run_slice(musicgen, "musicgen", "18a", card,
+                            inspect=proj_moved)
+    for name, want in (("rank1_matmul", (6 * musicgen.n_layers + 1) * 2 * 3),
+                       ("rank1_matmul_t", 0)):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"musicgen: {name} launched "
+                                 f"{launches.get(name, 0)} times, not {want}")
+    check_dense_run("musicgen", launches, a)
+    if not a["proj_moved"] > 0:
+        raise AssertionError("musicgen: the projector did not move")
+    del init_proj
+    torch.cuda.empty_cache()
+    out = {"musicgen": (launches, a)}
+    pod = pod_run(internvl, card)
+    out["internvl_pod"] = (pod["seedflood"]["launches"], pod)
+    cli = cli_run(card)
+    out["cli"] = (cli["launches"], cli)
+    for arch in (musicgen, internvl):
+        for refuse in (lambda: steplib.build_paged_prefill_step(arch, 8, 64,
+                                                                16),
+                       lambda: steplib.build_paged_decode_step(arch)):
+            try:
+                refuse()
+            except ValueError:
+                continue
+            raise AssertionError(f"{arch.name}: a paged builder took it")
+    out["internvl_serve"] = serve_cached(internvl, card, "18d",
+                                         FRONTEND_SERVE_B, INTERNVL_PROMPT,
+                                         FRONTEND_NEW)
+    out["musicgen_serve"] = serve_cached(musicgen, card, "18d",
+                                         FRONTEND_SERVE_B, MUSICGEN_PROMPT,
+                                         FRONTEND_NEW)
+    log(f"[18d] both paged builders refuse both frontend archs ({card})")
+    return out
+
+
+def phase_small_frontend() -> None:
+    """Phase 8's frontend half, on the card and on the CPU (the kernels'
+    plain versions): the reduced MusicGen-medium through ``run``
+    (text-only, 4 clients on a ring, SMALL_STEPS steps), and the reduced MusicGen
+    and InternVL2-26B with their embeddings through the pod SeedFlood
+    step (2 clients x 2 sequences of 8 embeddings + 9 tokens, made on the
+    CPU, 3 steps): losses rel 1e-4, params abs 1e-4 (phase 8's
+    tolerances).  The pod runs hold the card's own coefficients within
+    1e-4 of the CPU's largest, and the card run is fed the CPU run's:
+    with lr 1e-2 and rank-4 updates the ZO coefficient (L+ - L-) / 2 eps
+    turns float32 summation-order differences into parameter gaps past
+    1e-4 within 3 steps (1.06e-4 on the reduced InternVL in the first card
+    call, NVIDIA H100 80GB HBM3, 700.00 W), as it does between the JAX
+    package and the port (tests/test_torch_frontend.py); then one update of the reduced InternVL with a frozen
+    matrix (``frontend/proj``) and a frozen vector (``embed/ln_f_scale``):
+    both bitwise untouched on the card, every other leaf within 1e-5 of
+    the CPU's."""
+    import torch
+    from repro_torch.configs import archs
+    from repro_torch.core import subcge
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+
+    def agree(what, card_params, cpu_params, card_losses, cpu_losses):
+        err = max(float((card_params[p].cpu() - t).abs().max())
+                  for p, t in cpu_params.items())
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+        log(f"[8] small input {what}, card vs CPU: loss rel {lrel:.3e} (tol "
+            f"1e-4), params max abs {err:.3e} (tol 1e-4)")
+        if not (lrel <= 1e-4 and err <= 1e-4):
+            raise AssertionError(f"small-input {what} on the card disagrees "
+                                 "with the CPU run")
+
+    mg = archs.reduced(archs.get(MUSICGEN_ARCH))
+    vl = archs.reduced(archs.get("internvl2-26b"))
+    small = dict(arch=mg, n_clients=4, topology="ring", steps=SMALL_STEPS,
+                 batch_size=2)
+    on = {dev: run(DTrainConfig(device=dev, **small))
+          for dev in ("cuda", "cpu")}
+    agree(f"run of {mg.name}, 4 clients, ring",
+          on["cuda"].extra["final_stacked"], on["cpu"].extra["final_stacked"],
+          on["cuda"].loss_curve, on["cpu"].loss_curve)
+    pod = steplib.PodConfig(n_clients=2, lr=1e-2, rank=4, tau=2)
+    apply = subcge.apply_messages
+    for arch in (mg, vl):
+        seq = arch.frontend.n_embeds + 9
+        batches = [steplib.make_train_batch(arch, seq, 4, pod, seed=t)
+                   for t in range(3)]
+        got, coefs = {}, {"cpu": [], "cuda": []}
+        for dev in ("cpu", "cuda"):
+            def recorded(params, meta, scfg, sub, seeds, c, dev=dev):
+                coefs[dev].append(c.cpu())
+                if dev == "cuda":   # fed the CPU run's coefficients
+                    c = coefs["cpu"][len(coefs[dev]) - 1].to(c.device)
+                return apply(params, meta, scfg, sub, seeds, c)
+
+            params, losses = tf.init_params(arch, 0, dev), []
+            step = steplib.build_seedflood_train_step(arch, pod)
+            subcge.apply_messages = recorded
+            try:
+                for t, batch in enumerate(batches):
+                    params, m = step(params, {k: v.to(dev)
+                                              for k, v in batch.items()}, t)
+                    losses.append(float(m["loss"]))
+            finally:
+                subcge.apply_messages = apply
+            got[dev] = (params, losses)
+        gap = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(coefs["cuda"], coefs["cpu"]))
+        log(f"[8] pod step of {arch.name}: card's own coefficients vs the "
+            f"CPU's, max gap {gap:.3e} of the largest (tol 1e-4)")
+        if not gap <= 1e-4:
+            raise AssertionError(f"small-input pod step of {arch.name}: the "
+                                 "card's coefficients disagree with the CPU's")
+        agree(f"pod step of {arch.name} with embeddings, 2 clients, fed the "
+              f"CPU's coefficients", got["cuda"][0], got["cpu"][0],
+              got["cuda"][1], got["cpu"][1])
+    frozen = ("frontend/proj", "embed/ln_f_scale")
+    meta = {p: dataclasses.replace(m, frozen=p in frozen)
+            for p, m in plib.subcge_meta(tf.arch_spec(vl)).items()}
+    scfg = subcge.SubCGEConfig(rank=4, refresh_period=2)
+    seeds = torch.tensor([[7, 8, 9]])
+    coefs = torch.tensor([[0.5, -1.0, 2.0]])
+    upd = {}
+    for dev in ("cuda", "cpu"):
+        params = {p: t[None] for p, t in tf.init_params(vl, 0, dev).items()}
+        before = {p: params[p].clone() for p in frozen}
+        subcge.apply_messages(params, meta, scfg,
+                              subcge.subspace_at_step(meta, scfg, 3, 0, dev),
+                              seeds.to(dev), coefs.to(dev))
+        for p in frozen:
+            if not torch.equal(params[p].view(torch.int32),
+                               before[p].view(torch.int32)):
+                raise AssertionError(f"frozen leaf {p} moved on {dev}")
+        upd[dev] = params
+    err = max(float((upd["cuda"][p].cpu() - t).abs().max())
+              for p, t in upd["cpu"].items())
+    log(f"[8] frozen leaves {frozen} bitwise untouched by an update on the "
+        f"card and the CPU; the other leaves card vs CPU max abs {err:.3e} "
+        f"(tol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError("the update with frozen leaves disagrees "
+                             "between card and CPU")
+    torch.cuda.empty_cache()
+
+
 def deepseek_serving(ds):
     """``ds`` with every MoE slot at DEEPSEEK_SERVE_CAPACITY (phase 16 (b))."""
     return dataclasses.replace(ds, groups=tuple(
@@ -2682,6 +3113,14 @@ def main(argv=None) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}")
+    t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def clock(phase: str) -> None:
+        now = time.perf_counter()
+        log(f"[t] phase {phase} took {now - t_last[0]:.1f} s "
+            f"({now - t_start:.1f} s in all)")
+        t_last[0] = now
 
     # 1. setup
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2697,6 +3136,7 @@ def main(argv=None) -> int:
     for name, reports in ptxas.items():
         for r in reports:
             log(f"    ptxas {name}: {r}")
+    clock("1")
 
     # 2. kernels at the main paths' shapes
     qwen = archs.get("qwen1.5-0.5b")
@@ -2759,10 +3199,22 @@ def main(argv=None) -> int:
                                                  MAMBA_PROMPT)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    musicgen, internvl = archs.get(MUSICGEN_ARCH), archs.internvl_cut()
+    log(f"[2] kernels vs plain versions at MusicGen-medium shapes, {C} "
+        f"clients, and at the InternVL2-26B cut's pod shapes, "
+        f"{POD_CLIENTS} clients sharing one model ({card})")
+    entries["musicgen"] = phase_kernels_dense(musicgen, C, B * T, 8,
+                                              "musicgen")
+    torch.cuda.empty_cache()
+    entries.update({"internvl_" + k: es for k, es in phase_kernels_pod(
+        internvl, POD_CLIENTS, POD_B, POD_TEXT).items()})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     for key, es in entries.items():
         for e in es.values():
             log(f"[2] {key} {e.line()}")
     phase_prng()
+    clock("2")
 
 
     # 3. the Qwen slice: full width
@@ -2772,6 +3224,8 @@ def main(argv=None) -> int:
                  "subcge_apply_epochs"):
         if launches["qwen"].get(name, 0) <= 0:
             raise AssertionError(f"slice: kernel {name} never launched")
+
+    clock("3")
 
     # 4. delayed flooding across τ-epochs, 2 layers
     slot = qwen.groups[0].slots[0]
@@ -2791,6 +3245,8 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
+    clock("4")
+
     # 5. the Kimi K2 slice: the MoE layer at its published widths
     launches["kimi"], details["kimi"] = run_slice(kimi, "kimi", 5, card)
     for name in ("rank1_matmul", "rank1_matmul_expert", "subcge_apply",
@@ -2803,6 +3259,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"kimi: rank1_matmul_expert launched "
                              f"{launches['kimi']['rank1_matmul_expert']} "
                              f"times, not {want}")
+
+    clock("5")
 
     # 6. the Falcon Mamba 7B slice: the Mamba-1 layer at its published widths
     launches["falcon"], details["falcon"] = run_slice(falcon, "falcon", 6, card)
@@ -2819,6 +3277,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"falcon: selective_scan launched "
                              f"{launches['falcon'].get('selective_scan', 0)} "
                              f"times, not {want}")
+
+    clock("6")
 
     # 7. the paper's setting: OPT-125M at full width, 64 clients on the
     # 8 x 8 mesh-grid, the bitset flood engine chosen by "auto"
@@ -2842,6 +3302,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"paper: peak memory {details['opt']['peak_gib']}"
                              " GiB")
 
+    clock("7")
+
     # 8. the same code on small inputs, card against the CPU (the kernels'
     # plain versions): loss rtol 1e-4, params atol 1e-4 — the ZO
     # coefficient (L+ - L-) / 2 eps amplifies float32 summation-order
@@ -2853,8 +3315,8 @@ def main(argv=None) -> int:
             (archs.reduced(archs.get("kimi-k2-1t-a32b")), 4, "ring"),
             (archs.reduced(archs.get("falcon-mamba-7b")), 4, "ring"),
             (archs.reduced(opt), PAPER_CLIENTS, PAPER_TOPOLOGY)):
-        small = dict(arch=arch, n_clients=clients, topology=topology, steps=3,
-                     batch_size=2)
+        small = dict(arch=arch, n_clients=clients, topology=topology,
+                     steps=SMALL_STEPS, batch_size=2)
         on_card = run(DTrainConfig(device="cuda", **small))
         on_cpu = run(DTrainConfig(device="cpu", **small))
         if on_card.extra["engine"] != on_cpu.extra["engine"]:
@@ -2876,7 +3338,7 @@ def main(argv=None) -> int:
     for method, kw, arch in ([(m, k, sim) for m, k in BASELINE_ARMS]
                              + [("dsgd", {}, small_falcon)]):
         small = dict(method=method, arch=arch, n_clients=4, topology="ring",
-                     steps=3, batch_size=2, local_iters=1, **kw)
+                     steps=SMALL_STEPS, batch_size=2, local_iters=1, **kw)
         on_card = run(DTrainConfig(device="cuda", **small))
         on_cpu = run(DTrainConfig(device="cpu", **small))
         err = max(float((on_card.extra["final_stacked"][p].cpu() - t).abs()
@@ -2893,6 +3355,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"small-input {method} run on the card "
                                  "disagrees with the CPU run")
 
+    phase_small_frontend()
+    clock("8")
+
     # 9. every §4.2 baseline at OPT-125M's full width, 16 clients: the
     # kernels at the shapes these paths give them, then the runs
     log(f"[9] kernels vs plain versions at the baselines' shapes: OPT-125M "
@@ -2907,28 +3372,46 @@ def main(argv=None) -> int:
     launches["mamba_fo"], details["mamba_fo"] = phase_mamba_fo(falcon, B,
                                                                 card)
 
+    clock("9")
+
     # 10. the paper's setting under churn; 11. bitwise resume
     launches["churn"], details["churn"] = phase_churn(opt, B, card)
+    clock("10")
     launches["resume"], details["resume"] = phase_resume(opt, B, card)
+    clock("11")
 
     # 12. serving TinyLlama-1.1B whole (the serve profile runs here too)
     launches["serve"], details["serve"] = phase_serve(tiny, card,
                                                       args.profile)
 
+    clock("12")
+
     # 13. the event engine at OPT-125M's full width
     launches["async"], details["async"] = phase_async(opt, B, card)
+    clock("13")
 
     # 14. Gemma 3 1B whole; 15. the Qwen2-72B cut
     for key, (ln, dt) in phase_gemma(gemma, card).items():
         launches[key], details[key] = ln, dt
+    clock("14")
     launches["qwen2"], details["qwen2"] = phase_qwen2(qwen2, card)
+    clock("15")
 
     # 16. the DeepSeek-V2 cut: MLA in training and serving
     launches["deepseek"], details["deepseek"] = phase_deepseek(deepseek, card)
+    clock("16")
 
     # 17. the Jamba cut trained and served; Falcon Mamba 7B served whole
     for key, (ln, dt) in phase_jamba(jamba, falcon_whole, card).items():
         launches[key], details[key] = ln, dt
+    clock("17")
+
+    # 18. the frontend archs: MusicGen-medium whole through run and the
+    # train CLI, the InternVL2-26B cut through the pod steps, both served
+    # with their embeddings
+    for key, (ln, dt) in phase_frontend(musicgen, internvl, card).items():
+        launches[key], details[key] = ln, dt
+    clock("18")
 
     if args.profile:
         for key, arch, clients, topology in (
@@ -2967,14 +3450,15 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 18. report: each kernel over the paths that run it
+    # 19. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))
         for n in SOURCES]}
     if args.out:
         for key, es in entries.items():
-            details[key]["kernels"] = {n: e.summary() for n, e in es.items()}
+            details.setdefault(key, {})["kernels"] = {
+                n: e.summary() for n, e in es.items()}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {**report, "card": card, "ptxas": ptxas, **details}, indent=1))

@@ -1,6 +1,10 @@
-"""Architectures the port runs (the dense, MoE, MLA, SSM and hybrid subset
-of ``repro/configs/archs.py``, and the paper's own OPT family).  TinyLlama
-1.1B is the serving path's model (``repro_torch.launch.serve``'s default).
+"""Architectures the port runs (the dense, MoE, MLA, SSM, hybrid, audio and
+vision subset of ``repro/configs/archs.py``, and the paper's own OPT
+family).  TinyLlama 1.1B is the serving path's model
+(``repro_torch.launch.serve``'s default).  MusicGen-medium and InternVL2-26B
+keep the JAX package's stubbed frontends: a T5 text-conditioning encoder
+and InternViT-6B are not modelled, their outputs come in as embeddings,
+and only the linear projector onto d_model is trained.
 
 ``reduced`` mirrors the JAX package's smoke variant: one layer per distinct
 slot, d_model 64, at most 4 heads, d_ff 2·d, vocab 256; a sliding-window
@@ -8,21 +12,22 @@ slot keeps a window of 16; an MLA slot gets q_lora 32, kv_lora 16, a
 rope head of 8 and a value head of head_dim; an MoE slot keeps 4 experts,
 top-min(2, k), expert width 2·d, at most one shared expert and capacity
 factor 8 (drop-free); a Mamba slot gets d_inner 2·d, state 4, conv 4 and
-dt_rank 8.
+dt_rank 8; a frontend keeps 8 embeddings of width 32.
 
-``kimi_cut``, ``falcon_cut``, ``qwen2_cut``, ``deepseek_cut`` and
-``jamba_cut`` are the one-card cuts of Kimi K2, Falcon Mamba 7B, Qwen2-72B,
-DeepSeek-V2 and Jamba-1.5-Large that ``chip_smoke.py`` trains: every width
-as published, depth and experts cut (``KIMI_*``, ``FALCON_LAYERS``,
-``QWEN2_LAYERS``, ``DEEPSEEK_*``, ``JAMBA_EXPERTS``).  Gemma 3 1B runs
+``kimi_cut``, ``falcon_cut``, ``qwen2_cut``, ``internvl_cut``,
+``deepseek_cut`` and ``jamba_cut`` are the one-card cuts of Kimi K2, Falcon
+Mamba 7B, Qwen2-72B, InternVL2-26B, DeepSeek-V2 and Jamba-1.5-Large that
+``chip_smoke.py`` trains: every width as published, depth and experts cut
+(``KIMI_*``, ``FALCON_LAYERS``, ``QWEN2_LAYERS``, ``INTERNVL_LAYERS``,
+``DEEPSEEK_*``, ``JAMBA_EXPERTS``).  Gemma 3 1B and MusicGen-medium run
 whole, and Falcon Mamba 7B serves whole.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig, AttnCfg, Group, LayerCfg, \
-    MambaCfg, MoECfg, dense_layer, uniform_dense
+from repro_torch.configs.base import ArchConfig, AttnCfg, FrontendCfg, \
+    Group, LayerCfg, MambaCfg, MoECfg, dense_layer, uniform_dense
 
 QWEN15_05B = uniform_dense(
     "qwen1.5-0.5b", n_layers=24, d_model=1024, n_heads=16, n_kv=16,
@@ -120,6 +125,25 @@ JAMBA_15_LARGE = ArchConfig(
            "MoE 16e top-2 every other layer, ff24576, v65536 — 398B total")
 
 
+MUSICGEN_MEDIUM = ArchConfig(
+    name="musicgen-medium", family="audio", d_model=1536, vocab=2048,
+    groups=(Group((dense_layer(1536, 24, 24, 6144),), 48),),
+    gated_mlp=False, act="gelu", norm="layernorm", pos="sinusoidal",
+    frontend=FrontendCfg(kind="audio_cond", n_embeds=64, embed_dim=768,
+                         source="T5-encoder conditioning (stub)"),
+    source="[arXiv:2306.05284] 48L d1536 24H ff6144 v2048 decoder over "
+           "EnCodec tokens; text-conditioning frontend stubbed")
+
+INTERNVL2_26B = ArchConfig(
+    name="internvl2-26b", family="vlm", d_model=6144, vocab=92_553,
+    groups=(Group((dense_layer(6144, 48, 8, 16_384),), 48),),
+    rope_theta=1e6,
+    frontend=FrontendCfg(kind="vision", n_embeds=1024, embed_dim=3200,
+                         source="InternViT-6B patch embeddings (stub)"),
+    source="[arXiv:2404.16821] InternLM2 backbone: 48L d6144 48H(kv8) "
+           "ff16384 v92553; InternViT-6B stubbed, projector trained")
+
+
 def _opt(name: str, n_layers: int, d: int, h: int, ff: int) -> ArchConfig:
     return uniform_dense(
         name, n_layers=n_layers, d_model=d, n_heads=h, n_kv=h, d_ff=ff,
@@ -135,7 +159,8 @@ OPT_2_7B = _opt("opt-2.7b", 32, 2560, 32, 10_240)
 REGISTRY: dict[str, ArchConfig] = {
     c.name: c for c in [QWEN15_05B, TINYLLAMA_11B, QWEN2_72B, GEMMA3_1B,
                         KIMI_K2, DEEPSEEK_V2, FALCON_MAMBA_7B,
-                        JAMBA_15_LARGE, OPT_125M, OPT_1_3B, OPT_2_7B]}
+                        JAMBA_15_LARGE, MUSICGEN_MEDIUM, INTERNVL2_26B,
+                        OPT_125M, OPT_1_3B, OPT_2_7B]}
 
 
 def get(name: str) -> ArchConfig:
@@ -157,6 +182,11 @@ FALCON_LAYERS = 4
 #: 2 x 1.25 B, so one client holds 3.37 B float32 (13.5 GB) and 4 clients
 #: 54 GB; 80 layers would be 290 GB for one client alone
 QWEN2_LAYERS = 1
+#: InternVL2-26B cut in depth only (published: 48 layers): every layer is
+#: the same slot; one layer is 390 M parameters and the untied embeddings
+#: 2 x 569 M, so the cut with its 20 M projector holds 1,547,040,768
+#: float32 (5.76 GiB); 48 layers would be 74.1 GiB before any activation
+INTERNVL_LAYERS = 1
 #: DeepSeek-V2 cut to one card's share (published: 60 layers, a dense first
 #: layer and then 59 MoE layers of 160 routed experts):
 #: - the dense layer stays whole (its group is one layer);
@@ -201,6 +231,14 @@ def qwen2_cut(cfg: ArchConfig = QWEN2_72B) -> ArchConfig:
     return dataclasses.replace(
         cfg, name=cfg.name + "-cut",
         groups=(Group(cfg.groups[0].slots, QWEN2_LAYERS),))
+
+
+def internvl_cut(cfg: ArchConfig = INTERNVL2_26B) -> ArchConfig:
+    """InternVL2-26B at its published widths, untied vocabulary and
+    projector, cut in depth."""
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-cut",
+        groups=(Group(cfg.groups[0].slots, INTERNVL_LAYERS),))
 
 
 def deepseek_cut(cfg: ArchConfig = DEEPSEEK_V2) -> ArchConfig:
@@ -262,6 +300,9 @@ def reduced(cfg: ArchConfig, d_model: int = 64, max_slots: int = 2) -> ArchConfi
             seen.setdefault((s.mixer, s.ffn), s)
         slots = list(seen.values())[:max_slots]
     slots = [_shrink_slot(s, d_model) for s in slots]
+    fe = None
+    if cfg.frontend is not None:
+        fe = dataclasses.replace(cfg.frontend, n_embeds=8, embed_dim=32)
     return dataclasses.replace(
         cfg, name=cfg.name + "-reduced", d_model=d_model, vocab=256,
-        groups=(Group(tuple(slots), 1),), max_seq=128)
+        groups=(Group(tuple(slots), 1),), frontend=fe, max_seq=128)

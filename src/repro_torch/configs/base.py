@@ -1,17 +1,19 @@
-"""Architecture configuration dataclasses (the dense, MoE, MLA, Mamba-1
-and hybrid subset).
+"""Architecture configuration dataclasses (the dense, MoE, MLA, Mamba-1,
+hybrid and frontend subset).
 
 The counterpart of ``repro/configs/base.py`` for the layer types the port
 runs so far: a mixer (attention: GQA, optional QKV bias, global or
 sliding-window, or DeepSeek-V2's multi-head latent attention; or Mamba-1)
 followed by a dense MLP, a top-k capacity-dispatch MoE or, after Mamba, no
 FFN, stacked as groups of repeating slots (Jamba's period mixes both
-mixers).  Fields the port cannot run yet are kept out
-rather than silently ignored; ``models.transformer.arch_spec`` takes
-rmsnorm or layernorm, silu, gelu (tanh) or relu, a gated or plain MLP (the
-MoE's experts stay gated silu), and rope or learned positions (none only
-for an attention-free stack), and refuses the rest: sinusoidal positions
-and modality frontends, an attention slot with no FFN.  The JAX package's
+mixers), optionally behind a stubbed modality frontend (``FrontendCfg``:
+precomputed frame or patch embeddings through one trained projector).
+Fields the port cannot run yet are kept out rather than silently ignored;
+``models.transformer.arch_spec`` takes rmsnorm or layernorm, silu, gelu
+(tanh) or relu, a gated or plain MLP (the MoE's experts stay gated silu),
+and rope, learned or sinusoidal positions (none only for an
+attention-free stack), and refuses the rest: any other position kind, an
+attention slot with no FFN.  The JAX package's
 ``sharding_policy`` and ``moe_gather_weights`` are mesh hints and stay out
 too: the port has no mesh; so do ``long_context_mode`` and its
 ``for_shape`` rewrite, whose only consumers are the pod dry runs (ROADMAP
@@ -80,19 +82,32 @@ class Group:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendCfg:
+    """Stubbed modality frontend: the caller supplies precomputed frame or
+    patch embeddings (B, n_embeds, embed_dim); the model owns only the
+    projector ``frontend/proj`` (embed_dim x d_model) and prepends its
+    output to the token embeddings."""
+    kind: str                          # "vision" | "audio_cond"
+    n_embeds: int                      # patches / conditioning frames
+    embed_dim: int                     # pre-projector dim (e.g. ViT width)
+    source: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                        # dense | moe | ssm | hybrid
+    family: str                        # dense | moe | ssm | hybrid | vlm | audio
     d_model: int
     vocab: int
     groups: tuple[Group, ...]
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     act: str = "silu"                  # silu | gelu | relu
     gated_mlp: bool = True
-    pos: str = "rope"                  # rope | learned | none
+    pos: str = "rope"                  # rope | learned | sinusoidal | none
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     max_seq: int = 131_072
+    frontend: FrontendCfg | None = None
     source: str = ""                   # citation [arXiv:... / hf:...]
 
     @property

@@ -11,6 +11,8 @@ Port conventions (where JAX would ``vmap``): parameters are a flat dict of
 tensors stacked on a leading client axis ``C``; message seeds, coefficients
 and sender steps are ``(C, K)`` matrices, one row per client.  Updates are
 applied in place — the counterpart of the JAX package's donated buffers.
+A frozen leaf (``LeafMeta.frozen``: a stub frontend's weights) takes no
+perturbation and no update on any path.
 """
 from __future__ import annotations
 
@@ -27,10 +29,12 @@ from repro_torch.kernels import ops as kops
 @dataclasses.dataclass(frozen=True)
 class LeafMeta:
     """Static description of one parameter leaf: ``n_batch_dims`` leading
-    dims are layer instances; the leaf is a SubCGE matrix iff the rest is
-    2D (otherwise it takes a dense Gaussian)."""
+    dims are layer instances; an unfrozen leaf is a SubCGE matrix iff the
+    rest is 2D (otherwise it takes a dense Gaussian); a frozen one takes
+    neither."""
     shape: tuple[int, ...]
     n_batch_dims: int = 0
+    frozen: bool = False
 
     @property
     def batch_shape(self) -> tuple[int, ...]:
@@ -42,7 +46,23 @@ class LeafMeta:
 
     @property
     def is_matrix(self) -> bool:
-        return len(self.inst_shape) == 2
+        return not self.frozen and len(self.inst_shape) == 2
+
+
+def infer_meta(params: dict, n_batch_dims_fn=None,
+               frozen_fn=None) -> dict[str, LeafMeta]:
+    """LeafMeta of every leaf of a flat path-keyed dict of one model's
+    tensors (no client axis).  By default a leaf of ndim >= 2 is a matrix on
+    its last two dims with everything before them batch dims;
+    ``n_batch_dims_fn(path, leaf)`` overrides that, and ``frozen_fn(path)``
+    marks frozen leaves."""
+    meta = {}
+    for path, leaf in params.items():
+        nb = (n_batch_dims_fn(path, leaf) if n_batch_dims_fn is not None
+              else max(0, leaf.ndim - 2))
+        frz = bool(frozen_fn(path)) if frozen_fn is not None else False
+        meta[path] = LeafMeta(tuple(leaf.shape), nb, frz)
+    return meta
 
 
 def update_shapes(meta: dict[str, LeafMeta], n_clients: int) -> list:
@@ -167,6 +187,8 @@ def apply_messages(params: dict, meta: dict[str, LeafMeta],
     cf = coefs.float()
     for path in seedlib.path_order(meta):
         m = meta[path]
+        if m.frozen:
+            continue
         if m.is_matrix:
             i, j = coords[path]
             A = scatter_A(i, j, cf, cfg.rank)
@@ -225,6 +247,8 @@ def apply_messages_epoch(params: dict, meta: dict[str, LeafMeta],
     slot_subs = [make_subspace(meta, cfg, global_seed, e, dev) for e in live]
     for path in seedlib.path_order(meta):
         m = meta[path]
+        if m.frozen:
+            continue
         if m.is_matrix:
             if not live:
                 continue
@@ -274,6 +298,8 @@ def momentum_apply(params: dict, meta: dict[str, LeafMeta],
     new_vel = {}
     for path in seedlib.path_order(meta):
         m = meta[path]
+        if m.frozen:
+            continue
         if m.is_matrix:
             i, j = coords[path]
             mu = beta * velocity[path] + scatter_A(i, j, cf, cfg.rank)

@@ -25,10 +25,18 @@ def tree_add_scaled(params: dict, z: dict, scale) -> dict:
     return out
 
 
-def mezo_z(params: dict, message_seeds: torch.Tensor) -> dict:
+def mezo_z(params: dict, message_seeds: torch.Tensor,
+           frozen=None) -> dict:
     """Dense Gaussian perturbation rebuilt from each client's message seed:
-    ``message_seeds`` (C,) uint32 values (int64); leaves (C, *shape)."""
+    ``message_seeds`` (C,) uint32 values (int64); leaves (C, *shape).  A
+    path for which ``frozen(path)`` holds gets zeros."""
     key = seedlib.message_key(message_seeds)
-    return {p: seedlib.gaussian_like(seedlib.leaf_key(key, p),
-                                     params[p].shape[1:]).to(params[p].dtype)
-            for p in seedlib.path_order(params)}
+    out = {}
+    for p in seedlib.path_order(params):
+        leaf = params[p]
+        if frozen is not None and frozen(p):
+            out[p] = torch.zeros_like(leaf)
+        else:
+            out[p] = seedlib.gaussian_like(seedlib.leaf_key(key, p),
+                                           leaf.shape[1:]).to(leaf.dtype)
+    return out

@@ -1,33 +1,198 @@
-"""The serving steps (the serving half of ``repro/launch/steps.py``).
+"""The pod runtime's steps (``repro/launch/steps.py``) on one card.
 
-Plain functions on tensors of one model: no mesh, no shardings, no jit.
-Each ``build_*`` function binds an architecture and a geometry and returns
-a step that takes the unstacked parameters viewed with a client axis of 1
-(``{path: t[None]}``, no copy).  Caches and pools are written in place
-and returned, as the JAX package's steps return theirs.  The monolithic
-steps serve every slot kind (attention, MLA, and Mamba through its
-``(h, conv)`` state, so hybrid and attention-free models too); the paged
-steps serve standard attention only.  The train steps come with the pod
-runtime (ROADMAP Queue 1 item 14).
+Plain functions on tensors of ONE model: no mesh, no shardings, no jit.
+
+Training (fold mode).  ``build_seedflood_train_step`` is the paper's
+Algorithm 1 as the pod runs it: the n logical clients share one copy of
+the weights, viewed with a client stride of 0 (``t[None].expand(n, ...)``,
+no copy), so every client's ±ε forward is one batched forward whose
+perturbed projections run ``rank1_matmul`` over that one W; the n
+seed–scalar messages, with coefficients −lr/n · α, fold into the weights
+by one ``subcge.apply_messages`` (``subcge_apply``), in place.  The flood's
+all-gather of (seed, α) is the identity here: the n clients live on one
+card.  ``build_dsgd_train_step`` is the gossip baseline's pod step: the
+mean of the clients' first-order gradients (autograd, one client at a
+time, plain products), then p − lr·ḡ, in place.  A frontend arch's batch
+carries its stubbed embeddings (``train_inputs``, ``make_train_batch``):
+they reach the loss through ``frontend/proj``.
+
+``PodConfig`` keeps the fields these steps read: ``lr``, ``eps``,
+``rank``, ``tau``, ``base_seed`` and ``n_clients``.  The JAX package's
+``param_dtype`` (bf16 parameters) waits for bf16 kernels (ROADMAP Queue 2
+item 3: every kernel wrapper takes float32), ``apply_mode="buffer"`` for
+buffer mode, and ``remat_clients``, ``spmd_client_axis`` and
+``kernel_backend`` are mesh and backend knobs with no meaning here (the
+port dispatches by device); all wait with ROADMAP Queue 1 item 14.
+
+Serving.  Each ``build_*`` function binds an architecture and a geometry
+and returns a step that takes the unstacked parameters viewed with a
+client axis of 1 (``{path: t[None]}``, no copy).  Caches and pools are
+written in place and returned, as the JAX package's steps return theirs.
+The monolithic steps serve every slot kind (attention, MLA, and Mamba
+through its ``(h, conv)`` state, so hybrid and attention-free models too)
+and frontend archs, whose prefill takes the embeddings; the paged steps
+serve text over standard attention only.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng, seeds as seedlib, subcge
+from repro_torch.core.subcge import SubCGEConfig
+from repro_torch.models import params as plib
 from repro_torch.models import transformer as tf
+from repro_torch.models.perturb import sample_pert
 
+
+@dataclasses.dataclass(frozen=True)
+class PodConfig:
+    lr: float = 1e-5
+    eps: float = 1e-3
+    rank: int = 32
+    tau: int = 1000
+    base_seed: int = 0
+    n_clients: int = 1             # logical clients sharing the one model
+
+    def subcge(self) -> SubCGEConfig:
+        return SubCGEConfig(rank=self.rank, refresh_period=self.tau,
+                            eps=self.eps)
+
+
+# ---------------------------------------------------------------------------
+# training inputs
+# ---------------------------------------------------------------------------
+
+def train_inputs(cfg: ArchConfig, seq: int, global_batch: int,
+                 pod: PodConfig) -> dict[str, tuple[int, ...]]:
+    """Shapes of one training step's batch: ``global_batch`` sequences of
+    ``seq`` positions split over the n clients, a frontend's P embeddings
+    among the positions: {"tokens": (n, b, seq − P), "embeds": (n, b, P,
+    edim)} (float32 embeddings)."""
+    n = pod.n_clients
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} does not split over "
+                         f"{n} clients")
+    b = global_batch // n
+    fe = cfg.frontend
+    out = {"tokens": (n, b, seq - (fe.n_embeds if fe else 0))}
+    if fe is not None:
+        out["embeds"] = (n, b, fe.n_embeds, fe.embed_dim)
+    return out
+
+
+def make_train_batch(cfg: ArchConfig, seq: int, global_batch: int,
+                     pod: PodConfig, seed: int = 0, device="cpu") -> dict:
+    """A batch of :func:`train_inputs`' shapes made from ``seed``: tokens
+    uniform over the vocabulary, embeddings standard normal (the stubbed
+    encoder's output), both drawn on ``device``."""
+    shapes = train_inputs(cfg, seq, global_batch, pod)
+    kt, ke = prng.split(prng.PRNGKey(seed, device)).unbind(-2)
+    out = {"tokens": prng.randint(kt, shapes["tokens"], 0, cfg.vocab).long()}
+    if "embeds" in shapes:
+        out["embeds"] = prng.normal(ke, shapes["embeds"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SeedFlood train step (fold mode)
+# ---------------------------------------------------------------------------
+
+def build_seedflood_train_step(cfg: ArchConfig, pod: PodConfig):
+    """step(params, batch, step) -> (params, metrics): one SeedFlood step
+    of ``pod.n_clients`` clients over one model's flat ``params`` (updated
+    in place).  ``batch`` is :func:`train_inputs`-shaped; ``metrics`` holds
+    the mean loss, the RMS of the n coefficients α and the step."""
+    meta = plib.subcge_meta(tf.arch_spec(cfg))
+    scfg = pod.subcge()
+    n = pod.n_clients
+
+    @torch.no_grad()
+    def train_step(params: dict, batch: dict, step: int):
+        tokens = batch["tokens"]
+        dev = tokens.device
+        if tokens.shape[0] != n:
+            raise ValueError(f"batch has {tokens.shape[0]} clients, the pod "
+                             f"{n}")
+        sub = subcge.subspace_at_step(meta, scfg, pod.base_seed, step, dev)
+        seeds = torch.as_tensor(
+            seedlib.client_seeds(pod.base_seed, step, n).astype(np.int64),
+            device=dev)
+        pert = sample_pert(meta, scfg, seeds, pod.eps)
+        # the one model seen by n clients: a client stride of 0, no copy
+        view = {p: t[None].expand((n,) + tuple(t.shape))
+                for p, t in params.items()}
+        embeds = batch.get("embeds")
+        lp = tf.lm_loss(cfg, view, tokens, embeds=embeds, sub=sub, pert=pert)
+        lm = tf.lm_loss(cfg, view, tokens, embeds=embeds, sub=sub,
+                        pert=pert.with_scale(-pod.eps))
+        alphas = (lp - lm) / (2 * pod.eps)
+        losses = 0.5 * (lp + lm)
+        coefs = (-pod.lr / n) * alphas
+        one = {p: t[None] for p, t in params.items()}
+        subcge.apply_messages(one, meta, scfg, sub, seeds[None], coefs[None])
+        return params, {"loss": losses.mean(),
+                        "alpha_rms": torch.sqrt(torch.mean(alphas ** 2)),
+                        "step": step}
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# DSGD pod step (the first-order baseline)
+# ---------------------------------------------------------------------------
+
+def build_dsgd_train_step(cfg: ArchConfig, pod: PodConfig):
+    """step(params, batch, step) -> (params, metrics): each client's
+    gradient of its ``lm_loss`` on its own batch (autograd through the
+    plain products, one client at a time so that one client's activations
+    are held), their mean ḡ, then params ← params − lr·ḡ in place."""
+    def train_step(params: dict, batch: dict, step: int):
+        tokens, embeds = batch["tokens"], batch.get("embeds")
+        n = tokens.shape[0]
+        leaves = {p: t.detach().requires_grad_(True)
+                  for p, t in params.items()}
+        losses = []
+        for i in range(n):
+            loss = tf.lm_loss(
+                cfg, {p: t[None] for p, t in leaves.items()},
+                tokens[i:i + 1],
+                embeds=None if embeds is None else embeds[i:i + 1])[0]
+            loss.backward()
+            losses.append(loss.detach())
+        with torch.no_grad():
+            for p, t in params.items():
+                g = leaves[p].grad
+                if g is not None:
+                    t -= pod.lr * (g / n).to(t.dtype)
+        return params, {"loss": torch.stack(losses).mean(), "step": step}
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
 
 def build_prefill_step(cfg: ArchConfig, batch: int, seq: int,
                        dtype=torch.float32):
-    """Prefill ``batch`` prompts of T <= ``seq`` tokens into a fresh
-    monolithic cache of capacity ``seq`` (an MLA slot's is the compressed
-    one, ``ckv`` and ``krope``; a Mamba slot's is its state after the
-    prompt, ``h`` and ``conv``): step(params, tokens (B, T)) ->
-    (last-position logits (B, vocab), cache)."""
-    def prefill_step(params, tokens):
+    """Prefill ``batch`` prompts of T tokens into a fresh monolithic cache
+    of capacity ``seq`` (an MLA slot's is the compressed one, ``ckv`` and
+    ``krope``; a Mamba slot's is its state after the prompt, ``h`` and
+    ``conv``): step(params, tokens (B, T), embeds=None) -> (last-position
+    logits (B, vocab), cache).  A frontend arch's prompt (T > 1) takes its
+    embeddings (B, P, edim) ahead of the tokens, so positions 0..P+T-1
+    fill and ``seq`` counts P; its decode then starts at pos = P + T."""
+    def prefill_step(params, tokens, embeds=None):
+        if cfg.frontend is not None and tokens.shape[1] > 1 \
+                and embeds is None:
+            raise ValueError(f"{cfg.name}: a frontend arch's prefill takes "
+                             "its embeddings")
         cache = tf.init_cache(cfg, batch, seq, dtype, tokens.device)
-        logits, _ = tf.forward(cfg, params, tokens[None], cache=cache, pos=0)
+        logits, _ = tf.forward(
+            cfg, params, tokens[None], cache=cache, pos=0,
+            embeds=None if embeds is None else embeds[None])
         return logits[0, :, -1], cache
     return prefill_step
 
@@ -36,7 +201,9 @@ def build_decode_step(cfg: ArchConfig):
     """One new token per sequence against a monolithic cache (an MLA slot
     decodes in the absorbed formulation over its compressed cache, a Mamba
     slot advances its state by one step):
-    step(params, cache, tokens (B, 1), pos) -> (logits (B, vocab), cache)."""
+    step(params, cache, tokens (B, 1), pos) -> (logits (B, vocab), cache).
+    Tokens only: a frontend's embeddings entered with the prefill, so pos
+    counts them."""
     def decode_step(params, cache, tokens, pos: int):
         logits, _ = tf.forward(cfg, params, tokens[None], cache=cache,
                                pos=pos)

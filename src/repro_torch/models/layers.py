@@ -1,6 +1,7 @@
 """Layers of the decoder, perturbation-aware (the dense, MoE, MLA and
 Mamba-1 subset of ``repro/models/layers.py``: rmsnorm and layernorm, silu,
-gelu and relu, gated and plain MLPs, rope, global and sliding-window
+gelu and relu, gated and plain MLPs, rope and the sinusoidal position
+table, global and sliding-window
 attention, DeepSeek-V2's multi-head latent attention, and attention's
 decode halves).
 
@@ -87,6 +88,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sinusoidal position table, float32 and unclipped: (..., dim) for
+    positions (...,), sines in the first half, cosines in the second."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,

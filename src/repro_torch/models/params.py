@@ -26,6 +26,7 @@ class LeafSpec:
     n_batch_dims: int = 0                 # leading scan/instance dims
     init: str = "normal"                  # normal | zeros | ones | dt_bias | s4d
     scale: float | None = None            # None -> 1/sqrt(fan_in)
+    frozen: bool = False                  # excluded from ZO perturbation
 
     @property
     def fan_in(self) -> int:
@@ -81,7 +82,7 @@ def n_params(specs: dict[str, LeafSpec]) -> int:
 
 
 def subcge_meta(specs: dict[str, LeafSpec]) -> dict[str, LeafMeta]:
-    return {p: LeafMeta(tuple(s.shape), s.n_batch_dims)
+    return {p: LeafMeta(tuple(s.shape), s.n_batch_dims, s.frozen)
             for p, s in specs.items()}
 
 

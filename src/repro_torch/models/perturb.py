@@ -36,13 +36,15 @@ class Pert(NamedTuple):
 
 def sample_pert(meta: dict[str, LeafMeta], cfg: SubCGEConfig,
                 message_seeds: torch.Tensor, scale: float) -> Pert:
-    """RNG_S for each client's message seed (``message_seeds`` (C,))."""
+    """RNG_S for each client's message seed (``message_seeds`` (C,)).  A
+    frozen leaf gets neither coordinates nor a Gaussian, so ``Bundle``
+    reads it unperturbed (a frozen matrix through the plain product)."""
     coords = subcge.sample_coords(meta, cfg, message_seeds)
     key = seedlib.message_key(message_seeds)
     zv = {}
     for path in seedlib.path_order(meta):
         m = meta[path]
-        if not m.is_matrix:
+        if not (m.frozen or m.is_matrix):
             zv[path] = seedlib.gaussian_like(seedlib.leaf_key(key, path),
                                              m.shape)
     return Pert(coords, zv, float(scale))

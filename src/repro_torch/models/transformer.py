@@ -1,11 +1,13 @@
 """Decoder: spec, forward, loss and the serving caches (the dense,
-MoE, MLA, Mamba-1 and hybrid part of ``repro/models/transformer.py``).
+MoE, MLA, Mamba-1, hybrid and frontend part of
+``repro/models/transformer.py``).
 
 ``arch_spec`` produces the same leaf paths and shapes as the JAX package
 (``embed/tok``, ``embed/out`` when untied, ``embed/pos`` for learned
 positions, ``embed/ln_f_scale`` and, for layernorm, ``embed/ln_f_bias``,
-``g{i}/s{j}/{wq,...}``, ``g{i}/s{j}/{wdq,...,wukv}`` (MLA) or
-``g{i}/s{j}/{in_proj,...}`` (Mamba), then the slot's FFN or MoE leaves,
+``frontend/proj`` for a modality frontend, ``g{i}/s{j}/{wq,...}``,
+``g{i}/s{j}/{wdq,...,wukv}`` (MLA) or ``g{i}/s{j}/{in_proj,...}``
+(Mamba), then the slot's FFN or MoE leaves,
 stacked over the group's reps, expert weights stacked over (reps,
 experts)).  Every slot runs its mixer and then its FFN or MoE, as the JAX
 ``_apply_slot`` does.  The ``lax.scan`` over a group's periods becomes a
@@ -19,7 +21,8 @@ forward writes them in place.  A sliding-window slot's ring holds
 pool keeps every position's page, and the mask hides those past the
 window.  An MLA slot's ring is the compressed one (``ckv``, ``krope``); a
 Mamba slot's cache is its recurrent state ``(h, conv)``.  Like the JAX
-package, the port pages neither.
+package, the port pages neither, nor a frontend arch: its embeddings
+enter through the monolithic prefill.
 """
 from __future__ import annotations
 
@@ -51,18 +54,19 @@ def _slot_ok(s: LayerCfg, cfg: ArchConfig) -> bool:
 def _check_supported(cfg: ArchConfig) -> None:
     slots = [s for g in cfg.groups for s in g.slots]
     ok = (cfg.norm in ("rmsnorm", "layernorm") and cfg.act in L.ACTS
-          and cfg.pos in ("rope", "learned", "none"))
+          and cfg.pos in ("rope", "learned", "sinusoidal", "none"))
     if not (ok and all(_slot_ok(s, cfg) for s in slots)):
         raise NotImplementedError(
             f"{cfg.name}: the port runs rmsnorm or layernorm decoders with "
-            "rope or learned positions, attention (global or sliding-window "
+            "rope, learned or sinusoidal positions, attention (global or "
+            "sliding-window "
             "GQA, or MLA) and a dense MLP (silu, gelu or relu, gated or "
             "not) or a gated silu MoE, or a Mamba-1 mixer followed by one of "
             "those or by no FFN")
     if cfg.pos == "none" and any(s.mixer == "attn" for s in slots):
         raise NotImplementedError(
             f"{cfg.name}: attention without positions is not ported (the "
-            "port's attention takes rope or learned positions)")
+            "port's attention takes rope, learned or sinusoidal positions)")
 
 
 def _norm_spec(key: str, d: int, cfg: ArchConfig, st: tuple) -> dict:
@@ -153,6 +157,8 @@ def arch_spec(cfg: ArchConfig) -> dict[str, LeafSpec]:
         spec["embed/out"] = matrix(cfg.d_model, cfg.vocab)
     if cfg.pos == "learned":
         spec["embed/pos"] = matrix(LEARNED_POS_LEN, cfg.d_model, scale=0.02)
+    if cfg.frontend is not None:
+        spec["frontend/proj"] = matrix(cfg.frontend.embed_dim, cfg.d_model)
     for gi, g in enumerate(cfg.groups):
         for si, slot in enumerate(g.slots):
             for k, v in _slot_spec(slot, cfg, g.reps).items():
@@ -180,7 +186,9 @@ def init_cache(cfg: ArchConfig, B: int, capacity: int,
     compressed: {"ckv": (reps, B, cap, kv_lora), "krope": (reps, B, cap,
     rope_head_dim), "kpos"}.  A Mamba slot's is its recurrent state, of no
     capacity: {"h": (reps, B, d_inner, d_state) float32, "conv": (reps, B,
-    d_conv - 1, d_inner)}, the JAX package's shapes."""
+    d_conv - 1, d_inner)}, the JAX package's shapes.  A frontend arch's
+    prefill writes its P embeddings' positions too, so ``capacity`` counts
+    them (P + prompt + new tokens)."""
     out = {}
     for key, reps, slot in _slots(cfg):
         if slot.mixer == "mamba":
@@ -207,10 +215,13 @@ def init_cache(cfg: ArchConfig, B: int, capacity: int,
 
 
 def check_paged_support(cfg: ArchConfig) -> None:
-    """Paged serving covers standard (GQA) attention slots; MLA's
-    compressed cache and Mamba's recurrent state need their own paging
-    story, as in the JAX package (the port's configs have no modality
-    frontend, which the JAX package refuses too)."""
+    """Paged serving covers text decode over standard (GQA) attention
+    slots; MLA's compressed cache and Mamba's recurrent state need their
+    own paging story, and a frontend arch serves through the monolithic
+    prefill, as in the JAX package."""
+    if cfg.frontend is not None:
+        raise ValueError("paged serving is text-decode only (frontend archs "
+                         "serve through the monolithic path)")
     for g in cfg.groups:
         for slot in g.slots:
             if slot.mixer == "mamba":
@@ -276,12 +287,21 @@ def _layer_cache(cache: dict | None, key: str, layer: int) -> dict | None:
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            embeds: torch.Tensor | None = None,
             sub: dict | None = None, pert: Pert | None = None,
             cache: dict | None = None, pos=0,
             paged_table: torch.Tensor | None = None):
-    """(logits (C, B, T, vocab), aux (C,)) for tokens (C, B, T); params
+    """(logits (C, B, P + T, vocab), aux (C,)) for tokens (C, B, T); params
     stacked (C, ...).  ``aux`` sums the MoE load-balance losses of every
     layer (0 for a dense decoder).
+
+    ``embeds`` (C, B, P, edim) are a frontend arch's stubbed frame or patch
+    embeddings (P = 0 without them): projected by ``frontend/proj`` (a
+    perturbed projection like any other) and prepended to the token
+    embeddings before positions are added, so they take positions
+    pos..pos+P-1.  An arch without a frontend ignores them, as the JAX
+    package does.  Sinusoidal positions are added at every position,
+    unclipped.
 
     Serving (one model, C = 1): with ``cache`` from :func:`init_cache`,
     ``pos`` (an int) is the absolute position of tokens[..., 0] and every
@@ -298,15 +318,22 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         check_paged_support(cfg)
     emb = Bundle(params, sub, pert, "embed/")
     x = emb.embed("tok", tokens)
-    C, _, T = tokens.shape
-    if cfg.pos == "learned":
+    if embeds is not None and "frontend/proj" in params:
+        xf = Bundle(params, sub, pert, "frontend/").dense(
+            "proj", embeds.to(x.dtype))
+        x = torch.cat([xf, x], dim=2)
+    C, _, T = x.shape[:3]
+    if cfg.pos in ("learned", "sinusoidal"):
         # positions pos..pos+T-1 shared by every sequence (1, T), or per
         # request (B, T) on the paged path
         steps = torch.arange(T, device=tokens.device)
         q_pos = pos[:, None] + steps if paged_table is not None \
             else (pos + steps)[None]
-        ids = q_pos.clamp(0, LEARNED_POS_LEN - 1)[None]
-        x = x + emb.embed("pos", ids.expand(C, -1, -1))
+        if cfg.pos == "learned":
+            ids = q_pos.clamp(0, LEARNED_POS_LEN - 1)[None]
+            x = x + emb.embed("pos", ids.expand(C, -1, -1))
+        else:
+            x = x + L.sinusoidal_pos(q_pos, cfg.d_model)[None].to(x.dtype)
     aux = torch.zeros(C, dtype=torch.float32, device=tokens.device)
     for gi, g in enumerate(cfg.groups):
         for layer in range(g.reps):
@@ -341,14 +368,19 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def lm_loss(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            embeds: torch.Tensor | None = None,
             sub: dict | None = None, pert: Pert | None = None) -> torch.Tensor:
-    """Mean next-token cross-entropy per client, plus its MoE aux loss: (C,).
+    """Mean next-token cross-entropy per client over the text segment, plus
+    its MoE aux loss: (C,).  A frontend's ``embeds`` are context only: the
+    logits of their P positions are not scored.
 
     The mean over tokens is taken in float64 and rounded once: the ZO
     coefficient (L+ − L−) / 2ε divides the difference of two float32 losses
     by 2ε, so the losses' own rounding sets its noise floor."""
-    logits, aux = forward(cfg, params, tokens, sub=sub, pert=pert)
-    lg = logits[:, :, :-1].float()
+    logits, aux = forward(cfg, params, tokens, embeds=embeds, sub=sub,
+                          pert=pert)
+    off = logits.shape[2] - tokens.shape[2]          # n frontend embeds
+    lg = logits[:, :, off:-1].float()
     del logits
     labels = tokens[:, :, 1:].long()
     lse = torch.logsumexp(lg, dim=-1)
