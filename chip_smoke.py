@@ -50,7 +50,16 @@ no result line):
              dh0 held against the plain reverse scan and autograd of the
              plain forward, dc (a sum over D = 8192) against a float64
              oracle at the same tolerance, its distance to the plain
-             version printed; then ``prng.normal`` and ``prng.gumbel`` on
+             version printed; the bf16 paths (``*_bf16``: x, W and y, or
+             the update's W, in bf16), one unit per kernel row at shapes
+             phase 19 runs (InternVL2-26B's pod projections, untied logits
+             and projector at 8 clients over one W, M = 2 x 1057; its
+             model's update; Qwen1.5-0.5B's tied logits and, off the path,
+             its replay at E = 2; the Jamba cut's experts at capacity
+             330), each within one bf16 ulp (plus atol 1e-5) of its bf16
+             plain version, bitwise across two calls, and timed beside
+             ``baddbmm`` in bf16 and the bf16 bound (989 TFLOP/s, 3.35
+             TB/s); then ``prng.normal`` and ``prng.gumbel`` on
              the card held bitwise against the CPU on 2^20 draws each.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
@@ -118,7 +127,7 @@ no result line):
              rejoin step's catch-up must run ``subcge_apply_epochs`` with
              E >= 2, and all 64 clients must end within 1e-10 consensus;
              the catch-up step's own time is printed.
-11. resume — OPT-125M whole, 8 clients on a ring, SeedFlood, τ = 2,
+11. resume — OPT-125M whole, 4 clients on a ring, SeedFlood, τ = 2,
              client 3 offline for steps 1-2, 5 steps with a checkpoint
              every 2 into a temporary directory; a run resumed from the
              step-2 checkpoint must end bitwise equal to the uninterrupted
@@ -196,9 +205,9 @@ no result line):
              1e-10, peak under 80 GiB; (b) serving one model of the cut
              (capacity factor 4.0: no expert overflows): 8 greedy
              sequences, a 512-token prefill through ``build_prefill_step``
-             into the compressed cache (capacity 544), 32 absorbed decode
+             into the compressed cache (capacity 528), 16 absorbed decode
              steps through ``build_decode_step``, then a no-cache forward
-             over the 544 tokens: the prefill's and every decode step's
+             over the 528 tokens: the prefill's and every decode step's
              logits within rtol / atol 3e-4 of it; the prefill ms, the
              decode step's median and spread, tok/s, peak and the cache's
              bytes against the expanded K/V's are printed.
@@ -216,8 +225,8 @@ no result line):
              model of the cut and (c) Falcon Mamba 7B whole (64 layers)
              serve 8 greedy sequences through ``build_prefill_step`` (512
              tokens into the (h, conv) state, and the attention slot's
-             ring of 544) and 32 decode steps through
-             ``build_decode_step``, then a no-cache forward over the 544
+             ring of 528) and 16 decode steps through
+             ``build_decode_step``, then a no-cache forward over the 528
              tokens: the prefill's and every decode step's logits within
              rtol / atol 3e-4 of it, one ``selective_scan`` per Mamba slot
              in each of them and no other launch; prefill ms, the decode
@@ -236,18 +245,41 @@ no result line):
              92,553 vocabulary and the 3200 -> 6144 projector) through
              ``launch.steps``' pod SeedFlood step, 8 clients sharing one
              model, each 2 sequences of 1024 patch embeddings and 33
-             tokens, 3 steps: 54 ``rank1_matmul`` (the projector's among
-             them) and 30 ``subcge_apply`` launches, then one step under
-             torch.profiler (the card's busy share), then the pod DSGD
-             step for 2 steps (no hand-written kernel); steady step, peak
+             tokens, 2 steps: 36 ``rank1_matmul`` (the projector's among
+             them) and 20 ``subcge_apply`` launches, then the pod DSGD
+             step for 2 steps (no hand-written kernel), in float32
+             (``param_dtype=torch.float32``); steady step, peak
              and launches printed; (c) ``python -m
              repro_torch.launch.train`` on MusicGen-medium whole, 2 steps,
-             its step-2 checkpoint read back bitwise; (d) both served
+             in bf16 as the reference's CLI without ``--reduced`` (bf16
+             kernels only), its step-2 checkpoint (``::bf16`` leaves) read
+             back bitwise; (d) both served
              through ``build_prefill_step`` with their embeddings (the
              InternVL cut 1024 patches + 32 tokens, MusicGen 64 frames +
-             512 tokens) and 32 decode steps, held to one no-cache forward
+             512 tokens) and 16 decode steps, held to one no-cache forward
              at rtol / atol 3e-4; every paged builder refuses both.
-19. report — one JSON line ``{"kernels": [...]}``, the card's name and power
+19. bf16    — the pod runtime as the JAX pod runs it by default
+             (``PodConfig``: bf16 parameters): (a) InternVL2-26B whole (48
+             layers, every width, 19.9 G parameters in ~37 GiB of bf16,
+             one copy) through the pod SeedFlood step in fold mode, 8
+             clients x 2 sequences of 1024 patch embeddings and 33 tokens,
+             3 steps and one profiled: every leaf bf16, finite losses,
+             exactly the bf16 kernels' launches (676 ``rank1_matmul_bf16``
+             and 10 ``subcge_apply_bf16`` a step), peak under 80 GiB,
+             steady step and busy share printed, and one leaf's update
+             (``g0/s0/w2``, layer 0, 256 rows) within one bf16 ulp of the
+             plain update of the same messages; (b) buffer mode against
+             fold mode on Qwen1.5-0.5B whole (tied), 8 clients, tau 2, 3
+             steps: in float32 the effective weights equal fold mode's
+             (rtol 2e-4, atol 2e-5); in bf16 the float32 buffers move, the
+             matrix leaves stay bitwise until the step-2 refresh and then
+             take the plain fold, and every vector leaf takes its plain
+             update bitwise at every step; (c) the Jamba cut in bf16
+             through the pod step (3 clients, 2 steps): finite losses and
+             phase 17's per-forward launches on the bf16 experts and
+             products, the scan in float32.
+20. report — one JSON line ``{"kernels": [...]}`` (the bf16 paths as
+             kernels of their own, ``*_bf16``), the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
 A line ``[t] phase N took S s`` follows each phase.
@@ -277,8 +309,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 RTOL = ATOL = 1e-5
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): float32 on the
-# CUDA cores, and HBM3 bandwidth
+# CUDA cores, dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # what the JAX package's FloodTransport charges a ring of 8
 # (tests/test_torch_slice.py pins the port's transport to the same values)
@@ -312,9 +345,9 @@ FO_MAMBA_ARMS, FO_MAMBA_STEPS = (("dsgd", 4), ("choco", 3)), 3
 # n_syncs; tests/test_torch_churn.py derives it from the JAX transport)
 CHURN_STEPS, CHURN_TAU = 6, 2
 LEDGER_MESHGRID64_CHURN_6STEPS = (82602, 668088, 15912, 18)
-# phase 11: resume, 8 clients (one OPT-125M checkpoint of 64 clients would
-# be 30.2 GiB)
-RESUME_CLIENTS, RESUME_STEPS = 8, 5
+# phase 11: resume, 4 clients (8 until the bf16 phase needed the time; one
+# OPT-125M checkpoint of 64 clients would be 30.2 GiB)
+RESUME_CLIENTS, RESUME_STEPS = 4, 5
 # phase 12: serving TinyLlama-1.1B whole (float32, random weights from seed
 # 0): 16 requests of prompts drawn between 16 and 192 tokens and 16 new
 # tokens each (32 until the frontend phase needed the time) through 8
@@ -378,11 +411,12 @@ LEDGER_RING3_3STEPS = (42, 336)
 # vocabulary; 8.2 GB of float32 a client).  (a) 4 clients on a ring, 3 steps
 DEEPSEEK_CLIENTS = 4
 # (b) serving one model of the cut: 8 greedy sequences, a 512-token prefill
-# into a compressed cache of 544, 32 absorbed decode steps, then a no-cache
-# forward over all 544 tokens that the prefill's and every decode step's
+# into a compressed cache of 528, 16 absorbed decode steps (32 until the
+# bf16 phase needed the time), then a no-cache forward over all 528 tokens
+# that the prefill's and every decode step's
 # logits are held to (the JAX package holds its prefill and decode to its
 # forward at 2e-4 and 3e-4, tests/test_models.py)
-DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW = 8, 512, 32
+DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW = 8, 512, 16
 FORWARD_TOL = 3e-4
 # capacity dispatch drops tokens by batch size and order, so at the
 # published 1.25 a prefill of 4096 tokens, a decode of 8 and a forward of
@@ -400,11 +434,11 @@ DEEPSEEK_SERVE_CAPACITY = 4.0
 JAMBA_CLIENTS = 3
 # (b) one model of the cut and (c) Falcon Mamba 7B whole (64 layers, 29.1
 # GB) serve as 16 (b) does: 8 greedy sequences, a 512-token prefill into
-# the (h, conv) state (and the attention slot's ring of 544), 32 decode
+# the (h, conv) state (and the attention slot's ring of 528), 16 decode
 # steps, held to one no-cache forward at FORWARD_TOL.  The MoE sends every
 # token to both of its 2 experts (top-2), so the published capacity factor
 # of 1.25 drops none and prefill, decode and forward route alike
-MAMBA_SERVE_B, MAMBA_PROMPT, MAMBA_NEW = 8, 512, 32
+MAMBA_SERVE_B, MAMBA_PROMPT, MAMBA_NEW = 8, 512, 16
 # phase 18: the frontend archs, random float32 weights from seed 0.  (a)
 # MusicGen-medium whole (48 layers, 1,366,723,584 parameters, 5.09 GiB a
 # client) through run with the DTrainConfig defaults: 8 clients on a ring,
@@ -414,23 +448,42 @@ MUSICGEN_ARCH = "musicgen-medium"
 # (b) the InternVL2-26B cut (archs.internvl_cut: 1 of 48 layers at every
 # width, the untied 92,553 vocabulary and the 3200 x 6144 projector; 5.76
 # GiB) through the pod steps: 8 clients share one model, each with B 2
-# sequences of 1024 patch embeddings and 33 tokens; 3 SeedFlood steps and
-# one profiled, then 2 DSGD steps, at the PodConfig defaults (lr 1e-5,
-# rank 32, tau 1000)
+# sequences of 1024 patch embeddings and 33 tokens; 2 SeedFlood steps (3
+# and one profiled until the bf16 phase, which profiles the pod step, needed
+# the time), then 2 DSGD steps, in float32 at the other PodConfig defaults
+# (lr 1e-5, rank 32, tau 1000)
 POD_CLIENTS, POD_B, POD_TEXT = 8, 2, 33
-POD_SF_STEPS, POD_DSGD_STEPS = 3, 2
+POD_SF_STEPS, POD_DSGD_STEPS = 2, 2
 # (c) the launch.train CLI on MusicGen-medium whole: 2 steps of 8 clients x
 # 2 sequences of 64 conditioning frames and 33 tokens, a checkpoint at
 # step 2, read back bitwise
 CLI_ARGV = ["--arch", MUSICGEN_ARCH, "--steps", "2", "--batch", "16",
             "--seq", "97", "--n-clients", "8", "--ckpt-every", "2"]
 # (d) serving one model of each: 8 greedy sequences, the embeddings and a
-# prompt prefilled, 32 decode steps, held to one no-cache forward at
+# prompt prefilled, 16 decode steps, held to one no-cache forward at
 # FORWARD_TOL: the InternVL cut 1024 patches + 32 tokens, MusicGen 64
 # frames + 512 tokens (608 positions: past no table, sinusoidal positions
 # are unclipped)
-FRONTEND_SERVE_B, FRONTEND_NEW = 8, 32
+FRONTEND_SERVE_B, FRONTEND_NEW = 8, 16
 INTERNVL_PROMPT, MUSICGEN_PROMPT = 32, 512
+# phase 19: the pod runtime as the JAX pod runs it by default, bf16
+# parameters through the kernels' bf16 paths.  (a) InternVL2-26B whole (48
+# layers, every width, the untied 92,553 vocabulary and the 3200 -> 6144
+# projector; 19.9 G parameters, ~37 GiB in bf16) at the PodConfig defaults
+# (bf16, fold mode, lr 1e-5, rank 32, tau 1000): POD_CLIENTS clients
+# sharing one model, each POD_B sequences of 1024 patch embeddings and
+# POD_TEXT tokens, BF16_STEPS steps and one profiled; the update check
+# reads the first BF16_CHECK_ROWS rows of layer 0 of BF16_CHECK_LEAF
+BF16_ARCH, BF16_STEPS = "internvl2-26b", 3
+BF16_CHECK_LEAF, BF16_CHECK_ROWS = "g0/s0/w2", 256
+# (b) buffer mode against fold mode on Qwen1.5-0.5B whole (tied logits: the
+# transposed path), 8 clients x 2 sequences of 33 tokens, tau 2 (a fold at
+# step 2), 3 steps, in float32 and in bf16
+BUFFER_ARCH, BUFFER_TAU, BUFFER_STEPS, BUFFER_B = "qwen1.5-0.5b", 2, 3, 2
+# (c) the Jamba cut in bf16 through the pod step: JAMBA_CLIENTS clients
+# sharing one model, 8 sequences of 33 tokens each, 2 steps (the expert
+# capacity then is phase 2's, 330 rows)
+JAMBA_POD_STEPS = 2
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -448,6 +501,11 @@ SOURCES = {
     "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
                            "src/repro/models/layers.py:327"),
 }
+# the bf16 paths of the same kernels (rank1_gemm_bf16, subcge_stream_kernel
+# on bf16 W), which the same TPU kernels take bf16 parameters through
+SOURCES.update({name + "_bf16": SOURCES[name] for name in (
+    "rank1_matmul", "rank1_matmul_t", "subcge_apply", "subcge_apply_epochs",
+    "rank1_matmul_expert")})
 # phase 8: steps of each small-input run (3 until the frontend phase needed
 # the time)
 SMALL_STEPS = 2
@@ -489,8 +547,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
+    t_b, t_f = nbytes / PEAK_HBM_BYTES * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -529,15 +587,57 @@ def ptxas_report(name: str) -> list:
     return out
 
 
+#: the tensor-core witness of every bf16 product unit (``Entry.witness``)
+WITNESS: list = []
+
+
+def bf16_excess(got, want, acc_atol: float) -> dict:
+    """How far bf16 ``got`` lies from bf16 ``want``: past one bf16 ulp (of
+    ``want``) + ATOL, the count (``past_ulp``), the largest excess as a
+    fraction of the accumulation allowance ``acc_atol`` · max |want|
+    (``excess``), the count past that allowance (``bad``), the share
+    bitwise (``same``) and the farthest element (``at``)."""
+    import torch
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{got.dtype} against {want.dtype}, not bf16")
+    w = want.float()
+    diff = (got.float() - w).abs()
+    err, amax = float(diff.max()), float(w.abs().max())
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+    over = diff.sub_(ulp).sub_(ATOL)
+    del ulp
+    acc = acc_atol * amax
+    worst = int(over.argmax())
+    out = {"err": err, "amax": amax, "acc": acc,
+           "past_ulp": int((over > 0).sum()), "bad": int((over > acc).sum()),
+           "excess": max(0.0, float(over.reshape(-1)[worst]) / acc)
+           if acc else 0.0,
+           "at": (float(w.reshape(-1)[worst]),
+                  float(got.reshape(-1)[worst])),
+           "same": float((got.view(torch.int16) == want.view(torch.int16))
+                         .float().mean())}
+    del w, over
+    return out
+
+
 class Entry:
-    """Accumulates one kernel's numbers over the shapes the path gives it."""
+    """Accumulates one kernel's numbers over the shapes the path gives it.
+    A bf16 entry (its name ends in ``_bf16``) is held to one bf16 ulp of the
+    plain version plus ATOL, and bounded by the bf16 tensor-core peak."""
 
     def __init__(self, name):
         self.name = name
+        self.bf16 = name.endswith("_bf16")
+        self.peak = PEAK_BF16_FLOPS if self.bf16 else PEAK_F32_FLOPS
         self.err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = 0.0           # None: no PyTorch call computes it
         self.nbytes = self.flops = 0.0
+        # bf16 products: the float32 accumulation error of K / 16
+        # tensor-core steps, per unit of max |y| (``tensor_core_atol``)
+        self.acc_atol = 0.0
+        self.last = None                # check_bf16's counts, for witness
 
     def add_library(self, ms):
         self.library_ms = None if ms is None or self.library_ms is None \
@@ -547,12 +647,52 @@ class Entry:
         """(max |got - want|, max |want|); raises unless every element of
         ``got`` is within tolerance of ``want``."""
         import torch
+        if self.bf16:
+            return self.check_bf16(got, want, what)
         diff = (got - want).abs()
         err = float(diff.max())
         if not bool(torch.all(diff <= ATOL + RTOL * want.abs())):
             raise AssertionError(f"{self.name} {what}: kernel disagrees with "
                                  f"its plain version (max abs {err})")
         return err, float(want.abs().max())
+
+    def check_bf16(self, got, want, what) -> tuple:
+        """bf16 ``got`` within one bf16 ulp of ``want`` (bf16) plus ATOL
+        plus ``acc_atol`` · max |want|: both sum in float32 and cast once,
+        in other orders (ATOL is the float32 paths' own tolerance for
+        that), so a sum near a rounding boundary may land on the
+        neighbouring bf16; the tensor cores' float32 accumulation adds
+        ``acc_atol`` (``tensor_core_atol``).  Prints the share of elements
+        that agree bitwise, and how many lie past one ulp + ATOL alone."""
+        x = bf16_excess(got, want, self.acc_atol)
+        self.last = x
+        log(f"    {self.name} {what}: {x['same']:.4%} of elements bitwise "
+            f"the plain version's, {x['past_ulp']} past one ulp + atol "
+            f"{ATOL} (the farthest: plain {x['at'][0]!r}, kernel "
+            f"{x['at'][1]!r}; {x['excess']:.3f} of the accumulation's "
+            f"{x['acc']:.2e}), {x['bad']} past that + the accumulation's")
+        if x["bad"]:
+            raise AssertionError(f"{self.name} {what}: kernel disagrees with "
+                                 f"its plain version ({x['bad']} elements "
+                                 f"past one bf16 ulp, max abs {x['err']})")
+        return x["err"], x["amax"]
+
+    def witness(self, library, want, what) -> None:
+        """The tensor-core witness of a bf16 product: ``library`` (cuBLAS in
+        bf16, float32 accumulation on the same tensor cores) measured
+        against the same plain version as the kernel just was, by the same
+        counts.  Not a check: the allowance rests on it (``WITNESS``)."""
+        x = bf16_excess(library, want, self.acc_atol)
+        k = self.last
+        WITNESS.append({"kernel": self.name, "shape": what,
+                        "past_ulp": k["past_ulp"], "excess": k["excess"],
+                        "lib_past_ulp": x["past_ulp"],
+                        "lib_excess": x["excess"], "lib_bad": x["bad"],
+                        "n": want.numel()})
+        log(f"    witness baddbmm bf16 {what}: {x['past_ulp']} past one ulp "
+            f"+ atol (kernel {k['past_ulp']}), largest excess "
+            f"{x['excess']:.3f} of the accumulation allowance (kernel "
+            f"{k['excess']:.3f}), {x['bad']} past it")
 
     def add(self, got, want, ms, plain_ms, library_ms, nbytes, flops, what,
             count=1):
@@ -565,9 +705,10 @@ class Entry:
         """Add one shape whose result ``check`` passed: ``checked`` is its
         (max abs error, max |want|)."""
         err, want_max = checked
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, self.peak)
+        tol = "1 bf16 ulp + atol" if self.bf16 else f"rtol {RTOL} atol"
         log(f"  {self.name:20s} {what:36s} x{count} max_abs {err:.3e} "
-            f"(|want| max {want_max:.3e}; tol rtol {RTOL} atol "
+            f"(|want| max {want_max:.3e}; tol {tol} "
             f"{ATOL}) | {speed(ms, plain_ms, library_ms, b_ms, b_by)}")
         self.err = max(self.err, err)
         self.ms += count * ms
@@ -579,12 +720,12 @@ class Entry:
     def line(self) -> str:
         """The unit's sums: times, ratio to the library, share of the
         bound."""
-        b_ms, b_by = bound(self.nbytes, self.flops)
+        b_ms, b_by = bound(self.nbytes, self.flops, self.peak)
         return f"{self.name} unit: " + speed(self.ms, self.plain_ms,
                                              self.library_ms, b_ms, b_by)
 
     def summary(self) -> dict:
-        b_ms, b_by = bound(self.nbytes, self.flops)
+        b_ms, b_by = bound(self.nbytes, self.flops, self.peak)
         return {"max_abs_err": self.err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": self.library_ms}
@@ -604,11 +745,43 @@ def record(name: str, parts: list, launches: int) -> dict:
             "launches": launches, **e.summary()}
 
 
+def bits(t):
+    """A float32 or bf16 tensor's bits, for bitwise comparisons."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 def same_bits(a, b, what: str) -> None:
     """Two calls on the same inputs must give the same bits (no atomics)."""
     import torch
-    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+    if a.dtype != b.dtype or not torch.equal(bits(a), bits(b)):
         raise AssertionError(f"{what}: two calls on the same inputs differ")
+
+
+def tensor_core_atol(K: int) -> float:
+    """The float32 accumulation error of a bf16 product over K, per unit of
+    max |y|: ``mma.sync`` adds each m16n8k16 step's 16 exact products to
+    the float32 accumulator and truncates the sum toward zero (up to one
+    float32 ulp of the running sum a step), where the plain version's
+    float32 FMAs round to nearest: K / 16 steps of at most 2^-23 ·
+    |partial sum|, the partial sums taken as large as max |y|.  Phase 2
+    prints the kernel's largest excess as a share of it beside cuBLAS's
+    ``baddbmm`` in bf16 at the same shapes (``Entry.witness``)."""
+    return K / 16 * 2.0 ** -23
+
+
+def cublas_f32_sums(fn):
+    """``fn()`` with cuBLAS's bf16 products summed in float32 throughout
+    (no reduced-precision split-K reduction): the library's tensor-core
+    arithmetic, the same as the kernel's accumulation."""
+    import torch
+    m = torch.backends.cuda.matmul
+    old = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        return fn()
+    finally:
+        m.allow_bf16_reduced_precision_reduction = old
 
 
 def plain_split(chunk, K: int, kper: int):
@@ -629,52 +802,69 @@ def plain_split(chunk, K: int, kper: int):
 
 def check_rank1(e: Entry, C: int, M: int, shapes, randn,
                 trans: bool = False, shared: bool = False,
-                reps: int = 10) -> None:
+                reps: int = 3, warmup: int = 2) -> None:
     """rank1_matmul (rank1_matmul_t when ``trans``) at (K, N) shapes,
     ``count`` uses each per unit, held against the plain version summed
     over the kernel's K ranges (``plain_split``) and bitwise equal across
     two calls.  W and the contracted vector are scaled by K^-1/2.  ``shared``:
     one W for all C clients, expanded with a client stride of 0 (central_zo's
     dual forward over its one model, and the pod step's over its one).
-    ``reps`` timed calls each (fewer where one call takes a second)."""
+    ``reps`` timed calls each after ``warmup`` (fewer where one call takes
+    a tenth of a second or more).  A bf16
+    entry (``e.bf16``) takes x and W in bf16: its plain version is summed
+    over the K ranges in float32 and cast once, and the library call is
+    ``baddbmm`` in bf16, also held to that plain version as the
+    tensor-core witness."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rank1_matmul as r1
     s = torch.tensor(([1e-3, -1e-3] * C)[:C], device="cuda")
     fn = ops.rank1_matmul_t if trans else ops.rank1_matmul
     plain = r1.rank1_matmul_t_plain if trans else r1.rank1_matmul_plain
+    dt, esz = (torch.bfloat16, 2) if e.bf16 else (torch.float32, 4)
     for (K, N), count in shapes:
-        x = randn(C, M, K)
+        x = randn(C, M, K).to(dt)
         CW = 1 if shared else C
         W = randn(CW, N, K, scale=K ** -0.5) if trans else \
             randn(CW, K, N, scale=K ** -0.5)
-        W = W.expand(C, -1, -1)
+        W = W.to(dt).expand(C, -1, -1)
         u, v = (randn(C, N), randn(C, K, scale=K ** -0.5)) if trans else \
             (randn(C, K, scale=K ** -0.5), randn(C, N))
         got = fn(x, W, u, v, s)
         same_bits(got, fn(x, W, u, v, s), e.name)
-        splits, kper = r1.split_plan(C, M, N, K)
+        splits, kper = r1.split_plan(C, M, N, K, bf16=e.bf16)
+        # the float32 operands the plain version reads (one W copy shared)
+        xf, Wf = r1.to_f32(x), r1.to_f32(W)
         if trans:
             def chunk(k0, k1):
-                return plain(x[..., k0:k1], W[..., k0:k1], u, v[:, k0:k1], s)
+                return plain(xf[..., k0:k1], Wf[..., k0:k1], u, v[:, k0:k1],
+                             s)
         else:
             def chunk(k0, k1):
-                return plain(x[..., k0:k1], W[:, k0:k1], u[:, k0:k1], v, s)
-        want = plain_split(chunk, K, kper)
+                return plain(xf[..., k0:k1], Wf[:, k0:k1], u[:, k0:k1], v, s)
+        want = plain_split(chunk, K, kper).to(dt)
         whole = "" if splits == 1 else " unsplit plain " + format(
-            float((plain(x, W, u, v, s) - got).abs().max()), ".1e")
+            float((plain(x, W, u, v, s).float() - got.float()).abs().max()),
+            ".1e")
         cvec, ovec = (v, u) if trans else (u, v)
-        R = (s[:, None, None] * torch.bmm(x, cvec[..., None])) * ovec[:, None, :]
+        R = ((s[:, None, None] * torch.bmm(xf, cvec[..., None]))
+             * ovec[:, None, :]).to(dt)
+        del xf, Wf
         Wn = W.transpose(1, 2) if trans else W
-        ms = time_ms(lambda: fn(x, W, u, v, s), reps)
-        p_ms = time_ms(lambda: plain(x, W, u, v, s), reps)
-        l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn), reps)
-        nbytes = 4 * (C * M * K + CW * K * N + C * K + C * N + C + C * M * N)
+        ms = time_ms(lambda: fn(x, W, u, v, s), reps, warmup)
+        p_ms = time_ms(lambda: plain(x, W, u, v, s), reps, warmup)
+        l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn), reps, warmup)
+        nbytes = esz * (C * M * K + CW * K * N + C * M * N) \
+            + 4 * (C * K + C * N + C)
         flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
         shape = f"W({CW},{N},{K})" if trans else f"W({CW},{K},{N})"
         shape += " expanded to C" if shared else ""
-        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
-              f"x({C},{M},{K}) {shape} S={splits}{whole}", count)
+        e.acc_atol = tensor_core_atol(K) if e.bf16 else 0.0
+        what = f"x({C},{M},{K}) {shape} S={splits}{whole}"
+        e.add(got, want, ms, p_ms, l_ms, nbytes, flops, what, count)
+        if e.bf16:
+            e.witness(cublas_f32_sums(lambda: torch.baddbmm(R, x, Wn)), want,
+                      what)
         del x, W, got, want, R, Wn
         torch.cuda.empty_cache()
 
@@ -695,17 +885,28 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
     on every instance (in slices of W of at most CHECK_SLICE_BYTES), bitwise
     across two calls at E <= 2, and timed beside the plain version,
     ``baddbmm`` (the library call) and a ``copy_`` of W (the rate at which
-    this card streams the same bytes)."""
+    this card streams the same bytes).  A bf16 entry takes W in bf16 (made
+    and, for the plain version, timed slice by slice: the plain version's
+    float32 temporaries of a whole 48-layer leaf would not fit), and the
+    library call is ``baddbmm`` in bf16."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import subcge_apply as sa
+    dt, esz = (torch.bfloat16, 2) if e.bf16 else (torch.float32, 4)
     for batch, n, m, count in leaves:
         nb = math.prod(batch)
-        W = randn(nb, n, m, scale=0.05)
+        step = max(1, CHECK_SLICE_BYTES // (4 * n * m))
+        if e.bf16:
+            W = torch.empty((nb, n, m), dtype=dt, device="cuda")
+            for lo in range(0, nb, step):
+                W[lo:lo + step] = randn(min(nb, lo + step) - lo, n, m,
+                                        scale=0.05)
+        else:
+            W = randn(nb, n, m, scale=0.05)
         U, Vm = randn(E, n, r), randn(E, m, r)
         # coefficients of a few messages: deltas comparable to W itself
         A = randn(E, nb, r, r, scale=1e-2)
-        if e.name == "subcge_apply":
+        if "epochs" not in e.name:
             def fn():
                 return ops.subcge_apply(W, U[0], A[0], Vm[0])
 
@@ -725,7 +926,6 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
         got = fn()
         if E <= 2:
             same_bits(got, fn(), e.name)
-        step = max(1, CHECK_SLICE_BYTES // (4 * n * m))
         err = want_max = 0.0
         for lo in range(0, nb, step):
             hi = min(nb, lo + step)
@@ -733,19 +933,25 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
             se, sw = e.check(got[lo:hi], want, f"{shape} [{lo}:{hi}]")
             err, want_max = max(err, se), max(want_max, sw)
             del want
-        ms = time_ms(fn, 5)
-        c_ms = time_ms(lambda: got.copy_(W), 5)   # got is checked: reuse it
+        ms = time_ms(fn, 3)
+        c_ms = time_ms(lambda: got.copy_(W), 3)   # got is checked: reuse it
         del got
         torch.cuda.empty_cache()
-        p_ms = time_ms(plain, 5)
+        if e.bf16:
+            p_ms = sum(time_ms(lambda lo=lo: plain(lo, min(nb, lo + step)), 3)
+                       for lo in range(0, nb, step))
+        else:
+            p_ms = time_ms(plain, 3)
         UA = torch.einsum("enr,ebrs->bnes", U, A).reshape(nb, n, E * r)
         Vt = Vm.permute(0, 2, 1).reshape(E * r, m).expand(nb, E * r, m)
-        l_ms = time_ms(lambda: torch.baddbmm(W, UA, Vt), 5)
-        nbytes = 4 * (2 * nb * n * m + E * (n * r + m * r + nb * r * r))
+        UA, Vt = UA.to(dt), Vt.to(dt)
+        l_ms = time_ms(lambda: torch.baddbmm(W, UA, Vt), 3)
+        nbytes = esz * 2 * nb * n * m \
+            + 4 * E * (n * r + m * r + nb * r * r)
         flops = 2 * E * nb * (n * m * r + n * r * r)
         e.add_checked((err, want_max), ms, p_ms, l_ms, nbytes, flops, shape,
                       count)
-        gbs = 2 * nb * n * m * 4 / ms / 1e6   # W read + written, per second
+        gbs = 2 * nb * n * m * esz / ms / 1e6   # W read + written, per second
         log(f"    update {shape}: {gbs:.1f} GB/s = "
             f"{gbs * 1e9 / PEAK_HBM_BYTES:.1%} of 3.35 TB/s; kernel/baddbmm "
             f"{ms / l_ms:.3f}x; copy_ of W {c_ms:.4f} ms (kernel/copy_ "
@@ -811,29 +1017,37 @@ def check_expert(e: Entry, C: int, M: int, mo, d: int, randn) -> None:
     E, ff = mo.n_experts, mo.d_ff_expert
     cap = max(1, math.ceil(M * mo.top_k / E * mo.capacity_factor))
     s = torch.tensor(([1e-3, -1e-3] * C)[:C], device=dev)
+    dt, esz = (torch.bfloat16, 2) if e.bf16 else (torch.float32, 4)
     for (K, N), count in (((d, ff), 2), ((ff, d), 1)):
-        x, W = randn(C, E, cap, K), randn(C, E, K, N, scale=K ** -0.5)
+        x = randn(C, E, cap, K).to(dt)
+        W = randn(C, E, K, N, scale=K ** -0.5).to(dt)
         u, v = randn(C, E, K), randn(C, E, N)
         got = ops.rank1_matmul_expert(x, W, u, v, s)
-        same_bits(got, ops.rank1_matmul_expert(x, W, u, v, s),
-                  "rank1_matmul_expert")
-        splits, kper = r1.split_plan(C * E, cap, N, K)
+        same_bits(got, ops.rank1_matmul_expert(x, W, u, v, s), e.name)
+        splits, kper = r1.split_plan(C * E, cap, N, K, bf16=e.bf16)
+        xf, Wf = x.float(), W.float()
 
         def chunk(k0, k1):
             return r1.rank1_matmul_expert_plain(
-                x[..., k0:k1], W[:, :, k0:k1], u[..., k0:k1], v, s)
-        want = plain_split(chunk, K, kper)
+                xf[..., k0:k1], Wf[:, :, k0:k1], u[..., k0:k1], v, s)
+        want = plain_split(chunk, K, kper).to(dt)
         xb, Wb = x.reshape(C * E, cap, K), W.reshape(C * E, K, N)
-        R = ((s[:, None, None, None] * torch.matmul(x, u[..., None]))
-             * v[:, :, None, :]).reshape(C * E, cap, N)
-        ms = time_ms(lambda: ops.rank1_matmul_expert(x, W, u, v, s), 5)
-        p_ms = time_ms(lambda: r1.rank1_matmul_expert_plain(x, W, u, v, s), 5)
-        l_ms = time_ms(lambda: torch.baddbmm(R, xb, Wb), 5)
+        R = ((s[:, None, None, None] * torch.matmul(xf, u[..., None]))
+             * v[:, :, None, :]).reshape(C * E, cap, N).to(dt)
+        del xf, Wf
+        ms = time_ms(lambda: ops.rank1_matmul_expert(x, W, u, v, s), 3)
+        p_ms = time_ms(lambda: r1.rank1_matmul_expert_plain(x, W, u, v, s), 3)
+        l_ms = time_ms(lambda: torch.baddbmm(R, xb, Wb), 3)
         B = C * E
-        nbytes = 4 * (B * cap * K + B * K * N + B * K + B * N + C + B * cap * N)
+        nbytes = esz * (B * cap * K + B * K * N + B * cap * N) \
+            + 4 * (B * K + B * N + C)
         flops = 2 * B * cap * K * (N + 1) + 3 * B * cap * N
-        e.add(got, want, ms, p_ms, l_ms, nbytes, flops,
-              f"x({C},{E},{cap},{K}) W({C},{E},{K},{N}) S={splits}", count)
+        e.acc_atol = tensor_core_atol(K) if e.bf16 else 0.0
+        what = f"x({C},{E},{cap},{K}) W({C},{E},{K},{N}) S={splits}"
+        e.add(got, want, ms, p_ms, l_ms, nbytes, flops, what, count)
+        if e.bf16:
+            e.witness(cublas_f32_sums(lambda: torch.baddbmm(R, xb, Wb))
+                      .reshape(got.shape), want, what)
         del x, W, got, want, R, xb, Wb
         torch.cuda.empty_cache()
 
@@ -2201,24 +2415,32 @@ def serve_fold(arch, base, prompts, geometry: dict, capacity: int, greedy,
     return fold_launches, out
 
 
-def profile_step(fn) -> dict:
+def profile_step(fn, host: bool = False) -> dict:
     """Device-busy share, device launches and top kernels of one ``fn()``
-    (host wall around it, synchronised) under torch.profiler."""
+    (host wall around it, synchronised) under torch.profiler, recording
+    the device's activity only (host ops would add their own overhead to
+    the wall), read from the raw kineto events (building the profiler's
+    Python events took ~20 s at a step of ~60,000 launches).  ``host``
+    records the host's ops as well, as every profiled step did before this
+    measure: the wall then carries their tracing overhead, and the busy
+    share reads lower."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = kernels.get(e.name(), (0.0, 0))
+            dur = e.duration_ns() / 1e6 if hasattr(e, "duration_ns") \
+                else e.duration_us() / 1e3
+            kernels[e.name()] = (ms + dur, n + 1)
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(((k[:90], ms, n) for k, (ms, n) in kernels.items()),
                  key=lambda k: -k[1])
@@ -2735,8 +2957,8 @@ def phase_kernels_pod(arch, C: int, B: int, T: int) -> dict:
     tokens.  ``rank1_matmul``: one layer's seven projections and the
     untied logits at M = B (P + T) per client; the projector at M = B P,
     K = embed_dim, as a unit of its own (key ``proj``); ``subcge_apply``:
-    one update of every matrix leaf of the one model.  Three timed calls a
-    shape: at the logits one call computes 19 TFLOP."""
+    one update of every matrix leaf of the one model.  One timed call a
+    shape after one warm-up: at the logits one call computes 19 TFLOP."""
     import torch
 
     dev = torch.device("cuda")
@@ -2757,25 +2979,398 @@ def phase_kernels_pod(arch, C: int, B: int, T: int) -> dict:
                      "subcge_apply": Entry("subcge_apply")},
              "proj": {"rank1_matmul": Entry("rank1_matmul")}}
     check_rank1(units["pod"]["rank1_matmul"], C, B * (P + T),
-                tuple(layer.items()), randn, shared=True, reps=3)
+                tuple(layer.items()), randn, shared=True, reps=1, warmup=1)
     check_rank1(units["proj"]["rank1_matmul"], C, B * P,
                 (((arch.frontend.embed_dim, d), 1),), randn, shared=True,
-                reps=3)
+                reps=1, warmup=1)
     check_update(units["pod"]["subcge_apply"], update_leaves(arch, 1), 1,
                  randn)
     return units
+
+
+def phase_kernels_bf16(vl, qwen, jamba) -> dict:
+    """Phase 2's bf16 units, one per kernel row, at shapes phase 19 runs:
+    ``rank1_matmul_bf16`` at InternVL2-26B's pod shapes (POD_CLIENTS clients
+    over one W, M = POD_B (1024 + POD_TEXT) rows a client: one layer's
+    seven projections and the untied logits; the projector at M = POD_B x
+    1024, K = 3200, a unit of its own), ``rank1_matmul_t_bf16`` at
+    Qwen1.5-0.5B's tied logits (8 clients over one W, M = 264),
+    ``rank1_matmul_expert_bf16`` at the Jamba cut's experts (JAMBA_CLIENTS
+    clients, capacity 330), ``subcge_apply_bf16`` at every matrix leaf of
+    one InternVL2-26B, and ``subcge_apply_epochs_bf16`` at E = 2 over one
+    Qwen1.5-0.5B (not on phase 19's path: the pod does not replay).  Each
+    within one bf16 ulp of its bf16 plain version, bitwise across two
+    calls, timed beside ``baddbmm`` in bf16."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    slot = vl.groups[0].slots[0]
+    a, d, ff = slot.attn, vl.d_model, slot.d_ff
+    q, kv = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
+    P = vl.frontend.n_embeds
+    layer: dict = {}
+    for shape in ([(d, q), (d, kv), (d, kv), (q, d), (d, ff)]
+                  + [(d, ff)] * vl.gated_mlp + [(ff, d), (d, vl.vocab)]):
+        layer[shape] = layer.get(shape, 0) + 1
+    units = {"internvl_pod_bf16": {"rank1_matmul_bf16":
+                                   Entry("rank1_matmul_bf16"),
+                                   "subcge_apply_bf16":
+                                   Entry("subcge_apply_bf16")},
+             "internvl_proj_bf16": {"rank1_matmul_bf16":
+                                    Entry("rank1_matmul_bf16")},
+             "qwen_bf16": {"rank1_matmul_t_bf16":
+                           Entry("rank1_matmul_t_bf16"),
+                           "subcge_apply_epochs_bf16":
+                           Entry("subcge_apply_epochs_bf16")},
+             "jamba_bf16": {"rank1_matmul_expert_bf16":
+                            Entry("rank1_matmul_expert_bf16")}}
+    pod = units["internvl_pod_bf16"]
+    check_rank1(pod["rank1_matmul_bf16"], POD_CLIENTS, POD_B * (P + POD_TEXT),
+                tuple(layer.items()), randn, shared=True, reps=1, warmup=1)
+    check_rank1(units["internvl_proj_bf16"]["rank1_matmul_bf16"], POD_CLIENTS,
+                POD_B * P, (((vl.frontend.embed_dim, d), 1),), randn,
+                shared=True, reps=1, warmup=1)
+    check_update(pod["subcge_apply_bf16"], update_leaves(vl, 1), 1, randn)
+    check_rank1(units["qwen_bf16"]["rank1_matmul_t_bf16"], SLICE_CLIENTS,
+                SLICE_B * 33, (((qwen.d_model, qwen.vocab), 1),), randn,
+                trans=True, shared=True)
+    check_update(units["qwen_bf16"]["subcge_apply_epochs_bf16"],
+                 update_leaves(qwen, 1), 2, randn)
+    mam = next(s for grp in jamba.groups for s in grp.slots if s.moe)
+    check_expert(units["jamba_bf16"]["rank1_matmul_expert_bf16"],
+                 JAMBA_CLIENTS, SLICE_B * 33, mam.moe, jamba.d_model, randn)
+    return units
+
+
+def pod_steps(arch, pod, state, steps: int, seq: int, gb: int,
+              before_step=None, after_step=None) -> dict:
+    """``steps`` pod SeedFlood steps of ``state`` (``make_train_batch``
+    seeded by the step), launch counters zeroed just before and read just
+    after; ``before_step(t, state)`` and ``after_step(t, state)`` run
+    around each step, untimed.  Returns the state, the step walls, the
+    metrics, the launches and the peak GiB."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steplib
+
+    step_fn = steplib.build_seedflood_train_step(arch, pod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    wall, metrics = [], []
+    for t in range(steps):
+        batch = steplib.make_train_batch(arch, seq, gb, pod, seed=t,
+                                         device="cuda")
+        if before_step:
+            before_step(t, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, t)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if after_step:
+            after_step(t, state)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"pod {arch.name}: non-finite loss {losses}")
+    return {"state": state, "step_fn": step_fn, "step_s": wall,
+            "metrics": metrics, "launches": launches, "peak_gib": peak,
+            "losses": losses}
+
+
+def bf16_internvl(arch, card: str) -> dict:
+    """Phase 19 (a): InternVL2-26B whole through the pod SeedFlood step at
+    the PodConfig defaults (bf16 parameters, fold mode): BF16_STEPS steps
+    and one profiled.  Every leaf bf16 (no float32 copy of a weight), the
+    losses finite, the launches exactly the bf16 kernels' (the projector,
+    seven projections a layer and the logits in each signed forward, one
+    update per matrix leaf a step), the peak under 80 GiB, and the last
+    step's update of BF16_CHECK_LEAF's first BF16_CHECK_ROWS rows of layer
+    0 held to the plain update of that step's messages (within one bf16
+    ulp; the elements it changed and the share equal bitwise printed)."""
+    import torch
+    from repro_torch.core import subcge
+    from repro_torch.kernels import subcge_apply as sa
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+
+    pod = steplib.PodConfig(n_clients=POD_CLIENTS)
+    if pod.param_dtype != torch.bfloat16 or pod.apply_mode != "fold":
+        raise AssertionError(f"PodConfig defaults {pod}")
+    seq, gb = arch.frontend.n_embeds + POD_TEXT, POD_CLIENTS * POD_B
+    spec = tf.arch_spec(arch)
+    meta = plib.subcge_meta(spec)
+    n_params = plib.n_params(spec)
+    n_matrix = sum(m.is_matrix for m in meta.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(arch, 0, "cuda", pod.param_dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    wrong = [p for p, t in params.items() if t.dtype != torch.bfloat16]
+    if wrong:
+        raise AssertionError(f"bf16 pod: leaves {wrong} are not bf16")
+    gib = sum(t.numel() * t.element_size() for t in params.values()) / 2**30
+    rows = slice(0, BF16_CHECK_ROWS)
+    seen, apply = {}, subcge.apply_messages
+
+    def recording(params_, meta_, scfg_, sub_, seeds_, coefs_):
+        seen["msgs"] = (sub_[BF16_CHECK_LEAF], seeds_.clone(), coefs_.clone())
+        return apply(params_, meta_, scfg_, sub_, seeds_, coefs_)
+
+    def before_step(t, state):
+        if t == BF16_STEPS - 1:
+            seen["before"] = state[BF16_CHECK_LEAF][0, rows].clone()
+            subcge.apply_messages = recording
+
+    def after_step(t, state):
+        subcge.apply_messages = apply
+        if t == BF16_STEPS - 1:
+            seen["after"] = state[BF16_CHECK_LEAF][0, rows].clone()
+
+    try:
+        run = pod_steps(arch, pod, params, BF16_STEPS, seq, gb, before_step,
+                        after_step)
+    finally:
+        subcge.apply_messages = apply
+    params = run["state"]
+    batch = steplib.make_train_batch(arch, seq, gb, pod, seed=BF16_STEPS,
+                                     device="cuda")
+    t0 = time.perf_counter()
+    prof = profile_step(lambda: run["step_fn"](params, batch, BF16_STEPS))
+    prof_s = time.perf_counter() - t0
+    del batch
+    # the checked slice's update against the plain one of the same messages
+    (U, V), seeds, coefs = seen["msgs"]
+    i, j = subcge.sample_coords(meta, pod.subcge(), seeds)[BF16_CHECK_LEAF]
+    A = subcge.scatter_A(i, j, coefs.float(), pod.rank)      # (1, L, r, r)
+    before, got = seen["before"], seen["after"]
+    want = sa.subcge_apply_plain(before, U[rows], A[0, 0], V)
+    Entry("subcge_apply_bf16").check_bf16(
+        got, want, f"19a update of {BF16_CHECK_LEAF}[0, :{BF16_CHECK_ROWS}]")
+    changed = (int((got != before).sum()), int((want != before).sum()))
+    steady = run["step_s"][1:]
+    want_l = {"rank1_matmul_bf16": (arch.n_layers * 7 + 2) * 2 * BF16_STEPS,
+              "subcge_apply_bf16": n_matrix * BF16_STEPS}
+    out = {"n_params": n_params, "param_gib": gib, "init_s": init_s,
+           "profile_s": prof_s,
+           "step_s": run["step_s"], "steady_step_ms":
+           1e3 * sum(steady) / len(steady), "metrics": run["metrics"],
+           "peak_gib": run["peak_gib"], "launches": run["launches"],
+           "profile": prof, "update_changed": changed}
+    log(f"[19a] bf16 pod: {arch.name} whole ({n_params} params, "
+        f"{gib:.2f} GiB of bf16, one copy, made in {init_s:.1f} s) x "
+        f"{POD_CLIENTS} clients x {POD_B} sequences of "
+        f"{arch.frontend.n_embeds} embeddings + {POD_TEXT} tokens, "
+        f"{BF16_STEPS} steps: metrics {run['metrics']}; steps "
+        f"{run['step_s']} s, steady {out['steady_step_ms']:.1f} ms; peak "
+        f"{run['peak_gib']:.2f} GiB; launches {run['launches']}; elements "
+        f"of the checked slice the update changed (kernel, plain) {changed}"
+        f" of {before.numel()}; one profiled step ({prof_s:.1f} s with the "
+        f"profiler's processing) {prof} ({card})")
+    if run["launches"] != want_l:
+        raise AssertionError(f"bf16 pod: launches {run['launches']}, not "
+                             f"{want_l}")
+    if not run["peak_gib"] < 80:
+        raise AssertionError(f"bf16 pod: peak memory {run['peak_gib']} GiB")
+    del params, run, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def buffer_vs_fold(arch, card: str) -> dict:
+    """Phase 19 (b): buffer mode against fold mode on ``arch`` whole
+    through the pod step, 8 clients x BUFFER_B sequences of 33 tokens, tau
+    BUFFER_TAU, BUFFER_STEPS steps from the same weights.  float32: buffer
+    mode's effective weights (W + U A V^T under the last step's subspace)
+    equal fold mode's weights at rtol 2e-4, atol 2e-5 (the reference's
+    test_buffer_mode_matches_fold_mode).  bf16, as the reference's buffer
+    mode behaves: the buffers float32 and moved; every matrix leaf
+    bitwise unchanged until the step-BUFFER_TAU refresh, then the fold of
+    the buffers under the previous subspace (within one bf16 ulp of the
+    plain fold); every vector leaf, at every step, bitwise its value plus
+    the plain update of that step's messages."""
+    import torch
+    from repro_torch.core import subcge
+    from repro_torch.kernels import subcge_apply as sa
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+
+    meta = plib.subcge_meta(tf.arch_spec(arch))
+    matrix = [p for p, m in meta.items() if m.is_matrix]
+    vector = [p for p, m in meta.items() if not (m.is_matrix or m.frozen)]
+    seq, gb = 33, SLICE_CLIENTS * BUFFER_B
+    out, launches = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        runs = {}
+        for mode in ("fold", "buffer"):
+            pod = steplib.PodConfig(n_clients=SLICE_CLIENTS, tau=BUFFER_TAU,
+                                    param_dtype=dt, apply_mode=mode)
+            scfg = pod.subcge()
+            params = tf.init_params(arch, 0, "cuda", dt)
+            state = (params, steplib.init_buffers(arch, pod, "cuda")) \
+                if mode == "buffer" else params
+            kept, vec_msgs, apply_vec = {}, {}, subcge.apply_vector_messages
+            checks = {"matrix_unchanged": [], "vectors": [], "fold": None}
+
+            def rec_vec(params_, meta_, scfg_, seeds_, coefs_):
+                vec_msgs["last"] = (seeds_.clone(), coefs_.clone())
+                return apply_vec(params_, meta_, scfg_, seeds_, coefs_)
+
+            def before_step(t, state, mode=mode, dt=dt):
+                if mode == "buffer" and dt == torch.bfloat16:
+                    p, b = state
+                    kept["W"] = {k: p[k].clone() for k in matrix}
+                    kept["v"] = {k: p[k].clone() for k in vector}
+                    kept["bufs"] = {k: x.clone() for k, x in b.items()}
+
+            def after_step(t, state, mode=mode, dt=dt, scfg=scfg):
+                if not (mode == "buffer" and dt == torch.bfloat16):
+                    return
+                p, b = state
+                seeds, coefs = vec_msgs["last"]
+                for k in vector:
+                    upd = subcge._vector_update(k, meta[k], seeds,
+                                                coefs.float())[0]
+                    if not torch.equal(bits(p[k]),
+                                       bits(kept["v"][k] + upd.to(dt))):
+                        raise AssertionError(f"buffer bf16: vector leaf {k} "
+                                             f"at step {t} is not its plain "
+                                             "update")
+                checks["vectors"].append(t)
+                if t == 0 or t % BUFFER_TAU:
+                    same = all(torch.equal(bits(p[k]), bits(kept["W"][k]))
+                               for k in matrix)
+                    if not same:
+                        raise AssertionError(f"buffer bf16: a matrix leaf "
+                                             f"moved at step {t}")
+                    checks["matrix_unchanged"].append(t)
+                    return
+                old = subcge.subspace_at_step(meta, scfg, 0, t - 1, "cuda")
+                e = Entry("subcge_apply_bf16")
+                for k in matrix:
+                    U, V = old[k]
+                    want = sa.subcge_apply_plain(kept["W"][k][None], U,
+                                                 kept["bufs"][k], V)[0]
+                    e.check_bf16(p[k], want, f"19b fold of {k} at step {t}")
+                checks["fold"] = t
+                if not all(x.dtype == torch.float32 and bool(x.abs().sum() > 0)
+                           for x in b.values()):
+                    raise AssertionError("buffer bf16: the buffers are not "
+                                         "float32 or did not move")
+
+            subcge.apply_vector_messages = rec_vec
+            try:
+                run = pod_steps(arch, pod, state, BUFFER_STEPS, seq, gb,
+                                before_step, after_step)
+            finally:
+                subcge.apply_vector_messages = apply_vec
+            kept.clear()
+            state = run.pop("state")
+            run.pop("step_fn")
+            if mode == "buffer":
+                params, bufs = state
+                sub = subcge.subspace_at_step(meta, scfg, 0,
+                                              BUFFER_STEPS - 1, "cuda")
+                one = {k: t[None] for k, t in params.items()}
+                eff = subcge.effective_params(one, meta, sub, bufs)
+                state = {k: t[0] for k, t in eff.items()}
+                if not all(b.dtype == torch.float32 for b in bufs.values()):
+                    raise AssertionError("buffer mode: buffers not float32")
+                del one, eff, bufs
+            runs[mode] = (state, run, checks)
+            launches[f"{mode}_{str(dt)[6:]}"] = run["launches"]
+        fold, buf = runs["fold"][0], runs["buffer"][0]
+        gap = max(float((buf[k].float() - fold[k].float()).abs().max())
+                  for k in fold)
+        key = str(dt)[6:]
+        out[key] = {mode: {k: v for k, v in r[1].items()}
+                    for mode, r in runs.items()}
+        out[key]["max_weight_gap"] = gap
+        out[key]["checks"] = runs["buffer"][2]
+        log(f"[19b] {arch.name} {key}, fold vs buffer mode, "
+            f"{SLICE_CLIENTS} clients x {BUFFER_B} x 33 tokens, tau "
+            f"{BUFFER_TAU}, {BUFFER_STEPS} steps: losses "
+            f"{runs['fold'][1]['losses']} / {runs['buffer'][1]['losses']}; "
+            f"steady step ms {[1e3 * sum(r[1]['step_s'][1:]) / (BUFFER_STEPS - 1) for r in runs.values()]}; "
+            f"max |effective buffer W - fold W| {gap:.3e}; buffer checks "
+            f"{runs['buffer'][2]}; peak GiB "
+            f"{[r[1]['peak_gib'] for r in runs.values()]}; launches "
+            f"{[r[1]['launches'] for r in runs.values()]} ({card})")
+        if dt == torch.float32:
+            for k, w in fold.items():
+                if not torch.allclose(buf[k], w, rtol=2e-4, atol=2e-5):
+                    raise AssertionError(f"buffer mode: effective {k} "
+                                         "differs from fold mode's")
+        elif runs["buffer"][2]["fold"] != BUFFER_TAU \
+                or len(runs["buffer"][2]["vectors"]) != BUFFER_STEPS:
+            raise AssertionError(f"buffer bf16: checks {runs['buffer'][2]}")
+        del runs, fold, buf
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def bf16_jamba(jamba, card: str) -> tuple:
+    """Phase 19 (c): the Jamba cut in bf16 through the pod step (bf16
+    experts, float32 scan inputs inside a bf16 model), JAMBA_CLIENTS
+    clients sharing one model, 8 sequences of 33 tokens each,
+    JAMBA_POD_STEPS steps: losses finite, and the launches exactly what
+    phase 17 counts in a signed forward (``hybrid_shapes``), in both signed
+    forwards of each step, on the bf16 kernels, with one bf16 update per
+    matrix leaf a step."""
+    import torch
+    from repro_torch.launch import steps as steplib
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+
+    pod = steplib.PodConfig(n_clients=JAMBA_CLIENTS)
+    meta = plib.subcge_meta(tf.arch_spec(jamba))
+    params = tf.init_params(jamba, 0, "cuda", pod.param_dtype)
+    run = pod_steps(jamba, pod, params, JAMBA_POD_STEPS, 33,
+                    JAMBA_CLIENTS * SLICE_B)
+    shapes, expert, scans = hybrid_shapes(jamba)
+    fwd = 2 * JAMBA_POD_STEPS
+    want = {"rank1_matmul_bf16": sum(shapes.values()) * fwd,
+            "rank1_matmul_expert_bf16": expert * fwd,
+            "selective_scan": scans * fwd,
+            "subcge_apply_bf16": sum(m.is_matrix for m in meta.values())
+            * JAMBA_POD_STEPS}
+    out = {k: run[k] for k in ("step_s", "metrics", "launches", "peak_gib")}
+    log(f"[19c] bf16 pod: {jamba.name} x {JAMBA_CLIENTS} clients x "
+        f"{SLICE_B} x 33 tokens, {JAMBA_POD_STEPS} steps: metrics "
+        f"{run['metrics']}; steps {run['step_s']} s; peak "
+        f"{run['peak_gib']:.2f} GiB; launches {run['launches']} ({card})")
+    if run["launches"] != want:
+        raise AssertionError(f"bf16 jamba: launches {run['launches']}, not "
+                             f"{want}")
+    del params, run
+    torch.cuda.empty_cache()
+    return out["launches"], out
 
 
 def pod_run(arch, card: str) -> dict:
     """Phase 18 (b): ``launch.steps``' pod SeedFlood step on one model of
     ``arch`` shared by POD_CLIENTS clients, each with POD_B sequences of
     the frontend's embeddings and POD_TEXT tokens (``make_train_batch``,
-    seeded by the step), POD_SF_STEPS steps, launch counters zeroed just
-    before and read just after; one more step under torch.profiler (busy
-    share); then the pod DSGD step, POD_DSGD_STEPS steps, which launches
-    no hand-written kernel (autograd through plain products).  Each
-    signed forward runs the projector, the layer's seven projections and
-    the logits through ``rank1_matmul``, and each step one
+    seeded by the step), in float32, POD_SF_STEPS steps, launch counters
+    zeroed just before and read just after, then one step profiled twice:
+    by the device's activity alone (the measure phase 19 (a) reads) and
+    with the host's ops recorded too (the measure profiled steps took
+    before it).  Then the pod DSGD step, POD_DSGD_STEPS steps in float32
+    and one in bf16 (the clients' bf16 gradients summed in float32), which
+    launches no hand-written kernel (autograd through plain products).
+    Each signed forward runs the projector, the layer's seven projections
+    and the logits through ``rank1_matmul``, and each step one
     ``subcge_apply`` per matrix leaf; losses finite, the projector moved,
     peak under 80 GiB."""
     import torch
@@ -2784,17 +3379,23 @@ def pod_run(arch, card: str) -> dict:
     from repro_torch.models import params as plib
     from repro_torch.models import transformer as tf
 
-    pod = steplib.PodConfig(n_clients=POD_CLIENTS)
     seq, gb = arch.frontend.n_embeds + POD_TEXT, POD_CLIENTS * POD_B
     spec = tf.arch_spec(arch)
     n_params = plib.n_params(spec)
     n_matrix = sum(m.is_matrix for m in plib.subcge_meta(spec).values())
     params = tf.init_params(arch, 0, "cuda")
-    init_proj = params["frontend/proj"].clone()
     out = {}
-    for kind, build_step, steps in (
-            ("seedflood", steplib.build_seedflood_train_step, POD_SF_STEPS),
-            ("dsgd", steplib.build_dsgd_train_step, POD_DSGD_STEPS)):
+    for kind, build_step, steps, dtype in (
+            ("seedflood", steplib.build_seedflood_train_step, POD_SF_STEPS,
+             torch.float32),
+            ("dsgd", steplib.build_dsgd_train_step, POD_DSGD_STEPS,
+             torch.float32),
+            ("dsgd_bf16", steplib.build_dsgd_train_step, 1, torch.bfloat16)):
+        pod = steplib.PodConfig(n_clients=POD_CLIENTS, param_dtype=dtype)
+        if dtype != torch.float32:
+            params = {p: t.to(dtype) for p, t in params.items()}
+            torch.cuda.empty_cache()
+        init_proj = params["frontend/proj"].clone()
         step_fn = build_step(arch, pod)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2812,26 +3413,34 @@ def pod_run(arch, card: str) -> dict:
             metrics.append({k: float(v) for k, v in m.items()})
         launches = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        prof = None
-        if kind == "seedflood":
-            batch = steplib.make_train_batch(arch, seq, gb, pod, seed=steps,
-                                             device="cuda")
-            prof = profile_step(lambda: step_fn(params, batch, steps))
-        moved = float((params["frontend/proj"] - init_proj).abs().max())
+        moved = float((params["frontend/proj"].float()
+                       - init_proj.float()).abs().max())
         losses = [m["loss"] for m in metrics]
-        o = {"step_s": wall, "steady_step_ms": 1e3 * sum(wall[1:])
-             / len(wall[1:]), "first_step_ms": 1e3 * wall[0],
+        # steps after the first; one step alone is its own
+        o = {"step_s": wall, "steady_step_ms": 1e3 * sum(wall[1:] or wall)
+             / len(wall[1:] or wall), "first_step_ms": 1e3 * wall[0],
              "metrics": metrics, "peak_gib": peak, "launches": launches,
-             "proj_moved": moved, "run_s": time.perf_counter() - t_run,
-             "profile": prof}
-        log(f"[18b] pod {kind}: {arch.name} ({n_params} params, one copy) "
-            f"x {POD_CLIENTS} clients x {POD_B} sequences of "
-            f"{arch.frontend.n_embeds} embeddings + {POD_TEXT} tokens, "
+             "proj_moved": moved, "run_s": time.perf_counter() - t_run}
+        if kind == "seedflood":
+            o["profile"] = profile_step(lambda: step_fn(params, batch, steps))
+            o["profile_host"] = profile_step(
+                lambda: step_fn(params, batch, steps + 1), host=True)
+        log(f"[18b] pod {kind}: {arch.name} ({n_params} params, one copy, "
+            f"{str(dtype)[6:]}) x {POD_CLIENTS} clients x {POD_B} sequences "
+            f"of {arch.frontend.n_embeds} embeddings + {POD_TEXT} tokens, "
             f"{steps} steps: metrics {metrics}; first step "
             f"{o['first_step_ms']:.1f} ms, steady {o['steady_step_ms']:.1f} "
             f"ms ({wall}); peak {peak:.2f} GiB; projector moved by "
-            f"{moved:.3e}; launches {launches}"
-            + (f"; one profiled step {prof}" if prof else "") + f" ({card})")
+            f"{moved:.3e}; launches {launches} ({card})")
+        if kind == "seedflood":
+            for key, what in (("profile", "device activity only"),
+                              ("profile_host", "host ops recorded too")):
+                pr = o[key]
+                log(f"[18b] pod seedflood, one profiled step ({what}): wall "
+                    f"{pr['wall_ms']:.1f} ms, device busy "
+                    f"{pr['device_busy_ms']:.1f} ms "
+                    f"({pr['busy_share']:.1%}), {pr['device_launches']} "
+                    f"device launches; top {pr['top_kernels'][:4]} ({card})")
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"pod {kind}: non-finite loss {losses}")
         if kind == "seedflood":
@@ -2844,22 +3453,25 @@ def pod_run(arch, card: str) -> dict:
                                  f"{want}")
         if not moved > 0:
             raise AssertionError(f"pod {kind}: the projector did not move")
+        if any(t.dtype != dtype for t in params.values()):
+            raise AssertionError(f"pod {kind}: a leaf left {dtype}")
         if not peak < 80:
             raise AssertionError(f"pod {kind}: peak memory {peak} GiB")
-        init_proj = params["frontend/proj"].clone()
         out[kind] = o
-        del batch
+        del batch, init_proj
         torch.cuda.empty_cache()
-    del params, init_proj
+    del params
     torch.cuda.empty_cache()
     return out
 
 
 def cli_run(card: str) -> dict:
     """Phase 18 (c): ``python -m repro_torch.launch.train`` on
-    MusicGen-medium whole (``CLI_ARGV``), in this process, checkpoints
-    into a temporary directory: the losses finite, the test accuracy
-    printed, the step-2 checkpoint read back bitwise equal to the
+    MusicGen-medium whole (``CLI_ARGV``, no ``--reduced``: bf16 parameters
+    through the kernels' bf16 paths, as the reference's CLI), in this
+    process, checkpoints into a temporary directory: every leaf bf16, the
+    losses finite, the test accuracy printed, the step-2 checkpoint (its
+    leaves stored as ``::bf16`` bits) read back bitwise equal to the
     parameters the CLI ended with, then removed."""
     import tempfile
     import torch
@@ -2885,9 +3497,10 @@ def cli_run(card: str) -> dict:
                                  f"step {meta.get('step')}")
         for p, t in res["params"].items():
             got = torch.as_tensor(flat[p])
-            if not torch.equal(got.view(torch.int32),
-                               t.cpu().view(torch.int32)):
-                raise AssertionError(f"cli: checkpoint leaf {p} differs")
+            if t.dtype != torch.bfloat16 or got.dtype != t.dtype \
+                    or not torch.equal(bits(got), bits(t.cpu())):
+                raise AssertionError(f"cli: checkpoint leaf {p} differs "
+                                     f"({got.dtype}, {t.dtype})")
     out = {"losses": res["losses"], "accuracy": res["accuracy"],
            "train_s": res["seconds"], "wall_s": wall, "ckpt_bytes": nbytes,
            "ckpt_read_s": read_s, "launches": launches}
@@ -2897,8 +3510,10 @@ def cli_run(card: str) -> dict:
         f"{read_s:.1f} s; launches {launches} ({card})")
     if not all(math.isfinite(v) for v in res["losses"]):
         raise AssertionError(f"cli: non-finite loss {res['losses']}")
-    if launches.get("rank1_matmul", 0) <= 0 \
-            or launches.get("subcge_apply", 0) <= 0:
+    if launches.get("rank1_matmul_bf16", 0) <= 0 \
+            or launches.get("subcge_apply_bf16", 0) <= 0 \
+            or launches.get("rank1_matmul", 0) \
+            or launches.get("subcge_apply", 0):
         raise AssertionError(f"cli: launches {launches}")
     del res, tree, flat
     torch.cuda.empty_cache()
@@ -3009,7 +3624,8 @@ def phase_small_frontend() -> None:
     agree(f"run of {mg.name}, 4 clients, ring",
           on["cuda"].extra["final_stacked"], on["cpu"].extra["final_stacked"],
           on["cuda"].loss_curve, on["cpu"].loss_curve)
-    pod = steplib.PodConfig(n_clients=2, lr=1e-2, rank=4, tau=2)
+    pod = steplib.PodConfig(n_clients=2, lr=1e-2, rank=4, tau=2,
+                            param_dtype=torch.float32)
     apply = subcge.apply_messages
     for arch in (mg, vl):
         seq = arch.frontend.n_embeds + 9
@@ -3210,6 +3826,16 @@ def main(argv=None) -> int:
         internvl, POD_CLIENTS, POD_B, POD_TEXT).items()})
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    internvl_whole = archs.get(BF16_ARCH)
+    log(f"[2] the bf16 paths: InternVL2-26B's pod shapes and one model's "
+        f"update, Qwen1.5-0.5B's tied logits and replay at E = 2, the "
+        f"Jamba cut's experts ({card})")
+    entries.update(phase_kernels_bf16(internvl_whole, qwen, jamba))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("[2] tensor-core witness (bf16 products; cuBLAS baddbmm in bf16 with "
+        "float32 sums, held to the same plain versions as the kernels): "
+        + json.dumps(WITNESS))
     for key, es in entries.items():
         for e in es.values():
             log(f"[2] {key} {e.line()}")
@@ -3413,6 +4039,16 @@ def main(argv=None) -> int:
         launches[key], details[key] = ln, dt
     clock("18")
 
+    # 19. the pod runtime in bf16: InternVL2-26B whole, buffer mode against
+    # fold mode, the Jamba cut
+    details["bf16_internvl"] = bf16_internvl(internvl_whole, card)
+    launches["bf16_internvl"] = details["bf16_internvl"]["launches"]
+    buf_launches, details["buffer_vs_fold"] = buffer_vs_fold(qwen, card)
+    launches.update({"buffer_vs_fold_" + k: ln
+                     for k, ln in buf_launches.items()})
+    launches["bf16_jamba"], details["bf16_jamba"] = bf16_jamba(jamba, card)
+    clock("19")
+
     if args.profile:
         for key, arch, clients, topology in (
                 ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
@@ -3450,7 +4086,7 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 19. report: each kernel over the paths that run it
+    # 20. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

@@ -16,8 +16,9 @@ attention-free stack), and refuses the rest: any other position kind, an
 attention slot with no FFN.  The JAX package's
 ``sharding_policy`` and ``moe_gather_weights`` are mesh hints and stay out
 too: the port has no mesh; so do ``long_context_mode`` and its
-``for_shape`` rewrite, whose only consumers are the pod dry runs (ROADMAP
-Queue 1 item 14).
+``for_shape`` rewrite, whose only consumers are the pod's input shapes and
+dry runs (ROADMAP Queue 1 item 14b; the pod's bf16 parameters and buffer
+mode, items 14c and 14a, are ported: ``launch.steps.PodConfig``).
 ``MambaCfg`` leaves out the JAX ``chunk``: it sizes the chunks of the
 associative scan in jnp, a memory knob with no consumer here, where the
 recurrence runs through the ``selective_scan`` kernel in one pass over

@@ -167,7 +167,8 @@ def _fma(a, b, c) -> torch.Tensor:
     values (tensors, float64 copies of them, or Python floats): the float64
     product of two float32 values is exact, and so is its sum with a float32
     value except in rare double-rounding cases that none of the inputs
-    ``erf_inv`` feeds here hit (tests/test_torch_prng.py checks 2^20)."""
+    ``erf_inv`` feeds here hit (tests/test_torch_prng.py checks all 2^23
+    inputs ``normal`` can take)."""
     def f64(v):
         return v.double() if isinstance(v, torch.Tensor) else v
     return (f64(a) * f64(b) + f64(c)).float()
@@ -282,10 +283,22 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2)))
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``."""
-    return _map_bits(key, shape, lambda b: erf_inv(_unit_to_range(
-        _bits_to_unit(b), _NORMAL_LO, 1.0)) * _SQRT2, torch.float32)
+def _normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The float32 normal draw of 32-bit words: ``sqrt(2) · erf_inv`` of
+    the uniform their top 23 bits make, as ``jax.random.normal`` forms it."""
+    return (erf_inv(_unit_to_range(_bits_to_unit(bits), _NORMAL_LO, 1.0))
+            * _SQRT2).float()
+
+
+def normal(key: torch.Tensor, shape, scale: float | None = None,
+           dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``; with ``scale`` and
+    ``dtype``, ``(scale * normal(key, shape)).to(dtype)`` formed chunk by
+    chunk, so that a bf16 draw never holds a float32 copy of itself."""
+    def fn(b):
+        z = _normal_of_bits(b)
+        return (z if scale is None else scale * z).to(dtype)
+    return _map_bits(key, shape, fn, dtype)
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

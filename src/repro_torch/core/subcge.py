@@ -11,6 +11,10 @@ Port conventions (where JAX would ``vmap``): parameters are a flat dict of
 tensors stacked on a leading client axis ``C``; message seeds, coefficients
 and sender steps are ``(C, K)`` matrices, one row per client.  Updates are
 applied in place — the counterpart of the JAX package's donated buffers.
+Parameters may be float32 or bf16: subspaces, coefficients, A and the
+buffers stay float32, and an update reaches a leaf as the reference's does
+(a matrix through ``subcge_apply``: ``f32(W) + U A V^T`` cast once; a
+vector leaf: ``leaf + upd.astype(leaf.dtype)``).
 A frozen leaf (``LeafMeta.frozen``: a stub frontend's weights) takes no
 perturbation and no update on any path.
 """
@@ -195,7 +199,8 @@ def apply_messages(params: dict, meta: dict[str, LeafMeta],
             U, V = subspace[path]
             kops.subcge_apply(params[path], U, A, V, inplace=True)
         else:
-            params[path] += _vector_update(path, m, message_seeds, cf)
+            params[path] += _vector_update(path, m, message_seeds,
+                                           cf).to(params[path].dtype)
     return params
 
 
@@ -259,8 +264,73 @@ def apply_messages_epoch(params: dict, meta: dict[str, LeafMeta],
             V = torch.stack([sub[path][1] for sub in slot_subs])
             kops.subcge_apply_epochs(params[path], U, A, V, inplace=True)
         else:
-            params[path] += _vector_update(path, m, message_seeds, cf)
+            params[path] += _vector_update(path, m, message_seeds,
+                                           cf).to(params[path].dtype)
     return params
+
+
+# ---------------------------------------------------------------------------
+# buffer mode (paper Appendix A): accumulate A, fold lazily
+# ---------------------------------------------------------------------------
+#
+# The matrix leaves' updates accumulate as float32 coordinates in r×r
+# A-buffers and reach W only when folded, W ← W + U A V^T under the subspace
+# they accumulated against (before a τ-refresh): a bf16 W then takes one
+# rounding per fold instead of one per step, where a step's −lr/n·α·UAV^T
+# is mostly lost.  The forward reads the effective weights W + U A V^T.
+
+def apply_vector_messages(params: dict, meta: dict[str, LeafMeta],
+                          cfg: SubCGEConfig, message_seeds: torch.Tensor,
+                          coefs: torch.Tensor) -> dict:
+    """Apply K messages per client to the NON-matrix leaves only, in place
+    (buffer mode keeps the matrix updates in A-buffers; the paper's App. A
+    follows MeZO directly for 1D tensors, so they apply at once)."""
+    cf = coefs.float()
+    for path in seedlib.path_order(meta):
+        m = meta[path]
+        if m.frozen or m.is_matrix:
+            continue
+        params[path] += _vector_update(path, m, message_seeds,
+                                       cf).to(params[path].dtype)
+    return params
+
+
+def accumulate_buffers(buffers: dict, meta: dict[str, LeafMeta],
+                       cfg: SubCGEConfig, message_seeds: torch.Tensor,
+                       coefs: torch.Tensor) -> dict:
+    """Coordinate updates only, O(K) per leaf (App. A's 'coordinate update'
+    row of Table 4): a new dict of ``buffer + Σ_k coef_k E_{i_k j_k}`` per
+    matrix leaf, the scatter summed in k order first, as the reference
+    sums it.  ``buffers`` (C, *B, r, r), seeds and coefs (C, K)."""
+    coords = sample_coords(meta, cfg, message_seeds)
+    cf = coefs.float()
+    out = dict(buffers)
+    for path in buffers:
+        i, j = coords[path]
+        out[path] = buffers[path] + scatter_A(i, j, cf, cfg.rank)
+    return out
+
+
+def fold_buffers(params: dict, meta: dict[str, LeafMeta], subspace: dict,
+                 buffers: dict, *, inplace: bool = False) -> dict:
+    """W + U A V^T for every leaf that has a buffer, through
+    ``subcge_apply`` in the parameters' type: a new dict (the other leaves
+    shared), or the leaves themselves updated with ``inplace``.  Must run
+    before any subspace refresh (a buffer is valid only against the U, V it
+    accumulated under); the caller zeroes the buffers."""
+    out = dict(params)
+    for path, A in buffers.items():
+        U, V = subspace[path]
+        out[path] = kops.subcge_apply(params[path], U, A, V, inplace=inplace)
+    return out
+
+
+def effective_params(params: dict, meta: dict[str, LeafMeta], subspace: dict,
+                     buffers: dict) -> dict:
+    """Buffer mode's effective weights W + U A V^T, materialised in the
+    parameters' type (a second copy of every matrix leaf; the vector leaves
+    are the parameters themselves), as the reference computes them."""
+    return fold_buffers(params, meta, subspace, buffers)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +346,8 @@ def apply_messages_epoch(params: dict, meta: dict[str, LeafMeta],
 
 def zero_buffers(meta: dict[str, LeafMeta], cfg: SubCGEConfig,
                  n_models: int = 1, device="cpu") -> dict:
-    """Zero r×r buffers for every matrix leaf: (n_models, *B, r, r)."""
+    """Zero float32 r×r buffers for every matrix leaf: (n_models, *B, r,
+    r): buffer mode's A-buffers, or momentum's velocity."""
     return {p: torch.zeros((n_models,) + meta[p].batch_shape
                            + (cfg.rank, cfg.rank), device=device)
             for p in seedlib.path_order(meta) if meta[p].is_matrix}
@@ -307,5 +378,6 @@ def momentum_apply(params: dict, meta: dict[str, LeafMeta],
             U, V = subspace[path]
             kops.subcge_apply(params[path], U, mu, V, inplace=True)
         else:
-            params[path] += _vector_update(path, m, message_seeds, cf)
+            params[path] += _vector_update(path, m, message_seeds,
+                                           cf).to(params[path].dtype)
     return params, new_vel

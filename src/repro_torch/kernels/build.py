@@ -43,8 +43,12 @@ _L = ctypes.c_longlong
 #: C entry points per source file: name -> argtypes.
 _SIGNATURES = {
     "rank1_matmul": {"rank1_matmul_f32": [_P] * 7 + [_I] * 8 + [_L] * 10
+                     + [_P],
+                     "rank1_matmul_bf16": [_P] * 8 + [_I] * 8 + [_L] * 10
                      + [_P]},
     "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 11 + [_L] * 2
+                     + [_P],
+                     "subcge_apply_bf16": [_P] * 5 + [_I] * 11 + [_L] * 2
                      + [_P]},
     "selective_scan": {"selective_scan_f32": [_P] * 6 + [_I] * 4 + [_P]},
     "selective_scan_bwd": {"selective_scan_bwd_f32": [_P] * 12 + [_I] * 10

@@ -1,4 +1,5 @@
-// Fused rank-1-perturbed matmuls for Hopper (sm_90a), float32 CUDA cores.
+// Fused rank-1-perturbed matmuls for Hopper (sm_90a): a float32 path on the
+// CUDA cores and a bf16 path on the tensor cores (mma.sync).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/rank1_matmul.py,
 // batched over a leading client axis (JAX gets it from vmap):
@@ -69,7 +70,49 @@
 //   tied logits (N = 151936) fill the card with 28,488 tiles: one split.
 // * Grid: (row tiles, column tiles, batch x splits), so the row tiles of
 //   one column tile run side by side and share W's slabs through L2.
+//
+// The bf16 path (rank1_gemm_bf16, entry rank1_matmul_bf16): x, W and y in
+// bf16, u, v and s in float32, as the Pallas kernels take them when the
+// parameters are bf16 (the JAX pod's default).  What it computes is the
+// Pallas arithmetic: x W in float32 accumulators (a product of two bf16
+// values is exact in float32, so the tensor cores compute what the TPU's
+// MXU does), x . u = sum_k f32(x_k) u_k in float32 over the same slabs, and
+// one cast to bf16 (round to nearest even) after the float32 epilogue
+// acc + s (x . u) v.
+//
+// Bound on this card.  At the pod's shapes (8 clients over one W, M = 2114
+// rows a client, K and N from 1024 to 92,553) the work is 2 C M K N flops
+// against 2 (K N + C M K + C M N) bytes, hundreds of flops per byte: the
+// bf16 tensor cores (989 TFLOP/s dense) bound it, not HBM.
+//
+// * Tile.  256 threads (2 x 4 warps) own a 128 x 256 output tile, each warp
+//   64 x 64 of it as 4 x 8 mma.sync.m16n8k16 tiles (128 float32
+//   accumulators a thread, one block an SM); slabs of 64 k (four k16 steps
+//   between two barriers).  Per k16 a warp loads 4 + 4 ldmatrix.x4 for 32
+//   mma.  At InternVL2-26B's pod shapes 128 x 128 tiles over 32-k slabs
+//   reached 22-26 % of the bf16 peak, over 64-k slabs 25-29 %, this tile
+//   26-32 %.  mma.sync, not wgmma: a simple tile first; wgmma and TMA are
+//   later work.
+// * Ring.  Slabs of x (128 x 64), W (64 x 256, or 256 x 64 when TRANS) and u
+//   (64 floats) go through a 4-stage ring in dynamic shared memory (205-217
+//   KB), filled by 16-byte cp.async.cg copies (8 bf16) that zero-fill rows
+//   past M, columns past N and k past the split's end; rows are padded by 8
+//   bf16 (x and W^T rows 144 bytes apart, W rows 528), so that the 8 rows an
+//   ldmatrix reads fall in distinct 4-bank groups.  Fragments come from
+//   ldmatrix.x4 (x: row-major A; W^T: col-major B as stored; W [k][n]:
+//   ldmatrix.trans).
+// * Shapes.  K % 8 == 0 and 16-byte-aligned operands (the wrapper refuses
+//   the rest).  W (K, N) with N % 8 != 0 (InternVL's untied 92,553 logits)
+//   is first copied into rows padded to a multiple of 8 by pad_cols_kernel
+//   (once per distinct W: a client stride of 0 pads one copy), 2 K N bytes
+//   more than the product itself moves.
+// * Rank-1 dot.  Two threads a row of the x slab, 32 k each, float32 FMAs
+//   in k order; the two halves are added once after the k loop.
+// * Split-K as in the float32 path: partial float32 tiles and partial x . u
+//   to scratch, rank1_reduce adds them in ascending order, applies the
+//   epilogue and casts once; the same inputs give the same bits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -452,12 +495,18 @@ rank1_gemm_kernel(const float* __restrict__ x, const float* __restrict__ W,
   }
 }
 
+__device__ __forceinline__ float to_out(float x, float*) { return x; }
+__device__ __forceinline__ __nv_bfloat16 to_out(float x, __nv_bfloat16*) {
+  return __float2bfloat16_rn(x);
+}
+
 // y[c, e] = sum_k part[k][c * E + e] + s[c] (sum_k part_xu[k][c * E + e]) v
-// over the S splits in ascending order.
+// over the S splits in ascending order, in float32, then one cast to T.
+template <typename T>
 __global__ void __launch_bounds__(256)
 rank1_reduce_kernel(const float* __restrict__ part,
                     const float* __restrict__ v, const float* __restrict__ s,
-                    float* __restrict__ y, int S, int B, int E, int M, int N,
+                    T* __restrict__ y, int S, int B, int E, int M, int N,
                     long long sv_c, long long sv_e, long long sy_c,
                     long long sy_e) {
   const long long MN = (long long)M * N, total = B * MN;
@@ -473,7 +522,7 @@ rank1_reduce_kernel(const float* __restrict__ part,
     }
     const long long c = b / E, e = b % E;
     y[c * sy_c + e * sy_e + r] =
-        fmaf(s[c] * xu, v[c * sv_c + e * sv_e + n], acc);
+        to_out(fmaf(s[c] * xu, v[c * sv_c + e * sv_e + n], acc), y);
   }
 }
 
@@ -498,6 +547,346 @@ cudaError_t launch_gemm(dim3 grid, cudaStream_t st, const float* x,
 }
 
 }  // namespace gemm
+
+// rank1_gemm_bf16: the bf16 tile of rank1_matmul, rank1_matmul_expert and
+// rank1_matmul_t on the tensor cores.
+namespace gemm16 {
+
+constexpr int BM = 128, BN = 256, BK = 64;
+constexpr int WARPS_M = 2, WARPS_N = 4;
+constexpr int NT = 32 * WARPS_M * WARPS_N;
+constexpr int WTM = BM / WARPS_M;        // 64 rows a warp
+constexpr int WTN = BN / WARPS_N;        // 64 columns a warp
+constexpr int MI = WTM / 16, NI = WTN / 8;
+constexpr int STAGES = 4;
+constexpr int MIN_BLOCKS = 1;
+constexpr int XP = BK + 8;               // x row pitch (and W^T's), in bf16
+constexpr int WP = BN + 8;               // W row pitch ([k][n]), in bf16
+constexpr int CH = 8;                    // bf16 a 16-byte copy moves
+static_assert(NI % 2 == 0 && BM * (BK / CH) % NT == 0 &&
+                  BK * (BN / CH) % NT == 0 && BN * (BK / CH) % NT == 0 &&
+                  2 * BM == NT && BK <= NT,
+              "copy and dot roles");
+
+// One ring stage: x slab [m][k], W slab ([k][n], or [n][k] when TRANS),
+// then BK floats of u.
+template <bool TRANS>
+struct Stage {
+  static constexpr int X_ELEMS = BM * XP;
+  static constexpr int W_ELEMS = TRANS ? BN * XP : BK * WP;
+  static constexpr int U_BYTES = (X_ELEMS + W_ELEMS) * 2;
+  static constexpr int BYTES = U_BYTES + BK * 4;
+  static_assert(U_BYTES % 16 == 0 && BYTES % 16 == 0,
+                "stage parts must stay 16-byte aligned");
+};
+
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp16(unsigned dst, const void* src,
+                                     int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(unsigned dst, const void* src,
+                                    int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned r[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned r[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row) b (16 x 8, col), float32 accumulators
+__device__ __forceinline__ void mma16816(float c[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The copies of the slab at k0 into one stage: x rows of pitch K, W rows of
+// pitch ldw ((K, ldw) [k][n], or (N, K) [n][k] when TRANS); everything at
+// or past (M, N, kend) is zero-filled (K, ldw and kend are multiples of 8,
+// so a 16-byte piece is wholly in or out).
+template <bool TRANS>
+__device__ __forceinline__ void load_slab(
+    unsigned char* st, const __nv_bfloat16* x, const __nv_bfloat16* W,
+    const float* u, int M, int N, int K, int ldw, int k0, int kend, int row0,
+    int col0) {
+  using St = Stage<TRANS>;
+  const int tid = threadIdx.x;
+  const unsigned sx = smem(st), sw = sx + 2 * St::X_ELEMS,
+                 su = sx + St::U_BYTES;
+#pragma unroll
+  for (int i = 0; i < BM * (BK / CH) / NT; ++i) {
+    const int c = tid + i * NT, r = c / (BK / CH), kc = c % (BK / CH) * CH;
+    const bool in = row0 + r < M && k0 + kc < kend;
+    cp16(sx + 2 * (r * XP + kc),
+         in ? x + (long long)(row0 + r) * K + k0 + kc : x, in ? 16 : 0);
+  }
+  if (TRANS) {
+#pragma unroll
+    for (int i = 0; i < BN * (BK / CH) / NT; ++i) {
+      const int c = tid + i * NT, n = c / (BK / CH), kc = c % (BK / CH) * CH;
+      const bool in = col0 + n < N && k0 + kc < kend;
+      cp16(sw + 2 * (n * XP + kc),
+           in ? W + (long long)(col0 + n) * ldw + k0 + kc : W, in ? 16 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK * (BN / CH) / NT; ++i) {
+      const int c = tid + i * NT, k = c / (BN / CH), nc = c % (BN / CH) * CH;
+      const bool in = k0 + k < kend && col0 + nc < ldw;
+      cp16(sw + 2 * (k * WP + nc),
+           in ? W + (long long)(k0 + k) * ldw + col0 + nc : W, in ? 16 : 0);
+    }
+  }
+  if (tid < BK) {
+    const bool in = k0 + tid < kend;
+    cp4(su + 4 * tid, in ? u + k0 + tid : u, in ? 4 : 0);
+  }
+}
+
+// blockIdx.z = (c * E + e) * S + split, as in the float32 path.  S == 1:
+// y = bf16(x W + s (x . u) v^T) (W^T when TRANS); S > 1: the split's
+// float32 partial product to part[split][c * E + e] (M, N) and its partial
+// x . u to the (S, B, M) block after them; rank1_reduce ends.
+template <bool TRANS>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+rank1_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ W,
+                       const float* __restrict__ u,
+                       const float* __restrict__ v,
+                       const float* __restrict__ s,
+                       __nv_bfloat16* __restrict__ y,
+                       float* __restrict__ part, int E, int M, int N, int K,
+                       int ldw, int S, int kper, long long sx_c,
+                       long long sx_e, long long sw_c, long long sw_e,
+                       long long su_c, long long su_e, long long sv_c,
+                       long long sv_e, long long sy_c, long long sy_e) {
+  using St = Stage<TRANS>;
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ float xu_half[NT];
+  __shared__ float xu_row[BM];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int split = blockIdx.z % S;
+  const long long b = blockIdx.z / S, c = b / E, e = b % E;
+  x += c * sx_c + e * sx_e;
+  W += c * sw_c + e * sw_e;
+  u += c * su_c + e * su_e;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int kbeg = split * kper, kend = min(K, kbeg + kper);
+  const int nk = (kend - kbeg + BK - 1) / BK;
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  // x . u: this thread's half (BK / 2 k) of row tid / 2 of each slab
+  float xu = 0.f;
+  const int xr = tid >> 1, xk = (tid & 1) * (BK / 2);
+
+  // ldmatrix row addresses, in bytes from a stage's start.  x: rows
+  // lane % 16 of each 16-row tile, k 0-7 / 8-15 by lane / 16.  W [k][n]:
+  // k rows lane % 8 (+ 8 for lanes 8-15 and 24-31), columns + 8 for lanes
+  // 16-31, read transposed.  W^T [n][k]: rows lane % 8 (+ 8 for lanes
+  // 16-31), k + 8 for lanes 8-15 and 24-31.  Each x4 then holds b0, b1 of
+  // two neighbouring 8-column tiles.
+  const unsigned a_off = 2 * ((wm * WTM + (lane & 15)) * XP + (lane >> 4) * 8);
+  const unsigned b_off =
+      TRANS ? 2 * (St::X_ELEMS + (wn * WTN + (lane & 7) + (lane >> 4) * 8) * XP +
+                   ((lane >> 3) & 1) * 8)
+            : 2 * (St::X_ELEMS + ((lane & 7) + ((lane >> 3) & 1) * 8) * WP +
+                   wn * WTN + (lane >> 4) * 8);
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nk)
+      load_slab<TRANS>(ring + t * St::BYTES, x, W, u, M, N, K, ldw,
+                       kbeg + t * BK, kend, row0, col0);
+    cp_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<STAGES - 2>();   // this thread's copies of slab kt have landed
+    __syncthreads();         // everyone's have, and slab kt - 1 is consumed
+    const int nx = kt + STAGES - 1;
+    if (nx < nk)
+      load_slab<TRANS>(ring + (nx % STAGES) * St::BYTES, x, W, u, M, N, K,
+                       ldw, kbeg + nx * BK, kend, row0, col0);
+    cp_commit();
+
+    const unsigned char* st = ring + (kt % STAGES) * St::BYTES;
+    {
+      const uint4* xs = reinterpret_cast<const uint4*>(st + 2 * (xr * XP + xk));
+      const float4* us = reinterpret_cast<const float4*>(st + St::U_BYTES +
+                                                         4 * xk);
+#pragma unroll
+      for (int h = 0; h < BK / 16; ++h) {
+        const uint4 q = xs[h];
+        const unsigned w[4] = {q.x, q.y, q.z, q.w};
+        const float4 u0 = us[2 * h], u1 = us[2 * h + 1];
+        const float uu[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          xu = fmaf(__uint_as_float(w[j] << 16), uu[2 * j], xu);
+          xu = fmaf(__uint_as_float(w[j] & 0xffff0000u), uu[2 * j + 1], xu);
+        }
+      }
+    }
+    const unsigned sst = smem(st);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      unsigned a[MI][4], bq[NI / 2][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldsm_x4(sst + a_off + 2 * (i * 16 * XP + kk), a[i]);
+#pragma unroll
+      for (int p = 0; p < NI / 2; ++p) {
+        if (TRANS)
+          ldsm_x4(sst + b_off + 2 * (p * 16 * XP + kk), bq[p]);
+        else
+          ldsm_x4_t(sst + b_off + 2 * (kk * WP + p * 16), bq[p]);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          mma16816(acc[i][j], a[i], bq[j / 2][(j % 2) * 2],
+                   bq[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  cp_wait<0>();
+
+  // x . u per row: the two halves added once
+  xu_half[tid] = xu;
+  __syncthreads();
+  if (tid < BM) xu_row[tid] = xu_half[2 * tid] + xu_half[2 * tid + 1];
+  __syncthreads();
+
+  const int g = lane >> 2, tg = lane & 3;
+  if (S == 1) {
+    const float sb = s[c];
+    const float* vb = v + c * sv_c + e * sv_e;
+    __nv_bfloat16* out = y + c * sy_c + e * sy_e;
+    const bool pair =
+        N % 2 == 0 && (reinterpret_cast<std::uintptr_t>(out) & 3) == 0;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = wm * WTM + i * 16 + g + 8 * h, row = row0 + rl;
+        if (row >= M) continue;
+        const float r = sb * xu_row[rl];
+        __nv_bfloat16* orow = out + (long long)row * N;
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int col = col0 + wn * WTN + j * 8 + tg * 2;
+          const float o0 = fmaf(r, col < N ? vb[col] : 0.f, acc[i][j][2 * h]);
+          const float o1 =
+              fmaf(r, col + 1 < N ? vb[col + 1] : 0.f, acc[i][j][2 * h + 1]);
+          if (pair && col + 1 < N) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(o0, o1);
+          } else {
+            if (col < N) orow[col] = __float2bfloat16_rn(o0);
+            if (col + 1 < N) orow[col + 1] = __float2bfloat16_rn(o1);
+          }
+        }
+      }
+  } else {
+    const long long B = gridDim.z / S, MN = (long long)M * N;
+    float* out = part + (split * B + b) * MN;
+    if (blockIdx.y == 0 && tid < BM && row0 + tid < M)
+      part[S * B * MN + (split * B + b) * M + row0 + tid] = xu_row[tid];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wm * WTM + i * 16 + g + 8 * h;
+        if (row >= M) continue;
+        float* orow = out + (long long)row * N;
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int col = col0 + wn * WTN + j * 8 + tg * 2;
+          if (N % 2 == 0 && col + 1 < N) {
+            *reinterpret_cast<float2*>(orow + col) =
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          } else {
+            if (col < N) orow[col] = acc[i][j][2 * h];
+            if (col + 1 < N) orow[col + 1] = acc[i][j][2 * h + 1];
+          }
+        }
+      }
+  }
+}
+
+// dst[i][r][0:ld] = src[i][r][0:cols] followed by zeros, for the nc x ne
+// matrices src at c * sc + e * se (rows of `cols`), dst contiguous.
+__global__ void __launch_bounds__(256)
+pad_cols_kernel(const __nv_bfloat16* __restrict__ src,
+                __nv_bfloat16* __restrict__ dst, int ne, int rows, int cols,
+                int ld, long long sc, long long se, long long total) {
+  const long long per = (long long)rows * ld;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long b = i / per, r = (i % per) / ld;
+    const int col = static_cast<int>(i % ld);
+    dst[i] = col < cols ? src[b / ne * sc + b % ne * se + r * cols + col]
+                        : __float2bfloat16_rn(0.f);
+  }
+}
+
+template <bool TRANS>
+cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
+                   const __nv_bfloat16* W, const float* u, const float* v,
+                   const float* s, __nv_bfloat16* y, float* part, int E,
+                   int M, int N, int K, int ldw, int S, int kper,
+                   const long long* sd) {
+  auto kernel = rank1_gemm_bf16_kernel<TRANS>;
+  constexpr int bytes = STAGES * Stage<TRANS>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, bytes, st>>>(x, W, u, v, s, y, part, E, M, N, K, ldw, S,
+                                  kper, sd[0], sd[1], sd[2], sd[3], sd[4],
+                                  sd[5], sd[6], sd[7], sd[8], sd[9]);
+  return cudaGetLastError();
+}
+
+}  // namespace gemm16
 
 }  // namespace
 
@@ -544,7 +933,67 @@ extern "C" int rank1_matmul_f32(
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long total = (long long)C * E * M * N, want = (total + 255) / 256;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  rank1_reduce_kernel<<<blocks, 256, 0, st>>>(pf, vf, sf, yf, splits, C * E,
-                                              E, M, N, sv_c, sv_e, sy_c, sy_e);
+  rank1_reduce_kernel<float><<<blocks, 256, 0, st>>>(
+      pf, vf, sf, yf, splits, C * E, E, M, N, sv_c, sv_e, sy_c, sy_e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 path of rank1_matmul_f32: x, W and y bf16, u, v and s float32,
+// float32 accumulation and one cast on store.  K must be a multiple of 8,
+// x and W 16-byte aligned with strides that are multiples of 8 elements.
+// W (K, N) with N % 8 != 0 (not TRANS) is first copied into `wpad`, room
+// for (sw_c == 0 ? 1 : C) * E * K * round8(N) bf16, with its rows padded
+// by zeros (null otherwise).  Splits as in the float32 path (kper a
+// multiple of 64).  Returns the first CUDA error of the launches, or
+// cudaErrorInvalidValue for what the kernel refuses.
+extern "C" int rank1_matmul_bf16(
+    const void* x, const void* W, const void* u, const void* v, const void* s,
+    void* y, void* part, void* wpad, int C, int E, int M, int N, int K,
+    int splits, int kper, int trans, long long sx_c, long long sx_e,
+    long long sw_c, long long sw_e, long long su_c, long long su_e,
+    long long sv_c, long long sv_e, long long sy_c, long long sy_e,
+    void* stream) {
+  using namespace gemm16;
+  const bool padded = !trans && N % 8 != 0;
+  if (K % 8 != 0 || kper % BK != 0 || !gemm::aligned16(x) ||
+      !gemm::aligned16(W) || (sx_c | sx_e | sw_c | sw_e) % 8 != 0 ||
+      padded != (wpad != nullptr) || (wpad && !gemm::aligned16(wpad)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* Wb = static_cast<const __nv_bfloat16*>(W);
+  int ldw = trans ? K : N;
+  long long sd[10] = {sx_c, sx_e, sw_c, sw_e, su_c,
+                      su_e, sv_c, sv_e, sy_c, sy_e};
+  if (padded) {
+    ldw = (N + 7) / 8 * 8;
+    const int nc = sw_c == 0 ? 1 : C;
+    const long long total = (long long)nc * E * K * ldw,
+                    want = (total + 255) / 256;
+    auto* dst = static_cast<__nv_bfloat16*>(wpad);
+    pad_cols_kernel<<<static_cast<int>(want < 132 * 16 ? want : 132 * 16),
+                      256, 0, st>>>(Wb, dst, E, K, N, ldw, sw_c, sw_e, total);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    Wb = dst;
+    sd[2] = sw_c == 0 ? 0 : (long long)E * K * ldw;
+    sd[3] = (long long)K * ldw;
+  }
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, C * E * splits);
+  const auto* uf = static_cast<const float*>(u);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* sf = static_cast<const float*>(s);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  auto* pf = static_cast<float*>(part);
+  cudaError_t err =
+      trans ? launch<true>(grid, st, xb, Wb, uf, vf, sf, yb, pf, E, M, N, K,
+                           ldw, splits, kper, sd)
+            : launch<false>(grid, st, xb, Wb, uf, vf, sf, yb, pf, E, M, N, K,
+                            ldw, splits, kper, sd);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = (long long)C * E * M * N, want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  gemm::rank1_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+      pf, vf, sf, yb, splits, C * E, E, M, N, sv_c, sv_e, sy_c, sy_e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,10 +53,21 @@
 // * r <= 32; m not a multiple of 4, or W off 16 bytes, take 4-byte loads
 //   and stores in the same kernel (VEC = false); r not a multiple of 4, or
 //   U off 16 bytes, reads U one float at a time.
+// * bf16 W (subcge_apply_bf16: the JAX pod's default parameters), as the
+//   Pallas kernel takes it: the delta is formed in float32 from float32 U,
+//   A and V exactly as above, added to f32(W), and the sum stored as bf16
+//   rounded to nearest even, once.  The same kernel with T = bf16: a
+//   thread's 4 columns are 8 bytes, copied by 8-byte cp.async into its ring
+//   slots; W moves 2 + 2 bytes an element, so the bound halves.  m not a
+//   multiple of 4, or W off 8 bytes (InternVL's untied 92,553-column
+//   logits), reads the thread's 16 elements with plain loads just before
+//   the store instead of through the ring.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -115,6 +126,13 @@ __device__ __forceinline__ void cp4(unsigned dst, const float* src,
                : "memory");
 }
 
+__device__ __forceinline__ void cp8(unsigned dst, const void* src,
+                                    int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -125,35 +143,56 @@ __device__ __forceinline__ void cp_wait_prev() {
 
 // Starts the copies of the thread's RPT x 4 elements of the tile whose first
 // thread row is `rbase` into its own slots of one ring stage, slot i at
-// stage[i * NT + tid]; elements past (n, m) are zero-filled.
-template <bool VEC>
-__device__ __forceinline__ void load_tile(float4* stage, const float* Wb,
+// stage[i * NT + tid]; elements past (n, m) are zero-filled.  bf16 fills
+// the first 8 bytes of a slot; bf16 without VEC copies nothing (the store
+// reads W itself).
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_tile(float4* stage, const T* Wb,
                                           int rbase, int LR, int n, int m,
                                           int col) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if (!F32 && !VEC) return;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int row = rbase + i * LR;
     const unsigned dst = smem(stage + i * NT + threadIdx.x);
-    const float* src = Wb + (long long)row * m + col;
-    if (VEC) {
+    const T* src = Wb + (long long)row * m + col;
+    if (!F32) {
       const bool in = row < n && col < m;
-      cp16(dst, in ? src : Wb, in ? 16 : 0);
+      cp8(dst, in ? src : Wb, in ? 8 : 0);
+    } else if (VEC) {
+      const bool in = row < n && col < m;
+      cp16(dst, in ? reinterpret_cast<const float*>(src)
+                   : reinterpret_cast<const float*>(Wb),
+           in ? 16 : 0);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool in = row < n && col + j < m;
-        cp4(dst + 4 * j, in ? src + j : Wb, in ? 4 : 0);
+        cp4(dst + 4 * j,
+            reinterpret_cast<const float*>(in ? src + j : Wb), in ? 4 : 0);
       }
     }
   }
 }
 
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
 // Tile g of the launch is row tile g % tiles of column chunk
 // (g / tiles) % chunks of instance g / (tiles * chunks); block k takes
 // tiles [k * per, min((k + 1) * per, nb * chunks * tiles)) in order.
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-subcge_stream_kernel(const float* W, float* out,   // may alias: no restrict
+subcge_stream_kernel(const T* W, T* out,   // may alias: no restrict
                      const float* __restrict__ U, const float* __restrict__ A,
                      const float* __restrict__ V, int E, int G, int nb, int n,
                      int m, int r, int lbc, int chunks, int per, bool uvec,
@@ -179,7 +218,7 @@ subcge_stream_kernel(const float* W, float* out,   // may alias: no restrict
 
   {
     const long long bq = g0 / tiles;
-    load_tile<VEC>(ring, W + bq / chunks * sw,
+    load_tile<T, VEC>(ring, W + bq / chunks * sw,
                    static_cast<int>(g0 % tiles) * tr + rrow, LR, n, m,
                    static_cast<int>(bq % chunks) * bc + lcol);
   }
@@ -193,7 +232,7 @@ subcge_stream_kernel(const float* W, float* out,   // may alias: no restrict
     // the next tile streams in while this one's delta is formed
     if (g + 1 < g1) {
       const long long nq = (g + 1) / tiles;
-      load_tile<VEC>(ring + ((g + 1 - g0) % STAGES) * RPT * NT,
+      load_tile<T, VEC>(ring + ((g + 1 - g0) % STAGES) * RPT * NT,
                      W + nq / chunks * sw,
                      static_cast<int>((g + 1) % tiles) * tr + rrow, LR, n, m,
                      static_cast<int>(nq % chunks) * bc + lcol);
@@ -204,7 +243,7 @@ subcge_stream_kernel(const float* W, float* out,   // may alias: no restrict
       built = bq;
     }
     const float* av0 = AV + lcol;
-    float* Ob = out + b * so;
+    T* Ob = out + b * so;
 
     float acc[RPT][4];
     int uoff[RPT];   // U row offsets; rows past n read the last row, unstored
@@ -259,29 +298,93 @@ subcge_stream_kernel(const float* W, float* out,   // may alias: no restrict
     }
 
     cp_wait_prev();   // this thread's copies of tile t have landed
+    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = rbase + i * LR;
-      if (row >= n) continue;
-      const float4 w = cur[i * NT + threadIdx.x];
-      const long long off = (long long)row * m + col;
-      const float o[4] = {w.x + acc[i][0], w.y + acc[i][1], w.z + acc[i][2],
-                          w.w + acc[i][3]};
-      if (VEC) {
-        if (col < m)
-          __stcs(reinterpret_cast<float4*>(Ob + off),
-                 make_float4(o[0], o[1], o[2], o[3]));
-      } else {
+      for (int i = 0; i < RPT; ++i) {
+        const int row = rbase + i * LR;
+        if (row >= n) continue;
+        const float4 w = cur[i * NT + threadIdx.x];
+        const long long off = (long long)row * m + col;
+        const float o[4] = {w.x + acc[i][0], w.y + acc[i][1], w.z + acc[i][2],
+                            w.w + acc[i][3]};
+        if (VEC) {
+          if (col < m)
+            __stcs(reinterpret_cast<float4*>(Ob + off),
+                   make_float4(o[0], o[1], o[2], o[3]));
+        } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (col + j < m) __stcs(Ob + off + j, o[j]);
+          for (int j = 0; j < 4; ++j)
+            if (col + j < m) __stcs(Ob + off + j, o[j]);
+        }
+      }
+    } else {
+      // bf16: f32(W) + delta, rounded to nearest even once
+      float w[RPT][4];
+      const T* Wb = W + b * sw;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = rbase + i * LR;
+        const long long off = (long long)min(row, n - 1) * m + col;
+        if (VEC) {
+          const uint2 q = *reinterpret_cast<const uint2*>(cur + i * NT +
+                                                          threadIdx.x);
+          w[i][0] = bf16_lo(q.x), w[i][1] = bf16_hi(q.x);
+          w[i][2] = bf16_lo(q.y), w[i][3] = bf16_hi(q.y);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            w[i][j] = col + j < m ? __bfloat162float(Wb[off + j]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = rbase + i * LR;
+        if (row >= n) continue;
+        const long long off = (long long)row * m + col;
+        const float o[4] = {w[i][0] + acc[i][0], w[i][1] + acc[i][1],
+                            w[i][2] + acc[i][2], w[i][3] + acc[i][3]};
+        if (VEC) {
+          if (col < m)
+            __stcs(reinterpret_cast<uint2*>(Ob + off),
+                   make_uint2(bf16x2_rn(o[0], o[1]), bf16x2_rn(o[2], o[3])));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (col + j < m) Ob[off + j] = __float2bfloat16_rn(o[j]);
+        }
       }
     }
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<std::uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <typename T>
+int launch(const void* W, void* out, const void* U, const void* A,
+           const void* V, int E, int nb, int n, int m, int r, int lbc,
+           int chunks, int per, int blocks, int G, int smem, long long sw,
+           long long so, void* stream) {
+  if (r < 1 || r > RMAX || E < 1 || G < 1 || lbc < 2 || lbc > 7 ||
+      chunks < 1 || per < 1 || blocks < 1 || nb < 1 || n < 1 ||
+      chunks != (m + (1 << lbc) - 1) >> lbc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a thread's 4 columns as one 16-byte (float) or 8-byte (bf16) piece
+  constexpr int piece = 4 * sizeof(T);
+  const bool vec = m % 4 == 0 && (sw | so) % 4 == 0 && aligned(W, piece) &&
+                   aligned(out, piece);
+  auto kernel = vec ? subcge_stream_kernel<T, true>
+                    : subcge_stream_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(W), static_cast<T*>(out),
+      static_cast<const float*>(U), static_cast<const float*>(A),
+      static_cast<const float*>(V), E, G, nb, n, m, r, lbc, chunks, per,
+      r % 4 == 0 && aligned(U, 16), sw, so);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -298,20 +401,17 @@ extern "C" int subcge_apply_f32(const void* W, void* out, const void* U,
                                 int n, int m, int r, int lbc, int chunks,
                                 int per, int blocks, int G, int smem,
                                 long long sw, long long so, void* stream) {
-  if (r < 1 || r > RMAX || E < 1 || G < 1 || lbc < 2 || lbc > 7 ||
-      chunks < 1 || per < 1 || blocks < 1 || nb < 1 || n < 1 ||
-      chunks != (m + (1 << lbc) - 1) >> lbc)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = m % 4 == 0 && (sw | so) % 4 == 0 && aligned16(W) &&
-                   aligned16(out);
-  auto kernel = vec ? subcge_stream_kernel<true> : subcge_stream_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<float*>(out),
-      static_cast<const float*>(U), static_cast<const float*>(A),
-      static_cast<const float*>(V), E, G, nb, n, m, r, lbc, chunks, per,
-      r % 4 == 0 && aligned16(U), sw, so);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(W, out, U, A, V, E, nb, n, m, r, lbc, chunks, per,
+                       blocks, G, smem, sw, so, stream);
+}
+
+// The same with W and out bf16 (U, A and V stay float32): f32(W) + delta,
+// stored rounded to nearest even.
+extern "C" int subcge_apply_bf16(const void* W, void* out, const void* U,
+                                 const void* A, const void* V, int E, int nb,
+                                 int n, int m, int r, int lbc, int chunks,
+                                 int per, int blocks, int G, int smem,
+                                 long long sw, long long so, void* stream) {
+  return launch<__nv_bfloat16>(W, out, U, A, V, E, nb, n, m, r, lbc, chunks,
+                               per, blocks, G, smem, sw, so, stream);
 }

@@ -16,6 +16,13 @@ The expert axis of u and v comes before the row, where the JAX kernel takes
 ``u (K, E)`` and ``v (N, E)`` with the expert last: each (client, expert)
 pair then reads one contiguous column of its subspace.
 
+Types.  x, W and y are float32 or bfloat16 (both the same); u, v and s are
+float32, as the reference's operands are.  In bf16 the arithmetic is the
+Pallas kernel's: x W and x·u accumulate in float32 (``f32(x)·u``), the
+epilogue adds s (x·u) v in float32, and the sum is cast to bf16 once.  The
+plain versions follow that arithmetic, so on float32 inputs they are what
+they always were.
+
 Bound on the H100: the float32 FMA rate of the CUDA cores (67 TFLOP/s); at
 the main paths' shapes a product does 40 to 130 flops per byte it must
 move.  No TF32: the ZO coefficient (L+ − L−) / 2ε amplifies its ~3-digit
@@ -32,6 +39,13 @@ adds in a fixed order (no atomics: the same inputs give the same bits).
 W may be a strided view of the stacked parameters (its client and expert
 strides are passed to the kernel); the inner (K, N) / (O, K) matrix must be
 contiguous.
+
+The bf16 path is a second kernel in the same file, ``rank1_gemm_bf16``:
+``mma.sync`` bf16 tensor-core tiles of 128 × 256 over slabs of 64 k (its
+geometry is ``TILE16``), the same split-K and strides; it takes K % 8 == 0
+and 16-byte-aligned operands (it raises on the rest), and pads W's rows to
+a multiple of 8 first where N is not one (InternVL's 92,553 logits).  Its
+launches count under the op's name with ``_bf16`` appended.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -55,6 +69,12 @@ SLOTS = SMS * BLOCKS_PER_SM
 #: fill and drain; the rate at which partial sums are written and re-read
 T_SLAB_US, T_ALONE_US, T_WAVE_US, PARTIAL_BYTES_PER_US = 2.32, 1.55, 12.0, 2.5e6
 MAX_SPLITS = 64
+#: the bf16 kernel's tile and k-slab, its blocks per SM, and its clock (the
+#: same quantities as above; one block an SM, so a slab takes as long
+#: alone: 1.77 us at InternVL2-26B's pod shapes on an H100 SXM at 700 W)
+TILE16 = (128, 256, 64)
+BLOCKS_PER_SM16 = 1
+T_SLAB16_US = T_ALONE16_US = 1.77
 #: CUDA's limit on a grid's y and z extents
 GRID_YZ = 65535
 
@@ -64,60 +84,94 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def split_plan(batch: int, M: int, N: int, K: int) -> tuple[int, int]:
-    """(splits, k per split) of ``rank1_gemm`` for ``batch`` products
-    (clients, or clients × experts) of x (M, K) by W (K, N).
+def split_plan(batch: int, M: int, N: int, K: int, *,
+               bf16: bool = False) -> tuple[int, int]:
+    """(splits, k per split) of ``rank1_gemm`` (``rank1_gemm_bf16`` when
+    ``bf16``) for ``batch`` products (clients, or clients × experts) of
+    x (M, K) by W (K, N).
 
     A pure function of the shape.  Output tiles that fill two waves of the
     card's block slots take one split.  Fewer are cut into ranges of whole
-    16-k slabs, as many as the clock above says run fastest, the partial
+    k-slabs, as many as the clock above says run fastest, the partial
     sums' traffic counted: every split is non-empty and together they cover
     K exactly."""
-    tiles = batch * _cdiv(M, TILE_M) * _cdiv(N, TILE_N)
-    slabs = _cdiv(K, TILE_K)
-    if tiles >= 2 * SLOTS:
-        return 1, slabs * TILE_K
+    if bf16:
+        (tm, tn, tk), slots = TILE16, SMS * BLOCKS_PER_SM16
+        t_slab, t_alone = T_SLAB16_US, T_ALONE16_US
+    else:
+        tm, tn, tk, slots = TILE_M, TILE_N, TILE_K, SLOTS
+        t_slab, t_alone = T_SLAB_US, T_ALONE_US
+    tiles = batch * _cdiv(M, tm) * _cdiv(N, tn)
+    slabs = _cdiv(K, tk)
+    if tiles >= 2 * slots:
+        return 1, slabs * tk
     best = None
     for want in range(1, min(slabs, MAX_SPLITS) + 1):
         per = _cdiv(slabs, want)
         splits = _cdiv(slabs, per)
-        full, rest = divmod(tiles * splits, SLOTS)
-        us = full * (per * T_SLAB_US + T_WAVE_US)
+        full, rest = divmod(tiles * splits, slots)
+        us = full * (per * t_slab + T_WAVE_US)
         if rest:
-            us += per * (T_ALONE_US if rest <= SMS else T_SLAB_US) + T_WAVE_US
+            us += per * (t_alone if rest <= SMS else t_slab) + T_WAVE_US
         if splits > 1:
             us += (2 * splits + 1) * 4 * batch * M * N / PARTIAL_BYTES_PER_US
         if best is None or us < best[0]:
             best = (us, splits, per)
-    return best[1], best[2] * TILE_K
+    return best[1], best[2] * tk
+
+
+def to_f32(t):
+    """float32 of ``t`` (no copy when it is float32); a leading axis of
+    stride 0 (one model seen by every client) stays a view of one copy."""
+    if t.dtype == torch.float32:
+        return t
+    if t.stride(0) == 0:
+        return t[:1].float().expand(t.shape)
+    return t.float()
 
 
 def rank1_matmul_plain(x, W, u, v, s):
-    """Plain PyTorch rank1_matmul (the CPU path and the card's oracle)."""
-    y = torch.bmm(x, W)
-    xu = torch.bmm(x, u.unsqueeze(-1))                     # (C, M, 1)
-    return y + (s[:, None, None] * xu) * v[:, None, :]
+    """Plain PyTorch rank1_matmul (the CPU path and the card's oracle):
+    float32 products and epilogue, cast once to x's type."""
+    xf = to_f32(x)
+    y = torch.bmm(xf, to_f32(W))
+    xu = torch.bmm(xf, u.unsqueeze(-1))                    # (C, M, 1)
+    return (y + (s[:, None, None] * xu) * v[:, None, :]).to(x.dtype)
 
 
 def rank1_matmul_t_plain(x, W, u, v, s):
     """Plain PyTorch rank1_matmul_t (the CPU path and the card's oracle)."""
-    y = torch.bmm(x, W.transpose(1, 2))
-    xv = torch.bmm(x, v.unsqueeze(-1))                     # (C, M, 1)
-    return y + (s[:, None, None] * xv) * u[:, None, :]
+    xf = to_f32(x)
+    y = torch.bmm(xf, to_f32(W).transpose(1, 2))
+    xv = torch.bmm(xf, v.unsqueeze(-1))                    # (C, M, 1)
+    return (y + (s[:, None, None] * xv) * u[:, None, :]).to(x.dtype)
 
 
 def rank1_matmul_expert_plain(x, W, u, v, s):
     """Plain PyTorch rank1_matmul_expert (the CPU path and the card's oracle)."""
-    y = torch.matmul(x, W)
-    xu = torch.matmul(x, u.unsqueeze(-1))                  # (C, E, M, 1)
-    return y + (s[:, None, None, None] * xu) * v[:, :, None, :]
+    xf = to_f32(x)
+    y = torch.matmul(xf, to_f32(W))
+    xu = torch.matmul(xf, u.unsqueeze(-1))                 # (C, E, M, 1)
+    return (y + (s[:, None, None, None] * xu)
+            * v[:, :, None, :]).to(x.dtype)
 
 
-def _check_f32_cuda(**tensors):
-    for name, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_cuda:
-            raise ValueError(f"{name}: float32 CUDA tensor required, got "
-                             f"{t.dtype} on {t.device}")
+#: the types x, W and y may take
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_types(x, W, u, v, s):
+    """x and W float32 or bf16 (the same), u, v and s float32, all on the
+    card."""
+    for name, t in (("x", x), ("W", W), ("u", u), ("v", v), ("s", s)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: CUDA tensor required, got {t.device}")
+    if x.dtype not in DTYPES or W.dtype != x.dtype:
+        raise ValueError(f"x and W: float32 or bfloat16, the same, got "
+                         f"{x.dtype} and {W.dtype}")
+    for name, t in (("u", u), ("v", v), ("s", s)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: float32 required, got {t.dtype}")
 
 
 def _check_inner(x, W, u, v, s):
@@ -131,23 +185,44 @@ def _check_inner(x, W, u, v, s):
 
 
 def _gemm(name, x, W, u, v, s, y, E, strides, trans=False):
-    """Launch ``rank1_matmul_f32`` for x (C, [E,] M, K) and W (C, [E,] K, N),
-    or W (C, O, K) read transposed (``trans``), into y (C, [E,] M, N);
-    ``strides`` are the client and expert strides of x, W, u (the
-    contracted vector), v (the output vector) and y (an expert stride of 0
-    for the dense products)."""
+    """Launch ``rank1_matmul_f32`` (``rank1_matmul_bf16`` for bf16 x and W)
+    for x (C, [E,] M, K) and W (C, [E,] K, N), or W (C, O, K) read
+    transposed (``trans``), into y (C, [E,] M, N); ``strides`` are the
+    client and expert strides of x, W, u (the contracted vector), v (the
+    output vector) and y (an expert stride of 0 for the dense products)."""
     C, M, K, N = x.shape[0], x.shape[-2], x.shape[-1], y.shape[-1]
-    splits, kper = split_plan(C * E, M, N, K)
-    if _cdiv(N, TILE_N) > GRID_YZ or C * E * splits > GRID_YZ:
+    bf16 = x.dtype == torch.bfloat16
+    splits, kper = split_plan(C * E, M, N, K, bf16=bf16)
+    tile_n = TILE16[1] if bf16 else TILE_N
+    if _cdiv(N, tile_n) > GRID_YZ or C * E * splits > GRID_YZ:
         raise ValueError("grid too large")
     lib = build.load("rank1_matmul")
     # partial tiles, then partial x·u, of every split (freed in stream order)
     part = None if splits == 1 else torch.empty(
         splits * C * E * M * (N + 1), dtype=torch.float32, device=x.device)
-    err = lib.rank1_matmul_f32(
-        x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
-        y.data_ptr(), None if part is None else part.data_ptr(), C, E, M, N, K,
-        splits, kper, int(trans), *strides, build.stream_of(x))
+    args = (x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(),
+            s.data_ptr(), y.data_ptr(),
+            None if part is None else part.data_ptr())
+    if bf16:
+        if K % 8 or (x.data_ptr() | W.data_ptr()) % 16 \
+                or any(t % 8 for t in strides[:4]):
+            raise ValueError(f"{name}: the bf16 kernel takes K % 8 == 0 and "
+                             f"16-byte-aligned x and W (K {K}, strides "
+                             f"{strides[:4]})")
+        # W (K, N) with N % 8 != 0: rows padded into a copy of each
+        # distinct W (one, when the clients share it with a stride of 0)
+        pad = None
+        if not trans and N % 8:
+            copies = (1 if strides[2] == 0 else C) * E
+            pad = torch.empty(copies * K * (_cdiv(N, 8) * 8),
+                              dtype=torch.bfloat16, device=x.device)
+        err = lib.rank1_matmul_bf16(
+            *args, None if pad is None else pad.data_ptr(), C, E, M, N, K,
+            splits, kper, int(trans), *strides, build.stream_of(x))
+        name += "_bf16"
+    else:
+        err = lib.rank1_matmul_f32(*args, C, E, M, N, K, splits, kper,
+                                   int(trans), *strides, build.stream_of(x))
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return y
@@ -160,11 +235,11 @@ def rank1_matmul(x, W, u, v, s):
     N = W.shape[-1]
     if tuple(W.shape) != (C, K, N):
         raise ValueError(f"W shape {tuple(W.shape)} != {(C, K, N)}")
-    _check_f32_cuda(x=x, W=W, u=u, v=v, s=s)
+    _check_types(x, W, u, v, s)
     if u.shape != (C, K) or v.shape != (C, N) or s.shape != (C,):
         raise ValueError("u/v/s shapes do not match x and W")
     _check_inner(x, W, u, v, s)
-    y = torch.empty((C, M, N), dtype=torch.float32, device=x.device)
+    y = torch.empty((C, M, N), dtype=x.dtype, device=x.device)
     return _gemm("rank1_matmul", x, W, u, v, s, y, 1,
                  (x.stride(0), 0, W.stride(0), 0, u.stride(0), 0, v.stride(0),
                   0, M * N, 0))
@@ -177,11 +252,11 @@ def rank1_matmul_t(x, W, u, v, s):
     O = W.shape[-2]
     if tuple(W.shape) != (C, O, K):
         raise ValueError(f"W shape {tuple(W.shape)} != {(C, O, K)}")
-    _check_f32_cuda(x=x, W=W, u=u, v=v, s=s)
+    _check_types(x, W, u, v, s)
     if u.shape != (C, O) or v.shape != (C, K) or s.shape != (C,):
         raise ValueError("u/v/s shapes do not match x and W")
     _check_inner(x, W, u, v, s)
-    y = torch.empty((C, M, O), dtype=torch.float32, device=x.device)
+    y = torch.empty((C, M, O), dtype=x.dtype, device=x.device)
     # the contracted vector is v (K), the output vector u (O)
     return _gemm("rank1_matmul_t", x, W, v, u, s, y, 1,
                  (x.stride(0), 0, W.stride(0), 0, v.stride(0), 0, u.stride(0),
@@ -193,14 +268,14 @@ def rank1_matmul_expert(x, W, u, v, s):
         return rank1_matmul_expert_plain(x, W, u, v, s)
     C, E, M, K = x.shape
     N = W.shape[-1]
-    _check_f32_cuda(x=x, W=W, u=u, v=v, s=s)
+    _check_types(x, W, u, v, s)
     if tuple(W.shape) != (C, E, K, N) or u.shape != (C, E, K) \
             or v.shape != (C, E, N) or s.shape != (C,):
         raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, W "
                          f"{tuple(W.shape)}, u {tuple(u.shape)}, v "
                          f"{tuple(v.shape)}, s {tuple(s.shape)}")
     _check_inner(x, W, u, v, s)
-    y = torch.empty((C, E, M, N), dtype=torch.float32, device=x.device)
+    y = torch.empty((C, E, M, N), dtype=x.dtype, device=x.device)
     return _gemm("rank1_matmul_expert", x, W, u, v, s, y, E,
                  (*x.stride()[:2], *W.stride()[:2], *u.stride()[:2],
                   *v.stride()[:2], E * M * N, M * N))

@@ -21,6 +21,12 @@ the pure function :func:`update_plan`.  Unlike the JAX package,
 Pallas wrapper delegates that case to ``subcge_apply``); the arithmetic is
 the same.
 
+Types.  W (and the result) are float32 or bfloat16; U, A and V are
+float32, as the reference's are.  The delta is formed in float32, added to
+``f32(W)`` and cast to W's type once (round to nearest even), the Pallas
+kernel's arithmetic; in bf16 W moves 2 + 2 bytes an element, so the bound
+halves.  bf16 launches count under the op's name with ``_bf16`` appended.
+
 ``inplace=True`` writes the result into W (the port's counterpart of the
 JAX package's donated buffers) and returns it.  Each wrapper runs its plain
 PyTorch version for CPU tensors only; for CUDA tensors it launches the
@@ -102,12 +108,14 @@ def update_plan(nb: int, n: int, m: int, r: int, E: int) -> UpdatePlan:
 
 
 def subcge_apply_epochs_plain(W, U, A, V, *, inplace: bool = False):
-    """Plain PyTorch ``W + Σ_e U_e A_e V_e^T`` in float32."""
+    """Plain PyTorch ``W + Σ_e U_e A_e V_e^T``: the delta in float32, added
+    to ``f32(W)``, cast to W's type once."""
     delta = torch.einsum("enr,e...rs,ems->...nm", U.float(), A.float(),
                          V.float())
-    if inplace:
-        return W.add_(delta.to(W.dtype))
-    return W + delta.to(W.dtype)
+    if W.dtype == torch.float32:
+        return W.add_(delta) if inplace else W + delta
+    out = (W.float() + delta).to(W.dtype)
+    return W.copy_(out) if inplace else out
 
 
 def subcge_apply_plain(W, U, A, V, *, inplace: bool = False):
@@ -122,9 +130,11 @@ def _launch(W, U, A, V, inplace, name):
     batch = tuple(W.shape[:-2])
     nb = math.prod(batch)
     for t, nm in ((W, "W"), (U, "U"), (A, "A"), (V, "V")):
-        if t.dtype != torch.float32 or not t.is_cuda:
-            raise ValueError(f"{nm}: float32 CUDA tensor required, got "
-                             f"{t.dtype} on {t.device}")
+        want = (torch.float32, torch.bfloat16) if nm == "W" \
+            else (torch.float32,)
+        if t.dtype not in want or not t.is_cuda:
+            raise ValueError(f"{nm}: {' or '.join(map(str, want))} CUDA "
+                             f"tensor required, got {t.dtype} on {t.device}")
     if tuple(W.shape[-2:]) != (n, m) or V.shape != (E, m, r) \
             or tuple(A.shape) != (E,) + batch + (r, r):
         raise ValueError("W/U/A/V shapes do not agree")
@@ -139,11 +149,14 @@ def _launch(W, U, A, V, inplace, name):
     out = W if inplace else torch.empty_like(W)
     Of = out.reshape(nb, n, m)
     lib = build.load("subcge_apply")
-    err = lib.subcge_apply_f32(
+    bf16 = W.dtype == torch.bfloat16
+    fn = lib.subcge_apply_bf16 if bf16 else lib.subcge_apply_f32
+    err = fn(
         Wf.data_ptr(), Of.data_ptr(), U.data_ptr(), A.data_ptr(), V.data_ptr(),
         E, nb, n, m, r, plan.bc.bit_length() - 1, plan.chunks, plan.per,
         plan.blocks, plan.groups, plan.smem_bytes, Wf.stride(0), Of.stride(0),
         build.stream_of(W))
+    name += "_bf16" if bf16 else ""
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return out

@@ -12,8 +12,9 @@ its ``--seq`` positions are P embeddings and ``seq − P`` tokens.  The
 final test accuracy is the text-only forward's.  Checkpoints (the
 parameters, the step and the arch: ZO keeps no optimizer state) land in
 ``--ckpt-dir`` every ``--ckpt-every`` steps, in the JAX package's layout
-(``repro_torch.checkpoint.ckpt``).  Parameters are float32: bf16 waits
-for bf16 kernels (ROADMAP Queue 2 item 3).  There is no mesh: the n
+(``repro_torch.checkpoint.ckpt``; bf16 leaves as their ``::bf16`` bits).
+Parameters are bf16 unless ``--reduced``, as the JAX CLI makes them: the
+pod step then runs the kernels' bf16 paths.  There is no mesh: the n
 clients share one card, and their flood is the step's own sum.  The
 default ``--device cuda`` raises without a card.
 """
@@ -56,8 +57,7 @@ def run(argv=None) -> dict:
     p.add_argument("--ckpt-every", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions); "
-                        "parameters are float32: bf16 waits for bf16 "
-                        "kernels (ROADMAP Queue 2 item 3)")
+                        "parameters are bf16, float32 with --reduced")
     args = p.parse_args(argv)
 
     cfg = archs.get(args.arch)
@@ -65,7 +65,9 @@ def run(argv=None) -> dict:
         cfg = archs.reduced(cfg)
     dev = resolve_device(args.device)
     pod = steplib.PodConfig(lr=args.lr, rank=args.rank,
-                            n_clients=args.n_clients)
+                            n_clients=args.n_clients,
+                            param_dtype=torch.float32 if args.reduced
+                            else torch.bfloat16)
     shapes = steplib.train_inputs(cfg, args.seq, args.batch, pod)
     text = shapes["tokens"][-1]
     if text < 2:
@@ -79,7 +81,7 @@ def run(argv=None) -> dict:
     train, _, test = synthetic.make_splits(task)
     parts = synthetic.partition(train, args.n_clients)
 
-    params = tf.init_params(cfg, 0, dev)
+    params = tf.init_params(cfg, 0, dev, pod.param_dtype)
     per_client = args.batch // args.n_clients
     # throughput timing only: data and perturbations key off (base_seed,
     # client, step), so a re-run is bit-identical

@@ -373,7 +373,8 @@ def mamba(b: Bundle, x: torch.Tensor, mcfg: MambaCfg,
     if cache is not None:
         cache["h"].copy_(h_last)
 
-    y = y.reshape(C, B, T, Di) + _per_client(b.vec("D_skip"), x.ndim) * xc
+    y = y.reshape(C, B, T, Di).to(x.dtype) \
+        + _per_client(b.vec("D_skip"), x.ndim).to(x.dtype) * xc
     y = y * F.silu(z)
     return b.dense("out_proj", y)
 
@@ -452,7 +453,7 @@ def moe(b: Bundle, x: torch.Tensor, mcfg: MoECfg):
     order = torch.argsort(top_i, dim=-1)
     kept = torch.gather(keep, 2, order)                             # (C,T,k)
     src = torch.gather(dest, 2, order).clamp(max=E * capacity - 1)
-    w = torch.gather(top_p, 2, order)
+    w = torch.gather(top_p, 2, order).to(ye.dtype)
     part = ye[cidx, src.reshape(C, -1)].reshape(C, n_tok, K, D) * w[..., None]
     y = torch.zeros((C, n_tok, D), dtype=ye.dtype, device=x.device)
     for s in range(K):

@@ -46,10 +46,12 @@ def vector(dim: int, stack: tuple[int, ...] = (), init: str = "zeros",
                     **kw)
 
 
-def init_params(specs: dict[str, LeafSpec], seed: int,
-                device="cpu") -> dict[str, torch.Tensor]:
-    """Float32 weights, bitwise the JAX package's ``init_params`` on the CPU
-    (same threefry streams, same float32 rounding)."""
+def init_params(specs: dict[str, LeafSpec], seed: int, device="cpu",
+                dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """Weights of ``dtype``, bitwise the JAX package's ``init_params`` on
+    the CPU (same threefry streams, same float32 rounding): every leaf is
+    made in float32 and cast, as the reference draws its Gaussians in
+    float32 and casts them (bf16: both round to nearest even)."""
     key = prng.PRNGKey(seed, device)
     out: dict[str, torch.Tensor] = {}
     for path in seedlib.path_order(specs):
@@ -70,10 +72,11 @@ def init_params(specs: dict[str, LeafSpec], seed: int,
         elif spec.init == "normal":
             scale = (spec.scale if spec.scale is not None
                      else 1.0 / math.sqrt(spec.fan_in))
-            out[path] = scale * prng.normal(seedlib.leaf_key(key, path),
-                                            spec.shape)
+            out[path] = prng.normal(seedlib.leaf_key(key, path),
+                                    spec.shape, scale, dtype)
         else:
             raise ValueError(f"{path}: init '{spec.init}' is not ported")
+        out[path] = out[path].to(dtype)
     return out
 
 

@@ -11,6 +11,12 @@ Port conventions: parameters, coordinates and dense Gaussians carry a
 leading client axis C (JAX introduces it with ``vmap``); the shared
 subspace has none.  Everything is keyed by the JAX path strings, flat —
 the port needs no nested trees.  ``pert=None`` gives the plain forward.
+
+Types.  The subspace, the coordinates' columns u and v, the scale and the
+dense Gaussians are float32; a perturbed leaf of another type (bf16
+parameters) takes them as the reference does: the fused products read u,
+v and s as float32 (the kernels' operands), while the embedding's rank-1
+term, ``matw`` and ``vec`` cast each operand to the leaf's type first.
 """
 from __future__ import annotations
 
@@ -143,7 +149,7 @@ class Bundle:
         out = E[cidx, ids]
         r1 = self._rank1(k)
         if r1 is not None:
-            u, v, s = r1
+            u, v, s = (t.to(out.dtype) for t in r1)
             vb = v.reshape((C,) + (1,) * (ids.ndim - 1) + (v.shape[-1],))
             sb = s.reshape((C,) + (1,) * ids.ndim)
             out = out + (sb * u[cidx, ids][..., None]) * vb
@@ -159,8 +165,8 @@ class Bundle:
         if r1 is None:
             return W
         u, v, s = r1
-        z = u[..., :, None] * v[..., None, :]
-        return W + s.reshape((-1,) + (1,) * (z.ndim - 1)) * z
+        z = (u[..., :, None] * v[..., None, :]).to(W.dtype)
+        return W + s.to(W.dtype).reshape((-1,) + (1,) * (z.ndim - 1)) * z
 
     def raw(self, k: str) -> torch.Tensor:
         """The leaf as stored (C, ...) at this layer, with no perturbation:
@@ -173,4 +179,6 @@ class Bundle:
         b = self._leaf(self.p[path])
         if self.pert is None or path not in self.pert.zv:
             return b
-        return b + self.pert.scale * self._leaf(self.pert.zv[path])
+        # the scale rounded to the leaf's type, as the reference casts it
+        scale = float(torch.tensor(self.pert.scale).to(b.dtype))
+        return b + scale * self._leaf(self.pert.zv[path]).to(b.dtype)

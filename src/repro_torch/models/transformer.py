@@ -388,5 +388,6 @@ def lm_loss(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     return ((lse - gold).double().mean(dim=(1, 2)) + aux.double()).float()
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> dict:
-    return plib.init_params(arch_spec(cfg), seed, device)
+def init_params(cfg: ArchConfig, seed: int = 0, device="cpu",
+                dtype=torch.float32) -> dict:
+    return plib.init_params(arch_spec(cfg), seed, device, dtype)

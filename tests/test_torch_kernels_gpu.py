@@ -565,3 +565,103 @@ def test_topk_compress_on_card_equals_cpu(cuda):
     got = gossip.topk_compress(x.to(cuda), 0.01).cpu()
     assert torch.equal(got, want)
     assert int((want != 0).sum()) > int(x.numel() * 0.01)
+
+
+# -- the bf16 paths (x, W, y and the update's W in bf16; u, v, s, U, A, V
+# float32).  Tolerance: one bf16 ulp of the plain version plus atol 1e-5
+# (the plain version sums in another float32 order, and a sum near a
+# rounding boundary may round to the neighbouring bf16), plus, for the
+# products, K/16 · 2^-23 · max |y| (the tensor cores truncate each
+# m16n8k16 step's float32 sum toward zero: chip_smoke.tensor_core_atol);
+# and bitwise across two calls.
+
+def _bf16_close(got, want, what="", K=0):
+    g, w = got.float().cpu(), want.float().cpu()
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
+    acc = K / 16 * 2.0 ** -23 * float(w.abs().max())
+    bad = (g - w).abs() > ulp + ATOL + acc
+    assert not bool(bad.any()), (what, int(bad.sum()),
+                                 float((g - w).abs().max()))
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+# (kind, M, K, N): N = 133 pads W's rows (not a multiple of 8); (264, 7168,
+# 32) and (83, 2048, 288) split K; (67, 64, 133) transposed masks O and M;
+# the expert product at a Jamba capacity; the pod's shared W at M = 2114
+RANK1_BF16 = [("n", 67, 64, 133), ("n", 264, 7168, 32), ("n", 264, 1024, 1024),
+              ("t", 67, 64, 133), ("t", 264, 1024, 1000),
+              ("e", 83, 2048, 288), ("e", 330, 512, 136),
+              ("shared", 2114, 512, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,M,K,N", RANK1_BF16,
+                         ids=lambda a: str(a))
+def test_rank1_bf16_kernels_match_plain(cuda, kind, M, K, N):
+    if kind == "e":
+        t = list(_expert_inputs(cuda, 30 + K, M, K, N))
+        fn, name = ops.rank1_matmul_expert, "rank1_matmul_expert_bf16"
+    else:
+        C = 8 if kind == "shared" else 3
+        t = list(_rank1_inputs(cuda, 30 + K, C, M, K, N, kind == "t"))
+        fn = ops.rank1_matmul_t if kind == "t" else ops.rank1_matmul
+        name = ("rank1_matmul_t" if kind == "t" else "rank1_matmul") + "_bf16"
+    t[0], t[1] = t[0].bfloat16(), t[1].bfloat16()
+    if kind == "shared":
+        t[1] = t[1][:1].contiguous().expand(t[0].shape[0], -1, -1)
+    build.reset_launches()
+    got = fn(*t)
+    again = fn(*t)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {name: 2}
+    assert got.dtype == torch.bfloat16
+    assert _bits_equal(got, again)
+    _bf16_close(got, fn(*(a.cpu() for a in t)), name, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,n,m", [(1, 70, 150), (2, 70, 150), (1, 33, 92),
+                                   (2, 300, 1000)],
+                         ids=lambda a: str(a))
+def test_update_bf16_kernel_matches_plain(cuda, E, n, m):
+    """W bf16 in place on a strided view of stacked layers; m = 150 is not
+    a multiple of 4 (plain loads), 92 and 1000 take the 8-byte copies."""
+    Wst, W, U, A, V = _update_inputs(cuda, 40 + m, E, 3, 2, n, m, 16)
+    Wst = (0.05 * Wst).bfloat16()
+    W, other = Wst[:, 1], Wst[:, 0].cpu()
+    before = W.cpu()
+    want = ops.subcge_apply_epochs(before, *(a.cpu() for a in (U, A, V)))
+    build.reset_launches()
+    got = ops.subcge_apply_epochs(W.clone(), U, A, V)
+    ops.subcge_apply_epochs(W, U, A, V, inplace=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["subcge_apply_epochs_bf16"] == 2
+    assert got.dtype == W.dtype == torch.bfloat16
+    assert _bits_equal(got, W)
+    assert _bits_equal(Wst[:, 0].cpu(), other)
+    _bf16_close(W, want, "update")
+    if E == 1:
+        one = ops.subcge_apply(before.to(cuda), U[0], A[0], V[0])
+        assert _bits_equal(one, W)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    """K % 8 != 0, mixed types and a bf16 u are refused, not converted."""
+    x, W, u, v, s = _rank1_inputs(cuda, 3, 2, 16, 12, 40)
+    with pytest.raises(ValueError, match="K % 8"):
+        ops.rank1_matmul(x.bfloat16(), W.bfloat16(), u, v, s)
+    x, W, u, v, s = _rank1_inputs(cuda, 3, 2, 16, 16, 40)
+    with pytest.raises(ValueError):
+        ops.rank1_matmul(x.bfloat16(), W, u, v, s)
+    with pytest.raises(ValueError):
+        ops.rank1_matmul(x.bfloat16(), W.bfloat16(), u.bfloat16(), v, s)
+    Wu = torch.zeros(4, 8, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError):
+        ops.subcge_apply(Wu, torch.zeros(4, 2, device=cuda),
+                         torch.zeros(2, 2, device=cuda),
+                         torch.zeros(8, 2, device=cuda))

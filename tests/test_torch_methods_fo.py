@@ -78,6 +78,48 @@ def test_dsgd_through_mamba_matches_jax():
     assert_run_matches(rt, rj)
 
 
+@pytest.mark.usefixtures("one_thread")
+def test_dsgd_pod_step_bf16_means_in_float32():
+    """The pod's DSGD step in bf16 (the reduced TinyLlama, 3 clients, lr
+    0.5 so that the update shows in bf16): the clients' bf16 gradients are
+    summed in float32 and divided by n before one cast, as the reference's
+    ``jnp.mean`` over its vmapped bf16 gradients upcasts.  The step's
+    weights equal those of that plain mean bitwise; a mean summed in bf16
+    differs."""
+    from repro_torch.launch import steps as tsteps
+    cfg = tarchs.reduced(tarchs.get("tinyllama-1.1b"))
+    pod = tsteps.PodConfig(lr=0.5, n_clients=3)
+    assert pod.param_dtype == torch.bfloat16
+    params = ttf.init_params(cfg, 0, dtype=pod.param_dtype)
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (3, 2, 16)))
+    names = list(params)
+    grads = []
+    for i in range(3):
+        leaves = [params[p].detach().requires_grad_(True) for p in names]
+        loss = ttf.lm_loss(cfg, {p: t[None] for p, t in zip(names, leaves)},
+                           tokens[i:i + 1])[0]
+        grads.append(torch.autograd.grad(loss, leaves))
+    want, bf16_mean_differs = {}, False
+    for k, p in enumerate(names):
+        g = [gi[k] for gi in grads]
+        assert g[0].dtype == torch.bfloat16
+        mean = ((g[0].float() + g[1] + g[2]) / 3).to(torch.bfloat16)
+        bf16_mean_differs |= not torch.equal(mean, (g[0] + g[1] + g[2]) / 3)
+        want[p] = params[p] - 0.5 * mean
+    assert bf16_mean_differs
+    before = {p: t.clone() for p, t in params.items()}
+    got, m = tsteps.build_dsgd_train_step(cfg, pod)(params, {"tokens": tokens},
+                                                     0)
+    assert torch.isfinite(m["loss"])
+    moved = 0
+    for p in names:
+        assert got[p].dtype == torch.bfloat16
+        assert torch.equal(got[p], want[p]), p
+        moved += int((got[p] != before[p]).sum())
+    assert moved > sum(t.numel() for t in before.values()) // 4
+
+
 def _stacked_leaf_with_ties():
     """(4, 5, 6) values on a grid of 0.25: many magnitudes tie."""
     rng = np.random.default_rng(11)

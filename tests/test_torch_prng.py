@@ -86,6 +86,34 @@ def test_normal_ulp_gap_is_pinned():
     assert _ulp_gap(jn, tn) <= MAX_NORMAL_ULP
 
 
+@pytest.mark.usefixtures("one_thread")
+def test_normal_is_bitwise_on_every_input():
+    """All 2^23 inputs a float32 normal draw can take (the 23 mantissa bits
+    of a word make its uniform): the port's transform against XLA CPU's
+    ``sqrt(2) · erf_inv(uniform)`` of the same words, as
+    ``jax.random.normal`` forms it (the replica is first held to
+    ``jax.random.normal`` itself on 2^12 words of a real key)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+
+    @jax.jit
+    def jnormal_of_bits(bits):
+        fb = jax.lax.shift_right_logical(bits, jnp.uint32(9)) \
+            | jnp.uint32(0x3F800000)
+        floats = jax.lax.bitcast_convert_type(fb, jnp.float32) - 1.0
+        u = jax.lax.max(lo, floats * (np.float32(1.0) - lo) + lo)
+        return jax.lax.mul(np.float32(np.sqrt(2)), jax.lax.erf_inv(u))
+
+    key = _key(11)
+    words = jax.random.bits(key, (1 << 12,), jnp.uint32)
+    assert (np.asarray(jnormal_of_bits(words)).view(np.int32)
+            == np.asarray(jax.random.normal(key, (1 << 12,))).view(
+                np.int32)).all()
+    bits = np.arange(1 << 23, dtype=np.uint32) << np.uint32(9)
+    want = np.asarray(jnormal_of_bits(jnp.asarray(bits)))
+    got = prng._normal_of_bits(torch.from_numpy(bits.astype(np.int64)))
+    assert (got.numpy().view(np.int32) == want.view(np.int32)).all()
+
+
 def test_log1p_matches_xla_cpu_bitwise():
     """XLA CPU's float32 log1p on 2^20 inputs of the range erf_inv feeds it
     (y = -x^2, x a normal draw's uniform), on both sides of the sqrt(2) - 1

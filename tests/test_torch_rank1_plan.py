@@ -156,3 +156,35 @@ def test_ragged_shapes(shape):
     splits, kper = r1.split_plan(*shape)
     assert splits <= -(-K // r1.TILE_K)
     assert (splits - 1) * kper < K <= splits * kper
+
+
+def _pod_shapes():
+    """name -> (batch, M, N, K) of the bf16 pod step's products: InternVL2-26B
+    with 8 clients sharing one W, M = 2 x (1024 patches + 33 tokens); the
+    projector at M = 2 x 1024."""
+    v = archs.get("internvl2-26b")
+    slot = v.groups[0].slots[0]
+    a, d, ff = slot.attn, v.d_model, slot.d_ff
+    M = 2 * (v.frontend.n_embeds + 33)
+    return {"internvl/q": (8, M, a.n_heads * a.head_dim, d),
+            "internvl/kv": (8, M, a.n_kv_heads * a.head_dim, d),
+            "internvl/up": (8, M, ff, d), "internvl/down": (8, M, d, ff),
+            "internvl/logits": (8, M, v.vocab, d),
+            "internvl/proj": (8, 2 * v.frontend.n_embeds, d,
+                              v.frontend.embed_dim)}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES) + sorted(_pod_shapes()))
+def test_bf16_splits_cover_k_in_whole_slabs(name):
+    """The bf16 tile's plan (``TILE16``: 128 x 128 outputs, 64-k slabs):
+    whole slabs, K covered exactly once, one split where the output tiles
+    fill two waves of its block slots, at most MAX_SPLITS."""
+    batch, M, N, K = {**SHAPES, **_pod_shapes()}[name]
+    splits, kper = r1.split_plan(batch, M, N, K, bf16=True)
+    tm, tn, tk = r1.TILE16
+    assert splits >= 1 and kper % tk == 0
+    assert (splits - 1) * kper < K <= splits * kper
+    if batch * -(-M // tm) * -(-N // tn) >= 2 * r1.SMS * r1.BLOCKS_PER_SM16:
+        assert splits == 1
+    assert splits <= r1.MAX_SPLITS
+    assert r1.split_plan(batch, M, N, K, bf16=True) == (splits, kper)
