@@ -59,7 +59,10 @@ no result line):
              330), each within one bf16 ulp (plus atol 1e-5) of its bf16
              plain version, bitwise across two calls, and timed beside
              ``baddbmm`` in bf16 and the bf16 bound (989 TFLOP/s, 3.35
-             TB/s); then ``prng.normal`` and ``prng.gumbel`` on
+             TB/s); the update at rank 64 (the paper's Fig. 6 sweep, past
+             the kernel's 32: the wrapper's rank-32 blocks) on one
+             Qwen1.5-0.5B in float32 and bf16; then ``prng.normal`` and
+             ``prng.gumbel`` on
              the card held bitwise against the CPU on 2^20 draws each.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
              clients, 3 steps at Qwen1.5-0.5B's full width (24 layers,
@@ -506,6 +509,10 @@ SOURCES = {
 SOURCES.update({name + "_bf16": SOURCES[name] for name in (
     "rank1_matmul", "rank1_matmul_t", "subcge_apply", "subcge_apply_epochs",
     "rank1_matmul_expert")})
+# the update's rank in the paper's Fig. 6 sweep (benchmarks/paper_tables.py),
+# past the CUDA kernel's 32: phase 2 holds the wrapper's rank-32 blocks to
+# the plain rank-64 update
+RANK_SWEEP = 64
 # phase 8: steps of each small-input run (3 until the frontend phase needed
 # the time)
 SMALL_STEPS = 2
@@ -760,9 +767,10 @@ def same_bits(a, b, what: str) -> None:
 
 def tensor_core_atol(K: int) -> float:
     """The float32 accumulation error of a bf16 product over K, per unit of
-    max |y|: ``mma.sync`` adds each m16n8k16 step's 16 exact products to
-    the float32 accumulator and truncates the sum toward zero (up to one
-    float32 ulp of the running sum a step), where the plain version's
+    max |y|: the tensor cores (``wgmma``'s k16 steps, as ``mma.sync``'s
+    m16n8k16 did) add each step's 16 exact products to the float32
+    accumulator and truncate the sum toward zero (up to one float32 ulp
+    of the running sum a step), where the plain version's
     float32 FMAs round to nearest: K / 16 steps of at most 2^-23 ·
     |partial sum|, the partial sums taken as large as max |y|.  Phase 2
     prints the kernel's largest excess as a share of it beside cuBLAS's
@@ -832,7 +840,9 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
             (randn(C, K, scale=K ** -0.5), randn(C, N))
         got = fn(x, W, u, v, s)
         same_bits(got, fn(x, W, u, v, s), e.name)
-        splits, kper = r1.split_plan(C, M, N, K, bf16=e.bf16)
+        splits, kper = r1.gemm_plan(
+            C, 1, M, N, K, bf16=e.bf16,
+            fold=r1.folds(C, 1, M, K, x.stride(0), W.stride(0)))
         # the float32 operands the plain version reads (one W copy shared)
         xf, Wf = r1.to_f32(x), r1.to_f32(W)
         if trans:
@@ -920,7 +930,9 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
             def plain(lo=0, hi=nb):
                 return sa.subcge_apply_epochs_plain(W[lo:hi], U, A[:, lo:hi],
                                                     Vm)
-        plan = sa.update_plan(nb, n, m, r, E)
+        # the plan of the launch: past rank 32, the wrapper's rank-32 blocks
+        q = -(-r // sa.MAX_RANK)
+        plan = sa.update_plan(nb, n, m, min(r, sa.MAX_RANK), E * q * q)
         shape = (f"E={E} W({','.join(map(str, batch))},{n},{m}) r={r} "
                  f"bc={plan.bc}")
         got = fn()
@@ -1024,7 +1036,7 @@ def check_expert(e: Entry, C: int, M: int, mo, d: int, randn) -> None:
         u, v = randn(C, E, K), randn(C, E, N)
         got = ops.rank1_matmul_expert(x, W, u, v, s)
         same_bits(got, ops.rank1_matmul_expert(x, W, u, v, s), e.name)
-        splits, kper = r1.split_plan(C * E, cap, N, K, bf16=e.bf16)
+        splits, kper = r1.gemm_plan(C, E, cap, N, K, bf16=e.bf16)
         xf, Wf = x.float(), W.float()
 
         def chunk(k0, k1):
@@ -3047,6 +3059,28 @@ def phase_kernels_bf16(vl, qwen, jamba) -> dict:
     return units
 
 
+def phase_kernels_rank64(qwen) -> dict:
+    """The update above the kernel's rank 32: ``subcge_apply`` (float32)
+    and ``subcge_apply_bf16`` at RANK_SWEEP (the paper's Fig. 6 sweep) on
+    every matrix leaf of one Qwen1.5-0.5B, which the wrapper cuts into
+    (r/32)^2 rank-32 terms of one launch; within the phase-2 tolerance of
+    the plain rank-r update and bitwise across two calls.  The bound is
+    the rank-r update's (``check_update``)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    units = {"qwen_r64": {"subcge_apply": Entry("subcge_apply"),
+                          "subcge_apply_bf16": Entry("subcge_apply_bf16")}}
+    for e in units["qwen_r64"].values():
+        check_update(e, update_leaves(qwen, 1), 1, randn, r=RANK_SWEEP)
+    return units
+
+
 def pod_steps(arch, pod, state, steps: int, seq: int, gb: int,
               before_step=None, after_step=None) -> dict:
     """``steps`` pod SeedFlood steps of ``state`` (``make_train_batch``
@@ -3832,6 +3866,10 @@ def main(argv=None) -> int:
         f"Jamba cut's experts ({card})")
     entries.update(phase_kernels_bf16(internvl_whole, qwen, jamba))
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[2] the update at rank {RANK_SWEEP} on one Qwen1.5-0.5B, float32 "
+        f"and bf16 ({card})")
+    entries.update(phase_kernels_rank64(qwen))
     torch.cuda.empty_cache()
     log("[2] tensor-core witness (bf16 products; cuBLAS baddbmm in bf16 with "
         "float32 sums, held to the same plain versions as the kernels): "

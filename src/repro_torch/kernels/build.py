@@ -7,8 +7,9 @@ interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited kernel is never
-served from a stale build.  The build directory (``kernels/_build``, listed
+The library name carries a hash of the source and of the headers under
+``csrc/`` (``hopper.cuh``), so an edited kernel or header is never served
+from a stale build.  The build directory (``kernels/_build``, listed
 in ``.gitignore``) also keeps each build's ``ptxas`` report.  Nothing is
 compiled or loaded at import time: the CPU tests import every module.
 
@@ -44,7 +45,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "rank1_matmul": {"rank1_matmul_f32": [_P] * 7 + [_I] * 8 + [_L] * 10
                      + [_P],
-                     "rank1_matmul_bf16": [_P] * 8 + [_I] * 8 + [_L] * 10
+                     "rank1_matmul_bf16": [_P] * 9 + [_I] * 12 + [_L] * 10
                      + [_P]},
     "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 11 + [_L] * 2
                      + [_P],
@@ -70,9 +71,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
+    every header under ``csrc/`` (any source may include one) and of the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def log_path(name: str) -> Path:

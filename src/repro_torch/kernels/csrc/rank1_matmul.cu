@@ -1,5 +1,5 @@
 // Fused rank-1-perturbed matmuls for Hopper (sm_90a): a float32 path on the
-// CUDA cores and a bf16 path on the tensor cores (mma.sync).
+// CUDA cores and a bf16 path on the tensor cores (wgmma fed by TMA).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/rank1_matmul.py,
 // batched over a leading client axis (JAX gets it from vmap):
@@ -76,46 +76,73 @@
 // parameters are bf16 (the JAX pod's default).  What it computes is the
 // Pallas arithmetic: x W in float32 accumulators (a product of two bf16
 // values is exact in float32, so the tensor cores compute what the TPU's
-// MXU does), x . u = sum_k f32(x_k) u_k in float32 over the same slabs, and
+// MXU does), x . u = sum_k f32(x_k) u_k in float32 in a fixed k order, and
 // one cast to bf16 (round to nearest even) after the float32 epilogue
 // acc + s (x . u) v.
 //
 // Bound on this card.  At the pod's shapes (8 clients over one W, M = 2114
 // rows a client, K and N from 1024 to 92,553) the work is 2 C M K N flops
 // against 2 (K N + C M K + C M N) bytes, hundreds of flops per byte: the
-// bf16 tensor cores (989 TFLOP/s dense) bound it, not HBM.
+// bf16 tensor cores (989 TFLOP/s dense) bound it, not HBM, and only wgmma
+// reaches their full rate.
 //
-// * Tile.  256 threads (2 x 4 warps) own a 128 x 256 output tile, each warp
-//   64 x 64 of it as 4 x 8 mma.sync.m16n8k16 tiles (128 float32
-//   accumulators a thread, one block an SM); slabs of 64 k (four k16 steps
-//   between two barriers).  Per k16 a warp loads 4 + 4 ldmatrix.x4 for 32
-//   mma.  At InternVL2-26B's pod shapes 128 x 128 tiles over 32-k slabs
-//   reached 22-26 % of the bf16 peak, over 64-k slabs 25-29 %, this tile
-//   26-32 %.  mma.sync, not wgmma: a simple tile first; wgmma and TMA are
-//   later work.
-// * Ring.  Slabs of x (128 x 64), W (64 x 256, or 256 x 64 when TRANS) and u
-//   (64 floats) go through a 4-stage ring in dynamic shared memory (205-217
-//   KB), filled by 16-byte cp.async.cg copies (8 bf16) that zero-fill rows
-//   past M, columns past N and k past the split's end; rows are padded by 8
-//   bf16 (x and W^T rows 144 bytes apart, W rows 528), so that the 8 rows an
-//   ldmatrix reads fall in distinct 4-bank groups.  Fragments come from
-//   ldmatrix.x4 (x: row-major A; W^T: col-major B as stored; W [k][n]:
-//   ldmatrix.trans).
-// * Shapes.  K % 8 == 0 and 16-byte-aligned operands (the wrapper refuses
-//   the rest).  W (K, N) with N % 8 != 0 (InternVL's untied 92,553 logits)
-//   is first copied into rows padded to a multiple of 8 by pad_cols_kernel
-//   (once per distinct W: a client stride of 0 pads one copy), 2 K N bytes
-//   more than the product itself moves.
-// * Rank-1 dot.  Two threads a row of the x slab, 32 k each, float32 FMAs
-//   in k order; the two halves are added once after the k loop.
-// * Split-K as in the float32 path: partial float32 tiles and partial x . u
-//   to scratch, rank1_reduce adds them in ascending order, applies the
-//   epilogue and casts once; the same inputs give the same bits.
+// * Block.  One block per SM, persistent over the output tiles (128 x 256).
+//   Warp specialisation: two consumer warpgroups each run wgmma.mma_async
+//   m64n256k16 on 64 rows of the tile (128 float32 accumulators a thread,
+//   232 registers by setmaxnreg); one producer warpgroup (40 registers),
+//   of which one thread issues every copy.
+// * Clusters.  At this tile a slab is 48 KB for 4.2 MFLOP, so 132 SMs at
+//   the peak would pull ~11 TB/s out of L2, more than it gives: one CTA
+//   alone reached 49-60 % of the peak at the pod's shapes (H100 SXM,
+//   700 W).  Where the row tiles are many or even
+//   (rank1_matmul.cluster_of), two CTAs on neighbouring row tiles form a
+//   cluster: each loads its own x and half of the W slab, multicast into
+//   both, so a CTA pulls 32 KB a slab (54-67 %).  Each stage's `empty`
+//   mbarrier then counts the consumer warps of both CTAs.  Few, odd row
+//   tiles (3 at the Jamba experts' 330 rows) run
+//   one CTA a cluster, where a pair's empty half would cost more.
+// * Ring.  Slabs of 64 k, x (128 x 64) and W (64 x 256) = 48 KB, go through
+//   a 4-stage ring in dynamic shared memory (192 KB) by TMA
+//   (cp.async.bulk.tensor, 128-byte swizzle, as the wgmma descriptors read
+//   it); each stage has a `full` mbarrier that counts its bytes and an
+//   `empty` one that counts the consumer warps done with it.  x and W^T
+//   [n][k] (TRANS) are K-major operands; W [k][n] is read MN-major
+//   (transposed in the instruction) from four 64-column boxes.  TMA
+//   zero-fills rows past M, columns past N and k past K, and takes W's
+//   client and expert strides as dimensions of its tensor map (a client
+//   stride of 0 is a client extent of 1).  The producer runs into the next
+//   tile while the consumers store this one.
+// * Rank-1 dot.  x . u of every row once, before the product (xu_kernel:
+//   one warp a row, float32 FMAs in k order, a fixed butterfly), into a
+//   float32 buffer the epilogue reads: one more read of x, 2-4 % of a pod
+//   projection's bound, where the dot in the main loop took CUDA-core FMAs
+//   on every slab of every column tile.
+// * Folded clients.  When the clients share one W (a client stride of 0)
+//   and x and y are contiguous over (C, M), the C products are one of C M
+//   rows (16,912 at InternVL2-26B's pod: 133 row tiles where the clients
+//   took 8 x 17 tiles 56 % full in their last), and W is streamed about
+//   once, not C times; the epilogue finds each row's client (row / M) for
+//   s and v, so a row tile may straddle two clients.  The experts keep
+//   one product per (client, expert).
+// * Raster.  Cluster tiles go out in bands of `group` row tiles, walked
+//   column tile by column tile, so the blocks in flight share x and W
+//   panels in L2 (RASTER_ROWS and tile_of on the Python side).
+// * Shapes.  K % 8 == 0 and 16-byte-aligned operands (TMA's 16-byte global
+//   strides; the wrapper refuses the rest).  W (K, N) with N % 8 != 0
+//   (InternVL's untied 92,553 logits) is first copied into rows padded to
+//   a multiple of 8 by pad_cols_kernel (once per distinct W), 2 K N bytes
+//   more than the product moves.  y is stored from the accumulators
+//   directly (its rows need not be 16-byte aligned: the logits).
+// * Split-K as in the float32 path: partial float32 tiles to scratch,
+//   rank1_reduce16 adds them in ascending order, applies the epilogue and
+//   casts once; no atomics, so the same inputs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -496,9 +523,6 @@ rank1_gemm_kernel(const float* __restrict__ x, const float* __restrict__ W,
 }
 
 __device__ __forceinline__ float to_out(float x, float*) { return x; }
-__device__ __forceinline__ __nv_bfloat16 to_out(float x, __nv_bfloat16*) {
-  return __float2bfloat16_rn(x);
-}
 
 // y[c, e] = sum_k part[k][c * E + e] + s[c] (sum_k part_xu[k][c * E + e]) v
 // over the S splits in ascending order, in float32, then one cast to T.
@@ -549,307 +573,424 @@ cudaError_t launch_gemm(dim3 grid, cudaStream_t st, const float* x,
 }  // namespace gemm
 
 // rank1_gemm_bf16: the bf16 tile of rank1_matmul, rank1_matmul_expert and
-// rank1_matmul_t on the tensor cores.
+// rank1_matmul_t, a warp-specialised wgmma product fed by TMA.
 namespace gemm16 {
 
-constexpr int BM = 128, BN = 256, BK = 64;
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int NT = 32 * WARPS_M * WARPS_N;
-constexpr int WTM = BM / WARPS_M;        // 64 rows a warp
-constexpr int WTN = BN / WARPS_N;        // 64 columns a warp
-constexpr int MI = WTM / 16, NI = WTN / 8;
-constexpr int STAGES = 4;
-constexpr int MIN_BLOCKS = 1;
-constexpr int XP = BK + 8;               // x row pitch (and W^T's), in bf16
-constexpr int WP = BN + 8;               // W row pitch ([k][n]), in bf16
-constexpr int CH = 8;                    // bf16 a 16-byte copy moves
-static_assert(NI % 2 == 0 && BM * (BK / CH) % NT == 0 &&
-                  BK * (BN / CH) % NT == 0 && BN * (BK / CH) % NT == 0 &&
-                  2 * BM == NT && BK <= NT,
-              "copy and dot roles");
+using namespace hopper;
 
-// One ring stage: x slab [m][k], W slab ([k][n], or [n][k] when TRANS),
-// then BK floats of u.
-template <bool TRANS>
-struct Stage {
-  static constexpr int X_ELEMS = BM * XP;
-  static constexpr int W_ELEMS = TRANS ? BN * XP : BK * WP;
-  static constexpr int U_BYTES = (X_ELEMS + W_ELEMS) * 2;
-  static constexpr int BYTES = U_BYTES + BK * 4;
-  static_assert(U_BYTES % 16 == 0 && BYTES % 16 == 0,
-                "stage parts must stay 16-byte aligned");
+constexpr int BM = 128, BN = 256, BK = 64;
+constexpr int STAGES = 4;                    // slabs in the ring
+constexpr int CONSUMERS = 2;                 // warpgroups, 64 rows each
+constexpr int NT = 128 * (CONSUMERS + 1);    // and the producer warpgroup
+constexpr int MAX_CLUSTER = 2;               // CTAs sharing each W slab
+constexpr int X_BYTES = BM * BK * 2;         // 128 rows of 128 bytes
+constexpr int W_BOX = 64 * BK * 2;           // one 64 x 64 box of W [k][n]
+constexpr int W_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+constexpr int OUT_BYTES = 64 * 128 * 2;      // a warpgroup's staged y half
+constexpr int SMEM_BYTES =
+    STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES + 1024;   // + alignment
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(X_BYTES % 1024 == 0 && W_BOX % 1024 == 0 &&
+                  STAGE_BYTES % 1024 == 0,
+              "every box starts a 128-byte swizzle atom");
+
+// The launch's output tiles: Bv products of Mv rows (Bv = 1, Mv = C M when
+// the clients' rows are folded), S splits of kper k, rt x ct tiles of
+// CL BM x BN each (one BM x BN tile a CTA of the cluster), walked in bands
+// of `group` row tiles.
+struct Geo {
+  int Bv, Mv, N, K, S, kper, rt, ct, group;
+  long long tiles;
 };
 
-__device__ __forceinline__ unsigned smem(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// Tile t: product b and split outermost; then bands of `group` row tiles,
+// each walked column tile by column tile, its row tiles side by side, so
+// that the blocks in flight share their x panels and W panels in L2.
+__device__ __forceinline__ void tile_of(const Geo& g, long long t, int& b,
+                                        int& split, int& rtile, int& ctile) {
+  const long long per = static_cast<long long>(g.rt) * g.ct;
+  const long long bs = t / per;
+  const int r = static_cast<int>(t % per);
+  b = static_cast<int>(bs / g.S);
+  split = static_cast<int>(bs % g.S);
+  const int band = g.group * g.ct;
+  const int first = r / band * g.group;
+  const int rows = min(g.group, g.rt - first);
+  const int w = r % band;
+  rtile = first + w % rows;
+  ctile = w / rows;
 }
 
-__device__ __forceinline__ void cp16(unsigned dst, const void* src,
-                                     int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
+__device__ __forceinline__ int slabs_of(const Geo& g, int split) {
+  const int kbeg = split * g.kper;
+  return (min(g.K, kbeg + g.kper) - kbeg + BK - 1) / BK;
 }
 
-__device__ __forceinline__ void cp4(unsigned dst, const void* src,
-                                    int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned r[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned r[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16 x 16, row) b (16 x 8, col), float32 accumulators
-__device__ __forceinline__ void mma16816(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The copies of the slab at k0 into one stage: x rows of pitch K, W rows of
-// pitch ldw ((K, ldw) [k][n], or (N, K) [n][k] when TRANS); everything at
-// or past (M, N, kend) is zero-filled (K, ldw and kend are multiples of 8,
-// so a 16-byte piece is wholly in or out).
-template <bool TRANS>
-__device__ __forceinline__ void load_slab(
-    unsigned char* st, const __nv_bfloat16* x, const __nv_bfloat16* W,
-    const float* u, int M, int N, int K, int ldw, int k0, int kend, int row0,
-    int col0) {
-  using St = Stage<TRANS>;
-  const int tid = threadIdx.x;
-  const unsigned sx = smem(st), sw = sx + 2 * St::X_ELEMS,
-                 su = sx + St::U_BYTES;
-#pragma unroll
-  for (int i = 0; i < BM * (BK / CH) / NT; ++i) {
-    const int c = tid + i * NT, r = c / (BK / CH), kc = c % (BK / CH) * CH;
-    const bool in = row0 + r < M && k0 + kc < kend;
-    cp16(sx + 2 * (r * XP + kc),
-         in ? x + (long long)(row0 + r) * K + k0 + kc : x, in ? 16 : 0);
-  }
-  if (TRANS) {
-#pragma unroll
-    for (int i = 0; i < BN * (BK / CH) / NT; ++i) {
-      const int c = tid + i * NT, n = c / (BK / CH), kc = c % (BK / CH) * CH;
-      const bool in = col0 + n < N && k0 + kc < kend;
-      cp16(sw + 2 * (n * XP + kc),
-           in ? W + (long long)(col0 + n) * ldw + k0 + kc : W, in ? 16 : 0);
-    }
+// Row m of product b: its client c and expert e, and its output row's
+// offset in y.  Folded (Mc > 0): b = 0, row m is client m / Mc's row
+// m % Mc, and y's rows are contiguous over (C, M).
+__device__ __forceinline__ void row_of(int b, int m, int E, int Mc, int N,
+                                       long long sy_c, long long sy_e,
+                                       int& c, int& e, long long& yoff) {
+  if (Mc > 0) {
+    c = m / Mc;
+    e = 0;
+    yoff = static_cast<long long>(m) * N;
   } else {
-#pragma unroll
-    for (int i = 0; i < BK * (BN / CH) / NT; ++i) {
-      const int c = tid + i * NT, k = c / (BN / CH), nc = c % (BN / CH) * CH;
-      const bool in = k0 + k < kend && col0 + nc < ldw;
-      cp16(sw + 2 * (k * WP + nc),
-           in ? W + (long long)(k0 + k) * ldw + col0 + nc : W, in ? 16 : 0);
-    }
-  }
-  if (tid < BK) {
-    const bool in = k0 + tid < kend;
-    cp4(su + 4 * tid, in ? u + k0 + tid : u, in ? 4 : 0);
+    c = b / E;
+    e = b % E;
+    yoff = c * sy_c + e * sy_e + static_cast<long long>(m) * N;
   }
 }
 
-// blockIdx.z = (c * E + e) * S + split, as in the float32 path.  S == 1:
-// y = bf16(x W + s (x . u) v^T) (W^T when TRANS); S > 1: the split's
-// float32 partial product to part[split][c * E + e] (M, N) and its partial
-// x . u to the (S, B, M) block after them; rank1_reduce ends.
-template <bool TRANS>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-rank1_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ W,
-                       const float* __restrict__ u,
+// v[col] and v[col + 1] for the thread's columns col = colt + 8 j of half
+// a tile, zero past N: independent loads, issued together
+__device__ __forceinline__ void load_v(float (&va)[BN / 16],
+                                       float (&vc)[BN / 16],
+                                       const float* __restrict__ vb, int colt,
+                                       int N) {
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j) {
+    const int col = colt + 8 * j;
+    va[j] = col < N ? __ldg(vb + col) : 0.f;
+    vc[j] = col + 1 < N ? __ldg(vb + col + 1) : 0.f;
+  }
+}
+
+// A consumer warp is done with a stage: lane c < CL arrives on its
+// `empty` mbarrier in CTA c of the cluster (its own CTA's locally).
+template <int CL>
+__device__ __forceinline__ void release(uint64_t* bar, int lane, int rank) {
+  if (lane == rank)
+    mbar_arrive(bar);
+  else if (lane < CL)
+    mbar_arrive_cluster(bar, lane);
+}
+
+// One block per SM, in clusters of CL CTAs persistent over the cluster
+// tiles: CTA `rank` of a cluster owns row tile CL r + rank of cluster tile
+// (r, column tile), so the cluster's CTAs read the same W slabs.
+// Warpgroups 0 and 1 consume: each owns 64 rows of the CTA's 128 x 256
+// tile as one m64n256k16 accumulator (128 floats a thread).  Warpgroup 2
+// produces: one thread keeps the ring of STAGES slabs (x 128 x 64, W
+// 64 x 256) filled by TMA: its own x, and its 1 / CL of the W slab
+// multicast into every CTA of the cluster.  Each stage's `full` mbarrier
+// counts its bytes (its own x, and every CTA's share of W); its `empty`
+// mbarrier counts the consumer warps of all the cluster's CTAs that are
+// done with it, since every producer writes into every CTA's stage.  A
+// producer runs ahead into the next tile while the consumers store this
+// one, and at the end waits until every stage it filled is released, so
+// no CTA leaves while a peer still writes or arrives in it.  S == 1:
+// y = bf16(x W + s (x . u) v) (W^T when TRANS) from the x . u of `xu`,
+// staged in shared memory and stored by TMA through `ymap` when `tma_y`,
+// else stored from the accumulators (4-byte pairs where `pair`: y is
+// 4-byte aligned); S > 1: the split's float32 partial tile to
+// part[split][b] (Mv, N), which rank1_reduce16 ends.
+template <bool TRANS, int CL>
+__global__ void __launch_bounds__(NT, 1)
+rank1_gemm_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const __grid_constant__ CUtensorMap ymap,
+                       const float* __restrict__ xu,
                        const float* __restrict__ v,
                        const float* __restrict__ s,
                        __nv_bfloat16* __restrict__ y,
-                       float* __restrict__ part, int E, int M, int N, int K,
-                       int ldw, int S, int kper, long long sx_c,
-                       long long sx_e, long long sw_c, long long sw_e,
-                       long long su_c, long long su_e, long long sv_c,
+                       float* __restrict__ part, const Geo g, int E, int Mc,
+                       int wshared, int pair, int tma_y, long long sv_c,
                        long long sv_e, long long sy_c, long long sy_e) {
-  using St = Stage<TRANS>;
-  extern __shared__ __align__(16) unsigned char ring[];
-  __shared__ float xu_half[NT];
-  __shared__ float xu_row[BM];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int split = blockIdx.z % S;
-  const long long b = blockIdx.z / S, c = b / E, e = b % E;
-  x += c * sx_c + e * sx_e;
-  W += c * sw_c + e * sw_e;
-  u += c * su_c + e * su_e;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const int kbeg = split * kper, kend = min(K, kbeg + kper);
-  const int nk = (kend - kbeg + BK - 1) / BK;
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  // x . u: this thread's half (BK / 2 k) of row tid / 2 of each slab
-  float xu = 0.f;
-  const int xr = tid >> 1, xk = (tid & 1) * (BK / 2);
-
-  // ldmatrix row addresses, in bytes from a stage's start.  x: rows
-  // lane % 16 of each 16-row tile, k 0-7 / 8-15 by lane / 16.  W [k][n]:
-  // k rows lane % 8 (+ 8 for lanes 8-15 and 24-31), columns + 8 for lanes
-  // 16-31, read transposed.  W^T [n][k]: rows lane % 8 (+ 8 for lanes
-  // 16-31), k + 8 for lanes 8-15 and 24-31.  Each x4 then holds b0, b1 of
-  // two neighbouring 8-column tiles.
-  const unsigned a_off = 2 * ((wm * WTM + (lane & 15)) * XP + (lane >> 4) * 8);
-  const unsigned b_off =
-      TRANS ? 2 * (St::X_ELEMS + (wn * WTN + (lane & 7) + (lane >> 4) * 8) * XP +
-                   ((lane >> 3) & 1) * 8)
-            : 2 * (St::X_ELEMS + ((lane & 7) + ((lane >> 3) & 1) * 8) * WP +
-                   wn * WTN + (lane >> 4) * 8);
-
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < nk)
-      load_slab<TRANS>(ring + t * St::BYTES, x, W, u, M, N, K, ldw,
-                       kbeg + t * BK, kend, row0, col0);
-    cp_commit();
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<STAGES - 2>();   // this thread's copies of slab kt have landed
-    __syncthreads();         // everyone's have, and slab kt - 1 is consumed
-    const int nx = kt + STAGES - 1;
-    if (nx < nk)
-      load_slab<TRANS>(ring + (nx % STAGES) * St::BYTES, x, W, u, M, N, K,
-                       ldw, kbeg + nx * BK, kend, row0, col0);
-    cp_commit();
-
-    const unsigned char* st = ring + (kt % STAGES) * St::BYTES;
-    {
-      const uint4* xs = reinterpret_cast<const uint4*>(st + 2 * (xr * XP + xk));
-      const float4* us = reinterpret_cast<const float4*>(st + St::U_BYTES +
-                                                         4 * xk);
-#pragma unroll
-      for (int h = 0; h < BK / 16; ++h) {
-        const uint4 q = xs[h];
-        const unsigned w[4] = {q.x, q.y, q.z, q.w};
-        const float4 u0 = us[2 * h], u1 = us[2 * h + 1];
-        const float uu[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          xu = fmaf(__uint_as_float(w[j] << 16), uu[2 * j], xu);
-          xu = fmaf(__uint_as_float(w[j] & 0xffff0000u), uu[2 * j + 1], xu);
-        }
-      }
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* ring = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  const int wg = threadIdx.x / 128;
+  const int rank = static_cast<int>(cluster_rank());
+  const int cl = blockIdx.x / CL, clusters = gridDim.x / CL;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS * 4 * CL);
     }
-    const unsigned sst = smem(st);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned a[MI][4], bq[NI / 2][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        ldsm_x4(sst + a_off + 2 * (i * 16 * XP + kk), a[i]);
-#pragma unroll
-      for (int p = 0; p < NI / 2; ++p) {
-        if (TRANS)
-          ldsm_x4(sst + b_off + 2 * (p * 16 * XP + kk), bq[p]);
-        else
-          ldsm_x4_t(sst + b_off + 2 * (kk * WP + p * 16), bq[p]);
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j)
-          mma16816(acc[i][j], a[i], bq[j / 2][(j % 2) * 2],
-                   bq[j / 2][(j % 2) * 2 + 1]);
-    }
+    mbar_init_fence();
   }
-  cp_wait<0>();
+  cluster_sync();
 
-  // x . u per row: the two halves added once
-  xu_half[tid] = xu;
-  __syncthreads();
-  if (tid < BM) xu_row[tid] = xu_half[2 * tid] + xu_half[2 * tid + 1];
-  __syncthreads();
-
-  const int g = lane >> 2, tg = lane & 3;
-  if (S == 1) {
-    const float sb = s[c];
-    const float* vb = v + c * sv_c + e * sv_e;
-    __nv_bfloat16* out = y + c * sy_c + e * sy_e;
-    const bool pair =
-        N % 2 == 0 && (reinterpret_cast<std::uintptr_t>(out) & 3) == 0;
+  if (wg == CONSUMERS) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS * 128) return;
+    prefetch_map(&xmap);
+    prefetch_map(&wmap);
+    constexpr uint16_t ALL = (1 << CL) - 1;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long t = cl; t < g.tiles; t += clusters) {
+      int b, split, rtile, ctile;
+      tile_of(g, t, b, split, rtile, ctile);
+      const int c = b / E, e = b % E, cw = wshared ? 0 : c;
+      const int row0 = (rtile * CL + rank) * BM, col0 = ctile * BN;
+      const int nk = slabs_of(g, split);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int k0 = split * g.kper + kt * BK;
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * STAGE_BYTES;
+        mbar_expect_tx(&full[stage], STAGE_BYTES);
+        tma_load_4d(st, &xmap, k0, row0, e, c, &full[stage]);
+        // this CTA's share of the W slab, into every CTA of the cluster:
+        // W^T rows [n][k] in boxes of BN / CL, or W's 64-column boxes
+        if (TRANS) {
+          const int n0 = rank * (BN / CL);
+          if (CL == 1)
+            tma_load_4d(st + X_BYTES, &wmap, k0, col0, e, cw, &full[stage]);
+          else
+            tma_load_4d_multicast(st + X_BYTES + n0 * BK * 2, &wmap, k0,
+                                  col0 + n0, e, cw, &full[stage], ALL);
+        } else {
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = wm * WTM + i * 16 + g + 8 * h, row = row0 + rl;
-        if (row >= M) continue;
-        const float r = sb * xu_row[rl];
-        __nv_bfloat16* orow = out + (long long)row * N;
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const int col = col0 + wn * WTN + j * 8 + tg * 2;
-          const float o0 = fmaf(r, col < N ? vb[col] : 0.f, acc[i][j][2 * h]);
-          const float o1 =
-              fmaf(r, col + 1 < N ? vb[col + 1] : 0.f, acc[i][j][2 * h + 1]);
-          if (pair && col + 1 < N) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-                __floats2bfloat162_rn(o0, o1);
-          } else {
-            if (col < N) orow[col] = __float2bfloat16_rn(o0);
-            if (col + 1 < N) orow[col + 1] = __float2bfloat16_rn(o1);
+          for (int j = 0; j < BN / 64 / CL; ++j) {
+            const int box = rank * (BN / 64 / CL) + j;
+            if (CL == 1)
+              tma_load_4d(st + X_BYTES + box * W_BOX, &wmap, col0 + 64 * box,
+                          k0, e, cw, &full[stage]);
+            else
+              tma_load_4d_multicast(st + X_BYTES + box * W_BOX, &wmap,
+                                    col0 + 64 * box, k0, e, cw, &full[stage],
+                                    ALL);
           }
         }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
+    }
+    // every stage this producer filled has been released by the consumers
+    // of every CTA it wrote into
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
   } else {
-    const long long B = gridDim.z / S, MN = (long long)M * N;
-    float* out = part + (split * B + b) * MN;
-    if (blockIdx.y == 0 && tid < BM && row0 + tid < M)
-      part[S * B * MN + (split * B + b) * M + row0 + tid] = xu_row[tid];
+    regs_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    float acc[128];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long t = cl; t < g.tiles; t += clusters) {
+      int b, split, rtile, ctile;
+      tile_of(g, t, b, split, rtile, ctile);
+      const int nk = slabs_of(g, split);
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t sx =
+            smem_u32(ring + stage * STAGE_BYTES) + wg * (X_BYTES / 2);
+        const uint32_t sw = smem_u32(ring + stage * STAGE_BYTES + X_BYTES);
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // x: 64 rows of 128 bytes (8-row atoms 1024 bytes apart), k16
+          // steps 32 bytes along the row.  W^T [n][k] likewise (TRANS);
+          // W [k][n]: four 64-column boxes 8 KB apart, 16 k rows a step.
+          const uint64_t da = sw128_desc(sx + 32 * kk, 16, 1024);
+          const uint64_t db = TRANS ? sw128_desc(sw + 32 * kk, 16, 1024)
+                                    : sw128_desc(sw + 2048 * kk, W_BOX, 1024);
+          wgmma_m64n256k16<TRANS ? 0 : 1>(acc, da, db, kt | kk);
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        if (kt > 0) {
+          wgmma_wait<1>();   // slab kt - 1's products have read their stage
+          release<CL>(&empty[prev], lane, rank);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // the epilogue: thread (warp, lane) holds rows 16 warp + lane / 4 +
+      // 8 h and columns 8 j + 2 (lane % 4) + q of its warpgroup's 64 rows.
+      // v is loaded half a tile (128 columns) at a time, 32 loads in
+      // flight: the first half for the first row's client while the last
+      // slab's products run, the second while the first half is stored.
+      const int row0 =
+          (rtile * CL + rank) * BM + wg * 64 + warp * 16 + lane / 4;
+      const int colt = ctile * BN + 2 * (lane % 4);
+      float va[BN / 16], vc[BN / 16];
+      int c = -1, e = 0, vh = 0;   // the client, expert and half va, vc hold
+      if (g.S == 1 && row0 < g.Mv) {
+        long long yo;
+        row_of(b, row0, E, Mc, g.N, sy_c, sy_e, c, e, yo);
+        load_v(va, vc, v + c * sv_c + e * sv_e, colt, g.N);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release<CL>(&empty[prev], lane, rank);
+      if (g.S == 1) {
+        float r[2];
+        int ch[2], eh[2];
+        long long yoff[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = row0 + 8 * h;
+          ch[h] = eh[h] = 0;
+          yoff[h] = 0;
+          r[h] = 0.f;
+          if (m < g.Mv) {
+            row_of(b, m, E, Mc, g.N, sy_c, sy_e, ch[h], eh[h], yoff[h]);
+            r[h] = s[ch[h]] * xu[static_cast<long long>(b) * g.Mv + m];
+          }
+        }
+        // tma_y: y through shared memory and TMA stores, a warpgroup's 64
+        // rows x 128 columns at a time (two 64 x 64 boxes, 128-byte
+        // swizzled: the 8 rows of a warp's store fall in 8 distinct
+        // 16-byte chunks; rows past Mv are never written to y)
+        unsigned char* out = ring + STAGES * STAGE_BYTES + wg * OUT_BYTES;
+        const int rl0 = warp * 16 + lane / 4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (tma_y) {
+            if (tid == 0) bulk_wait_read<0>();   // the staging is free
+            bar_sync(1 + wg, 128);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (row0 + 8 * h >= g.Mv) continue;
+            if (ch[h] != c || eh[h] != e || vh != half) {
+              c = ch[h];
+              e = eh[h];
+              vh = half;
+              load_v(va, vc, v + c * sv_c + e * sv_e, colt + half * BN / 2,
+                     g.N);
+            }
+            const int rl = rl0 + 8 * h;
+            unsigned char* srow = out + rl * 128 + 4 * (lane % 4);
+            __nv_bfloat16* orow = y + yoff[h];
+            // column pairs (col is even) are 4-byte aligned in an even row
+            const bool two = pair && (yoff[h] & 1) == 0;
+#pragma unroll
+            for (int jj = 0; jj < BN / 16; ++jj) {
+              const int j = half * (BN / 16) + jj;
+              const float o0 = fmaf(r[h], va[jj], acc[4 * j + 2 * h]);
+              const float o1 = fmaf(r[h], vc[jj], acc[4 * j + 2 * h + 1]);
+              if (tma_y) {
+                const int at =
+                    jj / 8 * (OUT_BYTES / 2) + ((jj % 8) ^ (rl % 8)) * 16;
+                *reinterpret_cast<__nv_bfloat162*>(srow + at) =
+                    __floats2bfloat162_rn(o0, o1);
+                continue;
+              }
+              const int col = colt + 8 * j;
+              if (two && col + 1 < g.N) {
+                *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                    __floats2bfloat162_rn(o0, o1);
+              } else {
+                if (col < g.N) orow[col] = __float2bfloat16_rn(o0);
+                if (col + 1 < g.N) orow[col + 1] = __float2bfloat16_rn(o1);
+              }
+            }
+          }
+          if (half == 0 && c >= 0) {   // the second half's v, in flight
+            vh = 1;
+            load_v(va, vc, v + c * sv_c + e * sv_e, colt + BN / 2, g.N);
+          }
+          if (tma_y) {
+            fence_async_smem();
+            bar_sync(1 + wg, 128);
+            if (tid == 0) {
+              const int yc = Mc > 0 ? 0 : b / E, ye = Mc > 0 ? 0 : b % E;
+              const int col = ctile * BN + half * (BN / 2);
+              const int mw = (rtile * CL + rank) * BM + wg * 64;
+              tma_store_4d(&ymap, out, col, mw, ye, yc);
+              tma_store_4d(&ymap, out + OUT_BYTES / 2, col + 64, mw, ye, yc);
+              bulk_commit();
+            }
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = row0 + wm * WTM + i * 16 + g + 8 * h;
-        if (row >= M) continue;
-        float* orow = out + (long long)row * N;
+        const int m = row0 + 8 * h;
+        if (m >= g.Mv) continue;
+        float* orow =
+            part + ((static_cast<long long>(split) * g.Bv + b) * g.Mv + m) *
+                       static_cast<long long>(g.N);
 #pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const int col = col0 + wn * WTN + j * 8 + tg * 2;
-          if (N % 2 == 0 && col + 1 < N) {
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = colt + 8 * j;
+          if (g.N % 2 == 0 && col + 1 < g.N) {
             *reinterpret_cast<float2*>(orow + col) =
-                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
           } else {
-            if (col < N) orow[col] = acc[i][j][2 * h];
-            if (col + 1 < N) orow[col + 1] = acc[i][j][2 * h + 1];
+            if (col < g.N) orow[col] = acc[4 * j + 2 * h];
+            if (col + 1 < g.N) orow[col + 1] = acc[4 * j + 2 * h + 1];
           }
         }
       }
+    }
+    if (tid == 0) bulk_wait_all();   // the last tile's stores have landed
+  }
+}
+
+// xu[w] = sum_k f32(x[c, e, m, k]) u[c, e, k] for row w = (c E + e) M + m:
+// one warp a row, each lane 8 k at a time (one 16-byte load of x), in k
+// order, then a fixed butterfly over the lanes; float32 throughout.
+__global__ void __launch_bounds__(256)
+xu_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ u,
+          float* __restrict__ xu, int E, int M, int K, long long rows,
+          long long sx_c, long long sx_e, long long su_c, long long su_e) {
+  const long long w = blockIdx.x * 8LL + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= rows) return;
+  const long long b = w / M, c = b / E, e = b % E;
+  const __nv_bfloat16* xr = x + c * sx_c + e * sx_e + (w % M) * K;
+  const float* ub = u + c * su_c + e * su_e;
+  float acc = 0.f;
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 q = *reinterpret_cast<const uint4*>(xr + k);
+    const unsigned wv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc = fmaf(__uint_as_float(wv[j] << 16), ub[k + 2 * j], acc);
+      acc = fmaf(__uint_as_float(wv[j] & 0xffff0000u), ub[k + 2 * j + 1],
+                 acc);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) xu[w] = acc;
+}
+
+// y = bf16(sum_k part[k] + s (x . u) v) over the S splits in ascending
+// order, in float32, for every row of every product (rows as in the tile).
+__global__ void __launch_bounds__(256)
+rank1_reduce16_kernel(const float* __restrict__ part,
+                      const float* __restrict__ xu,
+                      const float* __restrict__ v,
+                      const float* __restrict__ s,
+                      __nv_bfloat16* __restrict__ y, int S, int Bv, int Mv,
+                      int N, int E, int Mc, long long sv_c, long long sv_e,
+                      long long sy_c, long long sy_e) {
+  const long long MN = static_cast<long long>(Mv) * N, total = Bv * MN;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int b = static_cast<int>(i / MN);
+    const long long r = i % MN;
+    const int m = static_cast<int>(r / N), n = static_cast<int>(r % N);
+    float acc = part[i];
+    for (int k = 1; k < S; ++k) acc += part[k * total + i];
+    int c, e;
+    long long yoff;
+    row_of(b, m, E, Mc, N, sy_c, sy_e, c, e, yoff);
+    y[yoff + n] = __float2bfloat16_rn(
+        fmaf(s[c] * xu[b * static_cast<long long>(Mv) + m],
+             v[c * sv_c + e * sv_e + n], acc));
   }
 }
 
@@ -869,21 +1010,9 @@ pad_cols_kernel(const __nv_bfloat16* __restrict__ src,
   }
 }
 
-template <bool TRANS>
-cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
-                   const __nv_bfloat16* W, const float* u, const float* v,
-                   const float* s, __nv_bfloat16* y, float* part, int E,
-                   int M, int N, int K, int ldw, int S, int kper,
-                   const long long* sd) {
-  auto kernel = rank1_gemm_bf16_kernel<TRANS>;
-  constexpr int bytes = STAGES * Stage<TRANS>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, bytes, st>>>(x, W, u, v, s, y, part, E, M, N, K, ldw, S,
-                                  kper, sd[0], sd[1], sd[2], sd[3], sd[4],
-                                  sd[5], sd[6], sd[7], sd[8], sd[9]);
-  return cudaGetLastError();
+int blocks_for(long long total) {
+  const long long want = (total + 255) / 256;
+  return static_cast<int>(want < 132 * 16 ? want : 132 * 16);
 }
 
 }  // namespace gemm16
@@ -943,57 +1072,150 @@ extern "C" int rank1_matmul_f32(
 // x and W 16-byte aligned with strides that are multiples of 8 elements.
 // W (K, N) with N % 8 != 0 (not TRANS) is first copied into `wpad`, room
 // for (sw_c == 0 ? 1 : C) * E * K * round8(N) bf16, with its rows padded
-// by zeros (null otherwise).  Splits as in the float32 path (kper a
-// multiple of 64).  Returns the first CUDA error of the launches, or
-// cudaErrorInvalidValue for what the kernel refuses.
+// by zeros (null otherwise).  `xu` holds C * E * M floats (x . u of every
+// row); with splits > 1, `part` holds splits * C * E * M * N floats.
+// `fold` (E == 1, a client stride of 0 for W, x and y contiguous over
+// (C, M)) makes the clients' rows one product of C M rows over the one W.
+// Clusters of `cluster` (1 or 2) CTAs share each W slab; `group` cluster
+// row tiles a band, at most `blocks` persistent blocks.  Splits
+// as in the float32 path (kper a multiple of 64).  Returns the first CUDA
+// error of the launches, or cudaErrorInvalidValue for what the kernel
+// refuses.
 extern "C" int rank1_matmul_bf16(
     const void* x, const void* W, const void* u, const void* v, const void* s,
-    void* y, void* part, void* wpad, int C, int E, int M, int N, int K,
-    int splits, int kper, int trans, long long sx_c, long long sx_e,
-    long long sw_c, long long sw_e, long long su_c, long long su_e,
-    long long sv_c, long long sv_e, long long sy_c, long long sy_e,
-    void* stream) {
+    void* y, void* part, void* wpad, void* xu, int C, int E, int M, int N,
+    int K, int splits, int kper, int trans, int fold, int cluster, int group,
+    int blocks,
+    long long sx_c, long long sx_e, long long sw_c, long long sw_e,
+    long long su_c, long long su_e, long long sv_c, long long sv_e,
+    long long sy_c, long long sy_e, void* stream) {
   using namespace gemm16;
   const bool padded = !trans && N % 8 != 0;
-  if (K % 8 != 0 || kper % BK != 0 || !gemm::aligned16(x) ||
-      !gemm::aligned16(W) || (sx_c | sx_e | sw_c | sw_e) % 8 != 0 ||
-      padded != (wpad != nullptr) || (wpad && !gemm::aligned16(wpad)))
+  if (K % 8 != 0 || kper % BK != 0 || splits < 1 || group < 1 ||
+      blocks < MAX_CLUSTER || cluster < 1 || cluster > MAX_CLUSTER ||
+      xu == nullptr || (splits > 1) != (part != nullptr) ||
+      !gemm::aligned16(x) || !gemm::aligned16(W) ||
+      (sx_c | sx_e | sw_c | sw_e) % 8 != 0 ||
+      padded != (wpad != nullptr) || (wpad && !gemm::aligned16(wpad)) ||
+      (fold && (E != 1 || sw_c != 0 || sx_c != (long long)M * K ||
+                sy_c != (long long)M * N)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* Wb = static_cast<const __nv_bfloat16*>(W);
-  int ldw = trans ? K : N;
-  long long sd[10] = {sx_c, sx_e, sw_c, sw_e, su_c,
-                      su_e, sv_c, sv_e, sy_c, sy_e};
-  if (padded) {
-    ldw = (N + 7) / 8 * 8;
-    const int nc = sw_c == 0 ? 1 : C;
-    const long long total = (long long)nc * E * K * ldw,
-                    want = (total + 255) / 256;
-    auto* dst = static_cast<__nv_bfloat16*>(wpad);
-    pad_cols_kernel<<<static_cast<int>(want < 132 * 16 ? want : 132 * 16),
-                      256, 0, st>>>(Wb, dst, E, K, N, ldw, sw_c, sw_e, total);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    Wb = dst;
-    sd[2] = sw_c == 0 ? 0 : (long long)E * K * ldw;
-    sd[3] = (long long)K * ldw;
-  }
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, C * E * splits);
   const auto* uf = static_cast<const float*>(u);
   const auto* vf = static_cast<const float*>(v);
   const auto* sf = static_cast<const float*>(s);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   auto* pf = static_cast<float*>(part);
-  cudaError_t err =
-      trans ? launch<true>(grid, st, xb, Wb, uf, vf, sf, yb, pf, E, M, N, K,
-                           ldw, splits, kper, sd)
-            : launch<false>(grid, st, xb, Wb, uf, vf, sf, yb, pf, E, M, N, K,
-                            ldw, splits, kper, sd);
+  auto* xuf = static_cast<float*>(xu);
+  const int cw = sw_c == 0 ? 1 : C;
+  long long ldw = trans ? K : N;
+  if (padded) {
+    ldw = (N + 7) / 8 * 8;
+    const long long total = (long long)cw * E * K * ldw;
+    auto* dst = static_cast<__nv_bfloat16*>(wpad);
+    pad_cols_kernel<<<blocks_for(total), 256, 0, st>>>(
+        Wb, dst, E, K, N, static_cast<int>(ldw), sw_c, sw_e, total);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    Wb = dst;
+    sw_e = (long long)K * ldw;
+    sw_c = sw_c == 0 ? 0 : E * sw_e;
+  }
+  // x . u of every row, once
+  const long long rows = (long long)C * E * M;
+  xu_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
+      xb, uf, xuf, E, M, K, rows, sx_c, sx_e, su_c, su_e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // tensor maps, dims innermost first: x (K, rows, E, C), or (K, C M) when
+  // folded; W [k][n] (ldw, K, E, C) in 64 x 64 boxes, or W [n][k] (K, N,
+  // E, C) in 64 x 128 boxes (a CTA's share of 256) when TRANS; a client
+  // stride of 0 is a client extent of 1
+  CUtensorMap xmap, wmap;
+  const long long xd[4] = {K, fold ? (long long)C * M : M, fold ? 1 : E,
+                           fold ? 1 : C};
+  const long long xs[3] = {2LL * K, 2 * sx_e, 2 * sx_c};
+  const long long wd[4] = {trans ? (long long)K : ldw, trans ? N : K, E, cw};
+  const long long ws[3] = {2 * (trans ? (long long)K : ldw), 2 * sw_e,
+                           2 * sw_c};
+  if (!map_bf16_4d(&xmap, xb, xd, xs, BK, BM) ||
+      !map_bf16_4d(&wmap, Wb, wd, ws, 64, trans ? BN / cluster : BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  Geo g;
+  g.Bv = fold ? 1 : C * E;
+  g.Mv = fold ? C * M : M;
+  g.N = N;
+  g.K = K;
+  g.S = splits;
+  g.kper = kper;
+  g.rt = ((g.Mv + BM - 1) / BM + cluster - 1) / cluster;
+  g.ct = (N + BN - 1) / BN;
+  g.group = group;
+  g.tiles = (long long)g.Bv * splits * g.rt * g.ct;
+  const int Mc = fold ? M : 0;
+  const int pair = (reinterpret_cast<std::uintptr_t>(y) & 3) == 0;
+  // y by TMA stores where its rows and strides are 16-byte multiples
+  // (not the 92,553-column logits), as x's map lays it out
+  const int tma_y = splits == 1 && N % 8 == 0 && gemm::aligned16(y) &&
+                    (sy_c | sy_e) % 8 == 0;
+  CUtensorMap ymap = {};
+  const long long yd[4] = {N, xd[1], xd[2], xd[3]};
+  const long long ys[3] = {2LL * N, 2 * sy_e, 2 * sy_c};
+  if (tma_y && !map_bf16_4d(&ymap, y, yd, ys, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int which = 2 * (cluster - 1) + (trans ? 1 : 0);
+  auto kernel = which == 0   ? rank1_gemm_bf16_kernel<false, 1>
+                : which == 1 ? rank1_gemm_bf16_kernel<true, 1>
+                : which == 2 ? rank1_gemm_bf16_kernel<false, 2>
+                             : rank1_gemm_bf16_kernel<true, 2>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many clusters as the card holds at once (its SMs pair up into
+  // clusters only within a GPC), at most blocks / cluster
+  static int resident[4] = {0, 0, 0, 0};
+  if (resident[which] == 0 && cluster == 1) resident[which] = blocks;
+  if (resident[which] == 0) {
+    cudaLaunchConfig_t q = {};
+    q.gridDim = dim3(blocks / cluster * cluster);
+    q.blockDim = dim3(NT);
+    q.dynamicSmemBytes = SMEM_BYTES;
+    cudaLaunchAttribute a;
+    a.id = cudaLaunchAttributeClusterDimension;
+    a.val.clusterDim.x = cluster;
+    a.val.clusterDim.y = a.val.clusterDim.z = 1;
+    q.attrs = &a;
+    q.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&resident[which], kernel, &q);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (resident[which] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long clusters = resident[which] < blocks / cluster
+                           ? resident[which] : blocks / cluster;
+  if (clusters > g.tiles) clusters = g.tiles;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, ymap, xuf, vf, sf, yb,
+                           pf, g, E, Mc, static_cast<int>(sw_c == 0), pair,
+                           tma_y, sv_c, sv_e, sy_c, sy_e);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long total = (long long)C * E * M * N, want = (total + 255) / 256;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  gemm::rank1_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-      pf, vf, sf, yb, splits, C * E, E, M, N, sv_c, sv_e, sy_c, sy_e);
+  rank1_reduce16_kernel<<<blocks_for(rows * N), 256, 0, st>>>(
+      pf, xuf, vf, sf, yb, splits, g.Bv, g.Mv, N, E, Mc, sv_c, sv_e, sy_c,
+      sy_e);
   return static_cast<int>(cudaGetLastError());
 }

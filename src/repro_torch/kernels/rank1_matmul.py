@@ -40,12 +40,19 @@ W may be a strided view of the stacked parameters (its client and expert
 strides are passed to the kernel); the inner (K, N) / (O, K) matrix must be
 contiguous.
 
-The bf16 path is a second kernel in the same file, ``rank1_gemm_bf16``:
-``mma.sync`` bf16 tensor-core tiles of 128 × 256 over slabs of 64 k (its
-geometry is ``TILE16``), the same split-K and strides; it takes K % 8 == 0
-and 16-byte-aligned operands (it raises on the rest), and pads W's rows to
-a multiple of 8 first where N is not one (InternVL's 92,553 logits).  Its
-launches count under the op's name with ``_bf16`` appended.
+The bf16 path is a second kernel in the same file, ``rank1_gemm_bf16``: a
+persistent, warp-specialised ``wgmma`` product (128 × 256 output tiles,
+two consumer warpgroups, a producer that fills a 4-stage ring of 64-k slabs
+by TMA; its geometry is ``TILE16``), with x·u computed once per row before
+it, the same split-K and strides.  Where the row tiles are many or even,
+two CTAs on neighbouring row tiles form a cluster and share each W slab by
+TMA multicast (:func:`cluster_of`).  When the clients share one W (a client
+stride of 0) and x is contiguous over (C, M), their rows are folded into
+one product of C·M rows (:func:`folds`), so W is streamed about once.  It
+takes K % 8 == 0 and 16-byte-aligned operands (it raises on the rest), and
+pads W's rows to a multiple of 8 first where N is not one (InternVL's
+92,553 logits).  Its launches count under the op's name with ``_bf16``
+appended.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
@@ -69,12 +76,15 @@ SLOTS = SMS * BLOCKS_PER_SM
 #: fill and drain; the rate at which partial sums are written and re-read
 T_SLAB_US, T_ALONE_US, T_WAVE_US, PARTIAL_BYTES_PER_US = 2.32, 1.55, 12.0, 2.5e6
 MAX_SPLITS = 64
-#: the bf16 kernel's tile and k-slab, its blocks per SM, and its clock (the
-#: same quantities as above; one block an SM, so a slab takes as long
-#: alone: 1.77 us at InternVL2-26B's pod shapes on an H100 SXM at 700 W)
+#: the bf16 kernel's tile and k-slab, its blocks per SM (one, persistent),
+#: and its clock (the same quantities as above; one block an SM, so a slab
+#: takes as long alone: 0.78 us at InternVL2-26B's pod shapes, epilogue
+#: included, on an H100 SXM at 700 W)
 TILE16 = (128, 256, 64)
 BLOCKS_PER_SM16 = 1
-T_SLAB16_US = T_ALONE16_US = 1.77
+T_SLAB16_US = T_ALONE16_US = 0.78
+#: cluster row tiles of a band of the bf16 kernel's raster (``tile_of``)
+RASTER_ROWS = 8
 #: CUDA's limit on a grid's y and z extents
 GRID_YZ = 65535
 
@@ -118,6 +128,48 @@ def split_plan(batch: int, M: int, N: int, K: int, *,
         if best is None or us < best[0]:
             best = (us, splits, per)
     return best[1], best[2] * tk
+
+
+def folds(C: int, E: int, M: int, K: int, sx_c: int, sw_c: int) -> bool:
+    """Whether the bf16 kernel folds the C clients' rows into one product of
+    C·M rows: one W for all (a client stride of 0), no experts, x
+    contiguous over (C, M) (y, which the wrapper allocates, always is)."""
+    return C > 1 and E == 1 and sw_c == 0 and sx_c == M * K
+
+
+def gemm_plan(C: int, E: int, M: int, N: int, K: int, *, bf16: bool = False,
+              fold: bool = False) -> tuple[int, int]:
+    """(splits, k per split) of the launch for C clients × E experts of
+    x (M, K) by W (K, N): :func:`split_plan` of C·E products, or of one
+    product of C·M rows when the bf16 kernel folds them (``fold``)."""
+    if bf16 and fold:
+        return split_plan(1, C * M, N, K, bf16=True)
+    return split_plan(C * E, M, N, K, bf16=bf16)
+
+
+def cluster_of(rows: int) -> int:
+    """CTAs of a cluster of the bf16 kernel for products of ``rows`` rows:
+    two (neighbouring row tiles, W's slabs read once for both and
+    multicast) unless the row tiles are few and odd, where the pair's
+    empty half would cost more than the shared W saves (the Jamba cut's
+    330-row experts, Qwen's 2112 folded rows: 3 and 17 row tiles)."""
+    tiles = _cdiv(rows, TILE16[0])
+    return 2 if tiles % 2 == 0 or tiles >= 32 else 1
+
+
+def tile_of(t: int, S: int, rt: int, ct: int, group: int = RASTER_ROWS):
+    """(product, split, row tile, column tile) of the bf16 kernel's cluster
+    tile ``t`` (``rt`` row tiles of ``cluster_of`` × 128 rows), as
+    ``tile_of`` in the .cu computes it: products and splits outermost,
+    then bands of ``group`` row tiles walked column tile by column
+    tile."""
+    bs, r = divmod(t, rt * ct)
+    b, split = divmod(bs, S)
+    band = group * ct
+    first = r // band * group
+    rows = min(group, rt - first)
+    w = r % band
+    return b, split, first + w % rows, w // rows
 
 
 def to_f32(t):
@@ -191,38 +243,56 @@ def _gemm(name, x, W, u, v, s, y, E, strides, trans=False):
     client and expert strides of x, W, u (the contracted vector), v (the
     output vector) and y (an expert stride of 0 for the dense products)."""
     C, M, K, N = x.shape[0], x.shape[-2], x.shape[-1], y.shape[-1]
-    bf16 = x.dtype == torch.bfloat16
-    splits, kper = split_plan(C * E, M, N, K, bf16=bf16)
-    tile_n = TILE16[1] if bf16 else TILE_N
-    if _cdiv(N, tile_n) > GRID_YZ or C * E * splits > GRID_YZ:
+    if x.dtype == torch.bfloat16:
+        return _gemm16(name, x, W, u, v, s, y, E, strides, trans)
+    splits, kper = split_plan(C * E, M, N, K)
+    if _cdiv(N, TILE_N) > GRID_YZ or C * E * splits > GRID_YZ:
         raise ValueError("grid too large")
     lib = build.load("rank1_matmul")
     # partial tiles, then partial x·u, of every split (freed in stream order)
     part = None if splits == 1 else torch.empty(
         splits * C * E * M * (N + 1), dtype=torch.float32, device=x.device)
-    args = (x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(),
-            s.data_ptr(), y.data_ptr(),
-            None if part is None else part.data_ptr())
-    if bf16:
-        if K % 8 or (x.data_ptr() | W.data_ptr()) % 16 \
-                or any(t % 8 for t in strides[:4]):
-            raise ValueError(f"{name}: the bf16 kernel takes K % 8 == 0 and "
-                             f"16-byte-aligned x and W (K {K}, strides "
-                             f"{strides[:4]})")
-        # W (K, N) with N % 8 != 0: rows padded into a copy of each
-        # distinct W (one, when the clients share it with a stride of 0)
-        pad = None
-        if not trans and N % 8:
-            copies = (1 if strides[2] == 0 else C) * E
-            pad = torch.empty(copies * K * (_cdiv(N, 8) * 8),
-                              dtype=torch.bfloat16, device=x.device)
-        err = lib.rank1_matmul_bf16(
-            *args, None if pad is None else pad.data_ptr(), C, E, M, N, K,
-            splits, kper, int(trans), *strides, build.stream_of(x))
-        name += "_bf16"
-    else:
-        err = lib.rank1_matmul_f32(*args, C, E, M, N, K, splits, kper,
-                                   int(trans), *strides, build.stream_of(x))
+    err = lib.rank1_matmul_f32(
+        x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
+        y.data_ptr(), None if part is None else part.data_ptr(), C, E, M, N,
+        K, splits, kper, int(trans), *strides, build.stream_of(x))
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return y
+
+
+def _gemm16(name, x, W, u, v, s, y, E, strides, trans):
+    """The bf16 launch of :func:`_gemm`."""
+    C, M, K, N = x.shape[0], x.shape[-2], x.shape[-1], y.shape[-1]
+    if K % 8 or (x.data_ptr() | W.data_ptr()) % 16 \
+            or any(t % 8 for t in strides[:4]):
+        raise ValueError(f"{name}: the bf16 kernel takes K % 8 == 0 and "
+                         f"16-byte-aligned x and W (K {K}, strides "
+                         f"{strides[:4]})")
+    fold = folds(C, E, M, K, strides[0], strides[2])
+    splits, kper = gemm_plan(C, E, M, N, K, bf16=True, fold=fold)
+    cluster = cluster_of(C * M if fold else M)
+    lib = build.load("rank1_matmul")
+    dev = x.device
+    # x·u of every row, and the splits' partial tiles (freed in stream
+    # order)
+    xu = torch.empty(C * E * M, dtype=torch.float32, device=dev)
+    part = None if splits == 1 else torch.empty(
+        splits * C * E * M * N, dtype=torch.float32, device=dev)
+    # W (K, N) with N % 8 != 0: rows padded into a copy of each distinct W
+    # (one, when the clients share it with a stride of 0)
+    pad = None
+    if not trans and N % 8:
+        copies = (1 if strides[2] == 0 else C) * E
+        pad = torch.empty(copies * K * (_cdiv(N, 8) * 8),
+                          dtype=torch.bfloat16, device=dev)
+    err = lib.rank1_matmul_bf16(
+        x.data_ptr(), W.data_ptr(), u.data_ptr(), v.data_ptr(), s.data_ptr(),
+        y.data_ptr(), None if part is None else part.data_ptr(),
+        None if pad is None else pad.data_ptr(), xu.data_ptr(), C, E, M, N,
+        K, splits, kper, int(trans), int(fold), cluster, RASTER_ROWS,
+        SMS * BLOCKS_PER_SM16, *strides, build.stream_of(x))
+    name += "_bf16"
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return y

@@ -27,6 +27,14 @@ float32, as the reference's are.  The delta is formed in float32, added to
 kernel's arithmetic; in bf16 W moves 2 + 2 bytes an element, so the bound
 halves.  bf16 launches count under the op's name with ``_bf16`` appended.
 
+Rank.  The kernel takes r <= 32 (``MAX_RANK``); the wrappers take any
+r >= 1, as the Pallas kernel does.  Above 32, :func:`rank_blocks` pads r
+with zeros to a multiple of 32 and cuts each epoch's U A V^T into its
+(r/32)^2 blocks of rank 32, U A V^T = Σ_ij U_i A_ij V_j^T, which the
+kernel's epoch loop takes as E·(r/32)^2 terms: W is still streamed once,
+and the padding adds exact zeros.  At r = 64 that is 4 × 32 FMAs an
+element where a rank-64 pass needs 64.
+
 ``inplace=True`` writes the result into W (the port's counterpart of the
 JAX package's donated buffers) and returns it.  Each wrapper runs its plain
 PyTorch version for CPU tensors only; for CUDA tensors it launches the
@@ -107,6 +115,30 @@ def update_plan(nb: int, n: int, m: int, r: int, E: int) -> UpdatePlan:
                       groups, smem)
 
 
+def rank_blocks(U, A, V):
+    """(U', A', V') of rank at most MAX_RANK with the same
+    ``Σ_e U_e A_e V_e^T``, for U (E, n, r), A (E, *B, r, r), V (E, m, r):
+    r padded with zeros to q·MAX_RANK and each epoch cut into q² terms
+    ``U_i A_ij V_j^T`` (term (e, i, j) at e·q² + i·q + j).  r <= MAX_RANK
+    returns the inputs."""
+    E, n, r = U.shape
+    if r <= MAX_RANK:
+        return U, A, V
+    q, R = _cdiv(r, MAX_RANK), MAX_RANK
+    batch = tuple(A.shape[1:-2])
+    pad = q * R - r
+    Ub = torch.nn.functional.pad(U, (0, pad)).reshape(E, n, q, R)
+    Vb = torch.nn.functional.pad(V, (0, pad)).reshape(E, V.shape[1], q, R)
+    Ub = Ub.permute(0, 2, 1, 3)[:, :, None].expand(E, q, q, n, R)
+    Vb = Vb.permute(0, 2, 1, 3)[:, None].expand(E, q, q, V.shape[1], R)
+    Ab = torch.nn.functional.pad(A, (0, pad, 0, pad)).reshape(
+        E, *batch, q, R, q, R)
+    nd = len(batch)
+    Ab = Ab.permute(0, nd + 1, nd + 3, *range(1, nd + 1), nd + 2, nd + 4)
+    return (Ub.reshape(E * q * q, n, R), Ab.reshape(E * q * q, *batch, R, R),
+            Vb.reshape(E * q * q, V.shape[1], R))
+
+
 def subcge_apply_epochs_plain(W, U, A, V, *, inplace: bool = False):
     """Plain PyTorch ``W + Σ_e U_e A_e V_e^T``: the delta in float32, added
     to ``f32(W)``, cast to W's type once."""
@@ -125,6 +157,7 @@ def subcge_apply_plain(W, U, A, V, *, inplace: bool = False):
 
 
 def _launch(W, U, A, V, inplace, name):
+    U, A, V = rank_blocks(U, A, V)
     E, n, r = U.shape
     m = V.shape[1]
     batch = tuple(W.shape[:-2])

@@ -78,6 +78,26 @@ def test_subcge_apply_epochs_plain_matches_jax(backend, E, live):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("E,r", [(1, 48), (2, 64)])
+def test_rank_blocks_match_jax(E, r):
+    """Above the CUDA kernel's rank 32 its wrapper pads r with zeros and
+    cuts each epoch into (r/32)^2 rank-32 terms (``rank_blocks``): those
+    terms through the plain version give the JAX package's rank-r update
+    (its jnp oracle) on a small stacked leaf."""
+    from repro_torch.kernels import subcge_apply as sa
+    rng = _rng(10 + r)
+    W = _f32(rng, 2, 3, 16, 24)
+    U, V = _f32(rng, E, 16, r), _f32(rng, E, 24, r)
+    A = _f32(rng, E, 2, 3, r, r) / r
+    Ub, Ab, Vb = sa.rank_blocks(*(torch.from_numpy(a) for a in (U, A, V)))
+    q = -(-r // sa.MAX_RANK)
+    assert Ub.shape == (E * q * q, 16, sa.MAX_RANK)
+    assert Ab.shape == (E * q * q, 2, 3, sa.MAX_RANK, sa.MAX_RANK)
+    got = sa.subcge_apply_epochs_plain(torch.from_numpy(W), Ub, Ab, Vb)
+    want = np.asarray(jops.subcge_apply_epochs(W, U, A, V, backend="jnp"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def test_non_cpu_tensors_never_reach_the_plain_version():
     x = torch.empty((1, 4, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):

@@ -227,13 +227,39 @@ def test_update_kernel_is_deterministic(cuda, E):
 
 
 @pytest.mark.gpu
-def test_update_kernel_refuses_rank_33(cuda):
-    """r = 33 is past the kernel's limit: it raises, never falls back."""
-    _, W, U, A, V = _update_inputs(cuda, 3, 1, 2, 1, 40, 64, 33)
-    build.reset_launches()
-    with pytest.raises(ValueError, match="rank"):
-        ops.subcge_apply(W, U[0], A[0], V[0])
-    assert build.LAUNCHES["subcge_apply"] == 0
+@pytest.mark.parametrize("r", [33, 48, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_kernel_takes_any_rank(cuda, r, dtype):
+    """r past the kernel's 32: the wrappers cut the update into blocks of
+    rank 32 (``subcge_apply.rank_blocks``), one launch each; subcge_apply
+    and subcge_apply_epochs at E = 1 and 2 agree with the plain version
+    (float32: rtol / atol 1e-5; bf16: one bf16 ulp + atol) and give the
+    same bits on a second call."""
+    from repro_torch.kernels import subcge_apply as sa
+    for E in (1, 2):
+        _, W, U, A, V = _update_inputs(cuda, 50 + r + E, E, 2, 2, 70, 150, r)
+        W = (0.05 * W).to(getattr(torch, dtype))
+        build.reset_launches()
+        if E == 1:
+            got = ops.subcge_apply(W, U[0], A[0], V[0])
+            again = ops.subcge_apply(W, U[0], A[0], V[0])
+            want = sa.subcge_apply_plain(W, U[0], A[0], V[0])
+            name = "subcge_apply"
+        else:
+            got = ops.subcge_apply_epochs(W, U, A, V)
+            again = ops.subcge_apply_epochs(W, U, A, V)
+            want = sa.subcge_apply_epochs_plain(W, U, A, V)
+            name = "subcge_apply_epochs"
+        torch.cuda.synchronize()
+        name += "_bf16" if dtype == "bfloat16" else ""
+        assert dict(build.LAUNCHES) == {name: 2}
+        bits = torch.int16 if dtype == "bfloat16" else torch.int32
+        assert torch.equal(got.view(bits), again.view(bits))
+        if dtype == "bfloat16":
+            _bf16_close(got, want, f"r={r} E={E}")
+        else:
+            assert bool(torch.all((got - want).abs()
+                                  <= ATOL + RTOL * want.abs())), (r, E)
 
 
 def _expert_inputs(cuda, seed, M, K, N):
@@ -571,8 +597,8 @@ def test_topk_compress_on_card_equals_cpu(cuda):
 # float32).  Tolerance: one bf16 ulp of the plain version plus atol 1e-5
 # (the plain version sums in another float32 order, and a sum near a
 # rounding boundary may round to the neighbouring bf16), plus, for the
-# products, K/16 · 2^-23 · max |y| (the tensor cores truncate each
-# m16n8k16 step's float32 sum toward zero: chip_smoke.tensor_core_atol);
+# products, K/16 · 2^-23 · max |y| (the tensor cores truncate each k16
+# step's float32 sum toward zero: chip_smoke.tensor_core_atol);
 # and bitwise across two calls.
 
 def _bf16_close(got, want, what="", K=0):

@@ -176,9 +176,10 @@ def _pod_shapes():
 
 @pytest.mark.parametrize("name", sorted(SHAPES) + sorted(_pod_shapes()))
 def test_bf16_splits_cover_k_in_whole_slabs(name):
-    """The bf16 tile's plan (``TILE16``: 128 x 128 outputs, 64-k slabs):
-    whole slabs, K covered exactly once, one split where the output tiles
-    fill two waves of its block slots, at most MAX_SPLITS."""
+    """The bf16 kernel's plan (``TILE16``: 128 x 256 outputs, 64-k slabs,
+    one persistent block an SM): whole slabs, K covered exactly once, one
+    split where the output tiles fill two waves of its blocks, at most
+    MAX_SPLITS."""
     batch, M, N, K = {**SHAPES, **_pod_shapes()}[name]
     splits, kper = r1.split_plan(batch, M, N, K, bf16=True)
     tm, tn, tk = r1.TILE16
@@ -188,3 +189,51 @@ def test_bf16_splits_cover_k_in_whole_slabs(name):
         assert splits == 1
     assert splits <= r1.MAX_SPLITS
     assert r1.split_plan(batch, M, N, K, bf16=True) == (splits, kper)
+
+
+@pytest.mark.parametrize("C,E,M,K,sx_c,sw_c,want", [
+    (8, 1, 2114, 6144, 2114 * 6144, 0, True),     # the pod: one W, x packed
+    (8, 1, 2114, 6144, 2 * 2114 * 6144, 0, False),   # x strided over C
+    (8, 1, 2114, 6144, 2114 * 6144, 6144 ** 2, False),   # a W per client
+    (3, 2, 330, 8192, 2 * 330 * 8192, 0, False),  # experts never fold
+    (1, 1, 264, 1024, 264 * 1024, 0, False),      # one client: nothing to fold
+])
+def test_fold_decision(C, E, M, K, sx_c, sw_c, want):
+    """The clients' rows fold into one product only over one shared W with
+    x contiguous over (C, M), and without experts."""
+    assert r1.folds(C, E, M, K, sx_c, sw_c) is want
+
+
+@pytest.mark.parametrize("name", sorted(_pod_shapes()))
+def test_pod_products_fold_into_one(name):
+    """At InternVL2-26B's pod the 8 clients' rows are one product: 133 row
+    tiles of 128 for 16,912 rows (8 x 17 tiles, the last 56 % full, when
+    each client is its own product); the plan of the folded product."""
+    C, M, N, K = _pod_shapes()[name]
+    assert r1.folds(C, 1, M, K, M * K, 0)
+    splits, kper = r1.gemm_plan(C, 1, M, N, K, bf16=True, fold=True)
+    assert (splits, kper) == r1.split_plan(1, C * M, N, K, bf16=True)
+    assert (splits - 1) * kper < K <= splits * kper
+    tm, tn, _ = r1.TILE16
+    if name != "internvl/proj":
+        assert -(-C * M // tm) == 133 < C * -(-M // tm)
+
+
+@pytest.mark.parametrize("S,rt,ct,group", [(1, 133, 24, 16), (3, 3, 1, 16),
+                                           (2, 17, 5, 4), (1, 1, 362, 16)])
+def test_tile_order_visits_every_tile_once(S, rt, ct, group):
+    """The persistent blocks' raster (``tile_of``): every (product, split,
+    row tile, column tile) exactly once, products and splits outermost,
+    and the tiles of one band within ``group`` row tiles."""
+    B = 2
+    seen = [r1.tile_of(t, S, rt, ct, group) for t in range(B * S * rt * ct)]
+    assert len(set(seen)) == len(seen) == B * S * rt * ct
+    assert all(0 <= b < B and 0 <= s < S and 0 <= i < rt and 0 <= j < ct
+               for b, s, i, j in seen)
+    lo = 0
+    for _ in range(B * S):
+        for first in range(0, rt, group):
+            n = min(group, rt - first) * ct
+            assert {i for _, _, i, _ in seen[lo:lo + n]} == \
+                set(range(first, min(rt, first + group)))
+            lo += n
