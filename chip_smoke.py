@@ -35,8 +35,8 @@ no result line):
              call computing the same function (none for the scan), and the
              least time the card could take (each shape's ratio to the
              library call and share of the bound are printed, and each
-             unit's sums); the rank-1 products and the update kernel (E <= 2)
-             are also held bitwise equal across two calls; the update kernel
+             unit's sums); the rank-1 products and the update kernel (every
+             E) are also held bitwise equal across two calls; the update kernel
              runs at every matrix leaf of all six paths and of one
              TinyLlama-1.1B and one Gemma 3 1B (the serving folds, client
              axis 1, E = 2 summed and E = 1 printed), beside a
@@ -59,9 +59,10 @@ no result line):
              330), each within one bf16 ulp (plus atol 1e-5) of its bf16
              plain version, bitwise across two calls, and timed beside
              ``baddbmm`` in bf16 and the bf16 bound (989 TFLOP/s, 3.35
-             TB/s); the update at rank 64 (the paper's Fig. 6 sweep, past
-             the kernel's 32: the wrapper's rank-32 blocks) on one
-             Qwen1.5-0.5B in float32 and bf16; then ``prng.normal`` and
+             TB/s); the update at rank 64 (the paper's Fig. 6 sweep: the
+             tensor-core kernel, which takes every bf16 update and float32
+             past rank 32, its TF32 rate printed) on one Qwen1.5-0.5B in
+             float32 and bf16, and its replay at E = 2; then ``prng.normal`` and
              ``prng.gumbel`` on
              the card held bitwise against the CPU on 2^20 draws each.
 3. slice   — ``repro_torch.dtrain.runner.run``: SeedFlood, ring of 8
@@ -510,8 +511,8 @@ SOURCES.update({name + "_bf16": SOURCES[name] for name in (
     "rank1_matmul", "rank1_matmul_t", "subcge_apply", "subcge_apply_epochs",
     "rank1_matmul_expert")})
 # the update's rank in the paper's Fig. 6 sweep (benchmarks/paper_tables.py),
-# past the CUDA kernel's 32: phase 2 holds the wrapper's rank-32 blocks to
-# the plain rank-64 update
+# past the float32 stream's 32: phase 2 holds the tensor-core kernel to the
+# plain rank-64 update
 RANK_SWEEP = 64
 # phase 8: steps of each small-input run (3 until the frontend phase needed
 # the time)
@@ -644,6 +645,9 @@ class Entry:
         # bf16 products: the float32 accumulation error of K / 16
         # tensor-core steps, per unit of max |y| (``tensor_core_atol``)
         self.acc_atol = 0.0
+        # the update's tensor-core kernel: its TF32 operations (three
+        # products of k = E rp an element), for its rate
+        self.tc_flops = 0.0
         self.last = None                # check_bf16's counts, for witness
 
     def add_library(self, ms):
@@ -726,10 +730,13 @@ class Entry:
 
     def line(self) -> str:
         """The unit's sums: times, ratio to the library, share of the
-        bound."""
+        bound, and the update's TF32 rate on the tensor cores."""
         b_ms, b_by = bound(self.nbytes, self.flops, self.peak)
+        rate = "" if not self.tc_flops else \
+            f"; TF32 {self.tc_flops / self.ms / 1e9:.1f} TFLOP/s"
         return f"{self.name} unit: " + speed(self.ms, self.plain_ms,
-                                             self.library_ms, b_ms, b_by)
+                                             self.library_ms, b_ms,
+                                             b_by) + rate
 
     def summary(self) -> dict:
         b_ms, b_by = bound(self.nbytes, self.flops, self.peak)
@@ -893,7 +900,7 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
     ``subcge_apply_epochs`` with E epochs) at each leaf, launched on the
     whole leaf as the main path launches it: held against the plain version
     on every instance (in slices of W of at most CHECK_SLICE_BYTES), bitwise
-    across two calls at E <= 2, and timed beside the plain version,
+    across two calls, and timed beside the plain version,
     ``baddbmm`` (the library call) and a ``copy_`` of W (the rate at which
     this card streams the same bytes).  A bf16 entry takes W in bf16 (made
     and, for the plain version, timed slice by slice: the plain version's
@@ -930,14 +937,17 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
             def plain(lo=0, hi=nb):
                 return sa.subcge_apply_epochs_plain(W[lo:hi], U, A[:, lo:hi],
                                                     Vm)
-        # the plan of the launch: past rank 32, the wrapper's rank-32 blocks
-        q = -(-r // sa.MAX_RANK)
-        plan = sa.update_plan(nb, n, m, min(r, sa.MAX_RANK), E * q * q)
-        shape = (f"E={E} W({','.join(map(str, batch))},{n},{m}) r={r} "
-                 f"bc={plan.bc}")
+        # the plan of the launch: the tensor-core kernel's (bf16 W, or r >
+        # 32) or the float32 stream's
+        tc = sa.uses_tensor_cores(e.bf16, r)
+        if tc:
+            plan = sa.stream_plan(nb, n, m, r, E, esz)
+            geo = f"tc k={plan.k} sub={plan.sub} groups={plan.groups}"
+        else:
+            geo = f"bc={sa.update_plan(nb, n, m, r, E).bc}"
+        shape = f"E={E} W({','.join(map(str, batch))},{n},{m}) r={r} {geo}"
         got = fn()
-        if E <= 2:
-            same_bits(got, fn(), e.name)
+        same_bits(got, fn(), e.name)
         err = want_max = 0.0
         for lo in range(0, nb, step):
             hi = min(nb, lo + step)
@@ -963,10 +973,14 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
         flops = 2 * E * nb * (n * m * r + n * r * r)
         e.add_checked((err, want_max), ms, p_ms, l_ms, nbytes, flops, shape,
                       count)
+        # the tensor-core kernel's TF32 work: three products of k = E rp
+        tf32 = 3 * 2 * nb * n * m * plan.k if tc else 0
+        e.tc_flops += count * tf32
         gbs = 2 * nb * n * m * esz / ms / 1e6   # W read + written, per second
+        rate = f"; TF32 {tf32 / ms / 1e9:.1f} TFLOP/s" if tc else ""
         log(f"    update {shape}: {gbs:.1f} GB/s = "
             f"{gbs * 1e9 / PEAK_HBM_BYTES:.1%} of 3.35 TB/s; kernel/baddbmm "
-            f"{ms / l_ms:.3f}x; copy_ of W {c_ms:.4f} ms (kernel/copy_ "
+            f"{ms / l_ms:.3f}x{rate}; copy_ of W {c_ms:.4f} ms (kernel/copy_ "
             f"{ms / c_ms:.3f}x); checked in {-(-nb // step)} slice(s)")
         del W, UA, Vt
         torch.cuda.empty_cache()
@@ -3060,12 +3074,13 @@ def phase_kernels_bf16(vl, qwen, jamba) -> dict:
 
 
 def phase_kernels_rank64(qwen) -> dict:
-    """The update above the kernel's rank 32: ``subcge_apply`` (float32)
-    and ``subcge_apply_bf16`` at RANK_SWEEP (the paper's Fig. 6 sweep) on
-    every matrix leaf of one Qwen1.5-0.5B, which the wrapper cuts into
-    (r/32)^2 rank-32 terms of one launch; within the phase-2 tolerance of
-    the plain rank-r update and bitwise across two calls.  The bound is
-    the rank-r update's (``check_update``)."""
+    """The update at RANK_SWEEP (the paper's Fig. 6 sweep), past the float32
+    stream's rank 32, on the tensor-core kernel: ``subcge_apply`` (float32)
+    and ``subcge_apply_bf16`` on every matrix leaf of one Qwen1.5-0.5B, and
+    the replay at E = 2 (``subcge_apply_epochs`` and its bf16 form, k =
+    128); within the phase-2 tolerance of the plain rank-r update and
+    bitwise across two calls.  The bound is the rank-r update's
+    (``check_update``)."""
     import torch
 
     dev = torch.device("cuda")
@@ -3075,9 +3090,14 @@ def phase_kernels_rank64(qwen) -> dict:
         return torch.randn(shape, generator=g, device=dev) * scale
 
     units = {"qwen_r64": {"subcge_apply": Entry("subcge_apply"),
-                          "subcge_apply_bf16": Entry("subcge_apply_bf16")}}
-    for e in units["qwen_r64"].values():
-        check_update(e, update_leaves(qwen, 1), 1, randn, r=RANK_SWEEP)
+                          "subcge_apply_bf16": Entry("subcge_apply_bf16")},
+             "qwen_r64_e2": {
+                 "subcge_apply_epochs": Entry("subcge_apply_epochs"),
+                 "subcge_apply_epochs_bf16":
+                     Entry("subcge_apply_epochs_bf16")}}
+    for E, key in ((1, "qwen_r64"), (2, "qwen_r64_e2")):
+        for e in units[key].values():
+            check_update(e, update_leaves(qwen, 1), E, randn, r=RANK_SWEEP)
     return units
 
 
@@ -3868,7 +3888,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[2] the update at rank {RANK_SWEEP} on one Qwen1.5-0.5B, float32 "
-        f"and bf16 ({card})")
+        f"and bf16, and its replay at E = 2 ({card})")
     entries.update(phase_kernels_rank64(qwen))
     torch.cuda.empty_cache()
     log("[2] tensor-core witness (bf16 products; cuBLAS baddbmm in bf16 with "

@@ -49,8 +49,10 @@ _SIGNATURES = {
                      + [_P]},
     "subcge_apply": {"subcge_apply_f32": [_P] * 5 + [_I] * 11 + [_L] * 2
                      + [_P],
-                     "subcge_apply_bf16": [_P] * 5 + [_I] * 11 + [_L] * 2
-                     + [_P]},
+                     "subcge_update_tc_f32": [_P] * 5 + [_I] * 14 + [_L] * 2
+                     + [_P],
+                     "subcge_update_tc_bf16": [_P] * 5 + [_I] * 14
+                     + [_L] * 2 + [_P]},
     "selective_scan": {"selective_scan_f32": [_P] * 6 + [_I] * 4 + [_P]},
     "selective_scan_bwd": {"selective_scan_bwd_f32": [_P] * 12 + [_I] * 10
                            + [_P]},

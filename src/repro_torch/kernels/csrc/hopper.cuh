@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the hand-written kernels: mbarriers,
-// TMA tensor loads, wgmma shared-memory descriptors and the bf16
-// m64n256k16 warpgroup product, and libcuda's cuTensorMapEncodeTiled
-// looked up through the runtime (so a library needs no -lcuda).  Raw PTX
-// in inline asm, as the kernels of this directory write it.
+// TMA tensor loads and stores (with an L2 eviction hint), wgmma
+// shared-memory descriptors, the bf16 m64n256k16 and the TF32 m64n64k8
+// warpgroup products, and libcuda's cuTensorMapEncodeTiled looked up
+// through the runtime (so a library needs no -lcuda).  Raw PTX in inline
+// asm, as the kernels of this directory write it.
 #pragma once
 
 #include <cuda.h>
@@ -66,6 +67,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// an L2 policy that evicts first what it covers: for data read or written
+// once (a stream), so that it does not push out what is read again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// tma_load_4d under the L2 policy ``policy``
+__device__ __forceinline__ void tma_load_4d_hint(void* dst,
+                                                 const CUtensorMap* map,
+                                                 int c0, int c1, int c2,
+                                                 int c3, uint64_t* bar,
+                                                 uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3, %4, %5}], [%6], %7;"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// this thread's cp.async copies so far arrive on ``bar`` when they land
+// (the barrier counts the arrival: its expected count includes it)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 // the same box, multicast: written at dst's offset into the shared memory
 // of every CTA of the cluster in ``mask``, completing on the mbarrier at
 // bar's offset in each
@@ -112,6 +143,19 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       " [%0, {%2, %3, %4, %5}], [%1];"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_store_4d under the L2 policy ``policy``
+__device__ __forceinline__ void tma_store_4d_hint(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3,
+                                                  uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4, %5}], [%1], %6;"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "l"(policy)
       : "memory");
 }
 
@@ -254,6 +298,49 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero),
+// as the bits of a float32 whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// keep the compiler from reusing the registers of an A fragment while an
+// asynchronous product may still read them
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
+// d (64 x 64 float32, the fragment of wgmma_m64n256k16 cut to 8 column
+// groups: d[4 j + 2 h + q] at row 16 warp + lane / 4 + 8 h, column 8 j +
+// 2 (lane % 4) + q) += A (64 x 8 TF32 from registers: a[i] at row 16 warp
+// + lane / 4 + 8 (i % 2), k lane % 4 + 4 (i / 2)) B (8 x 64 TF32, K-major
+// at descriptor b), summed in float32; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,
@@ -280,17 +367,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-d bf16 tensor at ``p`` as a map with 128-byte swizzled boxes of
-// box0 x box1 x 1 x 1 (box0 · 2 <= 128 bytes): dims innermost first, the
-// byte strides of dims 1..3 (multiples of 16; a dim of extent 1 takes the
-// stride of a packed tensor, so no stride is ever 0).  Out-of-bounds
-// elements load as zeros.
-inline bool map_bf16_4d(CUtensorMap* m, const void* p, const long long* dims,
-                        const long long* strides, int box0, int box1) {
+// A 4-d tensor at ``p`` of elements of ``esz`` bytes as a map with 128-byte
+// swizzled boxes of box0 x box1 x 1 x 1 (box0 · esz <= 128 bytes): dims
+// innermost first, the byte strides of dims 1..3 (multiples of 16; a dim
+// of extent 1 takes the stride of a packed tensor, so no stride is ever
+// 0).  Out-of-bounds elements load as zeros and are not stored.  False
+// where the tensor cannot be described (p off 16 bytes, a stride off 16).
+inline bool map_4d(CUtensorMap* m, CUtensorMapDataType type, int esz,
+                   const void* p, const long long* dims,
+                   const long long* strides, int box0, int box1) {
   const EncodeTiled f = encode_tiled();
-  if (f == nullptr) return false;
+  if (f == nullptr || reinterpret_cast<std::uintptr_t>(p) % 16 != 0)
+    return false;
   cuuint64_t gd[4], gs[3];
-  long long packed = dims[0] * 2;
+  long long packed = dims[0] * esz;
   for (int i = 0; i < 4; ++i) gd[i] = static_cast<cuuint64_t>(dims[i]);
   for (int i = 0; i < 3; ++i) {
     const long long st = dims[i + 1] == 1 ? packed : strides[i];
@@ -301,10 +391,17 @@ inline bool map_bf16_4d(CUtensorMap* m, const void* p, const long long* dims,
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box0),
                              static_cast<cuuint32_t>(box1), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), gd,
-           gs, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return f(m, type, 4, const_cast<void*>(p), gd, gs, box, unit,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// map_4d of a bf16 tensor
+inline bool map_bf16_4d(CUtensorMap* m, const void* p, const long long* dims,
+                        const long long* strides, int box0, int box1) {
+  return map_4d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, dims, strides,
+                box0, box1);
 }
 
 }  // namespace hopper

@@ -282,11 +282,20 @@ def _jax_seedflood(backend, ckpt_dir, **kw):
     return _JAX_RUNS[key]
 
 
+_PORT_RUNS: dict = {}
+
+
 def _port_seedflood(backend, **kw):
-    return run(DTrainConfig(arch=sim_arch(**ARCH), task=TaskConfig(**TASK),
-                            flood_backend=backend,
-                            churn=_sf_script(dynamic.ChurnSchedule),
-                            device="cpu", **SF_RUN, **kw))
+    """The port's seedflood churn run of ``backend`` (made once per module:
+    the plain python-engine run is both a parity run and the baseline the
+    epoch_replay=False run must differ from)."""
+    key = (backend, tuple(sorted(kw.items())))
+    if key not in _PORT_RUNS:
+        _PORT_RUNS[key] = run(DTrainConfig(
+            arch=sim_arch(**ARCH), task=TaskConfig(**TASK),
+            flood_backend=backend, churn=_sf_script(dynamic.ChurnSchedule),
+            device="cpu", **SF_RUN, **kw))
+    return _PORT_RUNS[key]
 
 
 @pytest.mark.parametrize("backend", ["python", "numpy"])

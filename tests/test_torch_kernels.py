@@ -79,23 +79,31 @@ def test_subcge_apply_epochs_plain_matches_jax(backend, E, live):
 
 
 @pytest.mark.parametrize("E,r", [(1, 48), (2, 64)])
-def test_rank_blocks_match_jax(E, r):
-    """Above the CUDA kernel's rank 32 its wrapper pads r with zeros and
-    cuts each epoch into (r/32)^2 rank-32 terms (``rank_blocks``): those
-    terms through the plain version give the JAX package's rank-r update
-    (its jnp oracle) on a small stacked leaf."""
-    from repro_torch.kernels import subcge_apply as sa
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tensor_core_formulation_matches_jax(E, r, dtype):
+    """The tensor-core kernel's arithmetic past rank 32 (``tc_update`` in
+    test_torch_update_plan.py: each epoch's r padded to ``stream_plan``'s
+    rp, A V^T = blockdiag(A_e) [V_1 ... V_E]^T, the delta in TF32 split in
+    three with float32 sums) gives the JAX package's rank-r update (its jnp
+    oracle) on a small stacked leaf: float32 within rtol / atol 1e-5, bf16
+    W within one bf16 ulp + 1e-5 of the JAX bf16 update."""
+    from test_torch_update_plan import tc_update
     rng = _rng(10 + r)
     W = _f32(rng, 2, 3, 16, 24)
     U, V = _f32(rng, E, 16, r), _f32(rng, E, 24, r)
     A = _f32(rng, E, 2, 3, r, r) / r
-    Ub, Ab, Vb = sa.rank_blocks(*(torch.from_numpy(a) for a in (U, A, V)))
-    q = -(-r // sa.MAX_RANK)
-    assert Ub.shape == (E * q * q, 16, sa.MAX_RANK)
-    assert Ab.shape == (E * q * q, 2, 3, sa.MAX_RANK, sa.MAX_RANK)
-    got = sa.subcge_apply_epochs_plain(torch.from_numpy(W), Ub, Ab, Vb)
-    want = np.asarray(jops.subcge_apply_epochs(W, U, A, V, backend="jnp"))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    Wt = torch.from_numpy(W).to(getattr(torch, dtype))
+    got = tc_update(Wt.reshape(6, 16, 24), torch.from_numpy(U),
+                    torch.from_numpy(A).reshape(E, 6, r, r),
+                    torch.from_numpy(V)).reshape(2, 3, 16, 24)
+    Wj = W if dtype == "float32" else Wt.float().numpy()
+    want = np.asarray(jops.subcge_apply_epochs(Wj, U, A, V, backend="jnp"))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    else:
+        w = torch.from_numpy(want).to(torch.bfloat16).float()
+        ulp = 2.0 ** (torch.floor(torch.log2(w.abs())) - 7)
+        assert ((got.float() - w).abs() <= ulp + ATOL).all()
 
 
 def test_non_cpu_tensors_never_reach_the_plain_version():

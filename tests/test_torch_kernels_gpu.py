@@ -230,9 +230,9 @@ def test_update_kernel_is_deterministic(cuda, E):
 @pytest.mark.parametrize("r", [33, 48, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_update_kernel_takes_any_rank(cuda, r, dtype):
-    """r past the kernel's 32: the wrappers cut the update into blocks of
-    rank 32 (``subcge_apply.rank_blocks``), one launch each; subcge_apply
-    and subcge_apply_epochs at E = 1 and 2 agree with the plain version
+    """r past the float32 stream's 32: the tensor-core kernel takes the
+    whole rank in one pass (k = E rp), one launch each; subcge_apply and
+    subcge_apply_epochs at E = 1 and 2 agree with the plain version
     (float32: rtol / atol 1e-5; bf16: one bf16 ulp + atol) and give the
     same bits on a second call."""
     from repro_torch.kernels import subcge_apply as sa
@@ -654,8 +654,9 @@ def test_rank1_bf16_kernels_match_plain(cuda, kind, M, K, N):
                                    (2, 300, 1000)],
                          ids=lambda a: str(a))
 def test_update_bf16_kernel_matches_plain(cuda, E, n, m):
-    """W bf16 in place on a strided view of stacked layers; m = 150 is not
-    a multiple of 4 (plain loads), 92 and 1000 take the 8-byte copies."""
+    """W bf16 in place on a strided view of stacked layers: the tensor-core
+    kernel; rows of m = 150 and 92 lie off 16 bytes (the flat path), m =
+    1000 takes the TMA ring."""
     Wst, W, U, A, V = _update_inputs(cuda, 40 + m, E, 3, 2, n, m, 16)
     Wst = (0.05 * Wst).bfloat16()
     W, other = Wst[:, 1], Wst[:, 0].cpu()
