@@ -39,7 +39,8 @@ no result line):
              E) are also held bitwise equal across two calls; the update kernel
              runs at every matrix leaf of all six paths and of one
              TinyLlama-1.1B and one Gemma 3 1B (the serving folds, client
-             axis 1, E = 2 summed and E = 1 printed), beside a
+             axis 1, E = 2 summed and E = 1 printed; TinyLlama's in bf16
+             too, the fold of phase 12 (e)), beside a
              ``copy_`` of the same W; the scan's backward
              (``selective_scan_bwd``) at the scan shapes of phase 9's
              first-order arms (4 and 3 clients x 8 sequences, T 33, D 8192,
@@ -118,9 +119,9 @@ no result line):
              ``subcge_apply_epochs``.  Then the first-order arms through
              Mamba layers: dsgd (4 clients) and choco (3: at 4 its
              surrogates and top-k temporaries overflow the card) on the
-             Falcon Mamba cut, on a ring, 3 steps, gossip every step; each
+             Falcon Mamba cut, on a ring, 2 steps, gossip every step; each
              must
-             launch ``selective_scan_bwd`` 4 layers x 3 steps = 12 times,
+             launch ``selective_scan_bwd`` 4 layers x 2 steps = 8 times,
              keep its losses finite and its peak under 80 GiB, and charge
              the JAX GossipTransport's formula.
 10. churn  — the paper's setting of phase 7 under churn: 64 clients on the
@@ -156,7 +157,18 @@ no result line):
              2) run twice must replay bitwise, with the JAX
              FloodTransport's ledger, and each server's final weights
              must equal, bitwise, the initial weights folded offline over
-             the messages of that server's own folds.
+             the messages of that server's own folds; (e) the same model in
+             bf16, as the JAX serve CLI serves it without ``--reduced``:
+             (a)'s script, the paged streams equal to the monolithic bf16
+             ones wherever a stream's smallest top-2 logit gap exceeds the
+             largest paged-vs-monolithic logit gap (printed; at most 4 bf16
+             ulps of the largest logit), the decode step against the cost
+             model's bound (``roofline.cost_model.step_cost``), temperature
+             0.8 twice identical, the live fold at E = 2 through
+             ``subcge_apply_epochs_bf16`` bitwise the offline fold (tokens
+             equal to the paged server given the offline weights at the
+             same boundary), and ``python -m repro_torch.launch.serve``
+             without ``--reduced`` (bf16).
 13. async  — the event engine through the same entry point
              (``DTrainConfig(trace=...)``) at OPT-125M's full width, τ = 2,
              4 steps each: (a) 16 clients on a ring, client 3 away for
@@ -185,7 +197,7 @@ no result line):
              GiB; (b) the window binds: 4 clients on a ring, B 2, 641
              tokens, 2 steps, the JAX ledger of a ring of 4, and on one
              model's weights the loss with the windows differs from the
-             loss without them; (c) serving past the window: 8 greedy
+             loss without them; (c) serving past the window: 4 greedy
              requests of 520-700 prompt tokens and 16 new through 8 slots
              over pages of 16 equal their monolithic streams (rings of 512
              in the local slots) token for token, and one of them a
@@ -267,7 +279,7 @@ no result line):
              layers, every width, 19.9 G parameters in ~37 GiB of bf16,
              one copy) through the pod SeedFlood step in fold mode, 8
              clients x 2 sequences of 1024 patch embeddings and 33 tokens,
-             3 steps and one profiled: every leaf bf16, finite losses,
+             2 steps and one profiled: every leaf bf16, finite losses,
              exactly the bf16 kernels' launches (676 ``rank1_matmul_bf16``
              and 10 ``subcge_apply_bf16`` a step), peak under 80 GiB,
              steady step and busy share printed, and one leaf's update
@@ -279,9 +291,15 @@ no result line):
              matrix leaves stay bitwise until the step-2 refresh and then
              take the plain fold, and every vector leaf takes its plain
              update bitwise at every step; (c) the Jamba cut in bf16
-             through the pod step (3 clients, 2 steps): finite losses and
+             through the pod step (3 clients, 1 step): finite losses and
              phase 17's per-forward launches on the bf16 experts and
-             products, the scan in float32.
+             products, the scan in float32; (d) 19 (a)'s trained weights
+             served in bf16 (``serve_cached``: 4 sequences of 1024 patch
+             embeddings and 32 tokens, 16 decode steps), the logits within
+             8 bf16 ulps of one no-cache forward's largest logit, at most
+             40 % past one, each token the forward's where its top-2 gap
+             exceeds the logits' gap, the decode step against the cost
+             model's bound.
 20. report — one JSON line ``{"kernels": [...]}`` (the bf16 paths as
              kernels of their own, ``*_bf16``), the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
@@ -301,6 +319,7 @@ It needs a CUDA device and the repository's ``src/`` next to it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -311,12 +330,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM's peaks at 700 W (float32 on the CUDA cores, dense bf16 on
+# the tensor cores, HBM3) live with the port's cost model, which bounds the
+# served steps too
+from repro_torch.roofline.cost_model import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES, Cost, bound_ms)
 RTOL = ATOL = 1e-5
-# published H100 SXM peaks at 700 W (NVIDIA data sheet): float32 on the
-# CUDA cores, dense bf16 on the tensor cores, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 # what the JAX package's FloodTransport charges a ring of 8
 # (tests/test_torch_slice.py pins the port's transport to the same values)
 LEDGER_RING8_3STEPS = (368, 2944)
@@ -342,8 +362,9 @@ CHOCO_EXCHANGE_BYTES = 324_493_568
 # clients on a ring.  Choco takes 3: with 4 (14.2 GiB a stacked copy) it
 # holds Setup's init, the trainable, x-hat and the mixed copy (72.8 GiB)
 # when its top-k over embed/tok asks for another 3.97 GiB, and the card
-# runs out (first call on the card, NVIDIA H100 80GB HBM3, 700.00 W)
-FO_MAMBA_ARMS, FO_MAMBA_STEPS = (("dsgd", 4), ("choco", 3)), 3
+# runs out (first call on the card, NVIDIA H100 80GB HBM3, 700.00 W); 2
+# steps each (3 until the bf16 serving arms needed the time)
+FO_MAMBA_ARMS, FO_MAMBA_STEPS = (("dsgd", 4), ("choco", 3)), 2
 # phase 10: the paper's setting under churn, 6 steps at tau = 2; what the
 # JAX FloodTransport charges its script (messages, bytes, sync_bytes,
 # n_syncs; tests/test_torch_churn.py derives it from the JAX transport)
@@ -364,6 +385,16 @@ SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 16, (16, 192)
 # tau = 1 (so E = 2), folded at the start of server step 3, rank 16
 SERVE_FOLD_CLIENTS, SERVE_FOLD_STEPS, SERVE_FOLD_E, SERVE_FOLD_AT = 8, 2, 2, 3
 SERVE_RANK, SERVE_SEED = 16, 0
+# (e) the same model served in bf16, as the JAX serve CLI serves it without
+# --reduced: phase 12's script, geometry and fold.  bf16 logits tie and part
+# by an ulp more often than float32 ones: the paged streams must equal the
+# monolithic ones wherever a stream's smallest top-2 logit gap exceeds the
+# largest paged-vs-monolithic logit gap, and that gap must stay within
+# BF16_LOGIT_ULPS bf16 ulps of the largest logit (the CPU tests' limit,
+# tests/test_torch_serve_bf16.py).  Then the CLI without --reduced
+BF16_LOGIT_ULPS = 4
+SERVE_CLI_ARGV = ["--batch", "4", "--requests", "4", "--prompt-len", "32",
+                  "--new", "8"]
 # the swarm: 2 trainers and 2 servers on a ring of 4, 4 train steps, server
 # 3 leaves at step 1 and rejoins at 2; what the JAX FloodTransport charges
 # that script (messages, bytes, sync_bytes, n_syncs;
@@ -398,12 +429,13 @@ GEMMA_ARCH = "gemma3-1b"
 LONG_CLIENTS, LONG_B, LONG_STEPS = 4, 2, 2
 LONG_TASK = dict(seq_len=640, n_valid=8, n_test=8)
 LEDGER_RING4_2STEPS = (56, 448)
-# (c) serving past the window: 8 greedy requests of 520-700 prompt tokens
+# (c) serving past the window: 4 greedy requests (8 until the bf16 serving
+# arms needed the time) of 520-700 prompt tokens
 # (every one past the 512-token window) and SERVE_NEW new, through 8 slots
 # over pages of 16; the monolithic reference decodes over rings of 768
 # (512 in the local slots)
 GEMMA_SERVE = dict(max_batch=8, page_size=16, max_seq=768, n_pages=384)
-GEMMA_REQUESTS, GEMMA_PROMPT = 8, (520, 700)
+GEMMA_REQUESTS, GEMMA_PROMPT = 4, (520, 700)
 # phase 15: the Qwen2-72B cut (archs.qwen2_cut: 1 of 80 layers, every width,
 # the untied 152,064 vocabulary), 4 clients on a ring, 3 steps
 QWEN2_CLIENTS = 4
@@ -422,6 +454,21 @@ DEEPSEEK_CLIENTS = 4
 # forward at 2e-4 and 3e-4, tests/test_models.py)
 DEEPSEEK_SERVE_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW = 8, 512, 16
 FORWARD_TOL = 3e-4
+# ... and in bf16 (phase 19 (d)), in bf16 ulps of the forward's largest
+# logit: at most BF16_FORWARD_ULPS every logit, at most BF16_FORWARD_PAST of
+# them past one, and every decode row's token the forward's wherever the
+# forward's top-2 gap exceeds the largest logit gap.  Set from the first
+# measurement (InternVL2-26B whole, 48 layers of bf16 activations; NVIDIA
+# H100 80GB HBM3, 700.00 W): the prefill bitwise, the 16 decode steps at
+# most 5.25 ulps and 26.8 % of the logits past one, the limits 1.5x that,
+# as test_bf16_lm_loss_matches_jax's are.  The cause, measured since
+# (``gemm_witness``, ``serve_cached(witness=True)``): a T = 1 step runs other
+# GEMM shapes than the forward, and cuBLAS's bf16 products of the same row
+# differ at them (layer 0: 0-0.8 % of outputs, up to 0.5 ulp); the hidden
+# state is bitwise at layer 0's input, 1 ulp off after it and grows layer
+# by layer to 7.5 ulps at the final norm, with no step between layers; a
+# second prompt seed reads 5.28 ulps and 26.3 %
+BF16_FORWARD_ULPS, BF16_FORWARD_PAST = 8, 0.4
 # capacity dispatch drops tokens by batch size and order, so at the
 # published 1.25 a prefill of 4096 tokens, a decode of 8 and a forward of
 # 4352 route differently and no comparison across them holds; 4.0 >= 20
@@ -476,18 +523,24 @@ INTERNVL_PROMPT, MUSICGEN_PROMPT = 32, 512
 # projector; 19.9 G parameters, ~37 GiB in bf16) at the PodConfig defaults
 # (bf16, fold mode, lr 1e-5, rank 32, tau 1000): POD_CLIENTS clients
 # sharing one model, each POD_B sequences of 1024 patch embeddings and
-# POD_TEXT tokens, BF16_STEPS steps and one profiled; the update check
+# POD_TEXT tokens, BF16_STEPS steps (3 until the bf16 serving arms needed
+# the time) and one profiled; the update check
 # reads the first BF16_CHECK_ROWS rows of layer 0 of BF16_CHECK_LEAF
-BF16_ARCH, BF16_STEPS = "internvl2-26b", 3
+BF16_ARCH, BF16_STEPS = "internvl2-26b", 2
 BF16_CHECK_LEAF, BF16_CHECK_ROWS = "g0/s0/w2", 256
+# (d) then the same weights serve BF16_SERVE_B greedy sequences of 1024
+# patches and INTERNVL_PROMPT tokens, FRONTEND_NEW decode steps, against one
+# no-cache forward (the bf16 limits BF16_FORWARD_ULPS / _PAST)
+BF16_SERVE_B = 4
 # (b) buffer mode against fold mode on Qwen1.5-0.5B whole (tied logits: the
 # transposed path), 8 clients x 2 sequences of 33 tokens, tau 2 (a fold at
 # step 2), 3 steps, in float32 and in bf16
 BUFFER_ARCH, BUFFER_TAU, BUFFER_STEPS, BUFFER_B = "qwen1.5-0.5b", 2, 3, 2
 # (c) the Jamba cut in bf16 through the pod step: JAMBA_CLIENTS clients
-# sharing one model, 8 sequences of 33 tokens each, 2 steps (the expert
-# capacity then is phase 2's, 330 rows)
-JAMBA_POD_STEPS = 2
+# sharing one model, 8 sequences of 33 tokens each (the expert capacity
+# then is phase 2's, 330 rows), 1 step (2 until the bf16 serving arms
+# needed the time)
+JAMBA_POD_STEPS = 1
 SOURCES = {
     "rank1_matmul": ("src/repro_torch/kernels/csrc/rank1_matmul.cu",
                      "src/repro/kernels/rank1_matmul.py:63"),
@@ -514,9 +567,10 @@ SOURCES.update({name + "_bf16": SOURCES[name] for name in (
 # past the float32 stream's 32: phase 2 holds the tensor-core kernel to the
 # plain rank-64 update
 RANK_SWEEP = 64
-# phase 8: steps of each small-input run (3 until the frontend phase needed
-# the time)
-SMALL_STEPS = 2
+# phase 8: steps of each small-input run (3 until the frontend phase, 2
+# until the bf16 serving arms needed the time: one step runs the dual
+# forward, the update, the flood or gossip and the replay on both devices)
+SMALL_STEPS = 1
 # batch of the final accuracy pass (``data.synthetic.accuracy``)
 EVAL_BATCH = 128
 # the slices' runs: clients on a ring and sequences per client (32 tokens and
@@ -556,8 +610,10 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
-    t_b, t_f = nbytes / PEAK_HBM_BYTES * 1e3, flops / peak * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    """The least ms the card takes to move ``nbytes`` and do ``flops`` at
+    ``peak``, and which of the two sets it."""
+    by = "bytes" if nbytes / PEAK_HBM_BYTES >= flops / peak else "operations"
+    return bound_ms(Cost(flops=flops, bytes=nbytes), peak), by
 
 
 def speed(ms, plain_ms, library_ms, b_ms, b_by) -> str:
@@ -1456,12 +1512,13 @@ def phase_kernels_baselines(opt, C: int, M: int) -> dict:
     return entries
 
 
-def phase_kernels_serve(arch, tag: str = "serve") -> dict:
+def phase_kernels_serve(arch, tag: str = "serve", bf16: bool = False) -> dict:
     """The update kernel at the serving fold's shapes: every matrix leaf of
     ONE model (client axis 1; TinyLlama-1.1B for phase 12, Gemma 3 1B for
-    phase 14), as ``LiveUpdateBridge.fold`` launches it once per leaf.
-    E = 2 (the folds of phases 12 and 14: two τ-epochs) is the main
-    path's and is summed; E = 1 is checked and printed."""
+    phase 14), as ``LiveUpdateBridge.fold`` launches it once per leaf, on
+    float32 or (``bf16``: phase 12 (e)) bf16 W.  E = 2 (the folds of
+    phases 12 and 14: two τ-epochs) is the main path's and is summed; E =
+    1 is checked and printed."""
     import torch
 
     dev = torch.device("cuda")
@@ -1470,11 +1527,12 @@ def phase_kernels_serve(arch, tag: str = "serve") -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    entries = {"subcge_apply_epochs": Entry("subcge_apply_epochs")}
-    one = Entry("subcge_apply_epochs")
+    name = "subcge_apply_epochs" + "_bf16" * bf16
+    entries = {name: Entry(name)}
+    one = Entry(name)
     leaves = update_leaves(arch, 1)
     check_update(one, leaves, 1, randn)
-    check_update(entries["subcge_apply_epochs"], leaves, SERVE_FOLD_E, randn)
+    check_update(entries[name], leaves, SERVE_FOLD_E, randn)
     log(f"[2] {tag} E=1 (not summed) {one.line()}")
     return entries
 
@@ -1529,24 +1587,51 @@ def phase_kernels_dense(arch, C: int, M: int, seed: int, tag: str,
     return entries
 
 
-def phase_prng(n: int = 1 << 20) -> None:
-    """prng.normal and prng.gumbel (the serving path's temperature
-    sampling) on the card, bitwise the CPU's (which is bitwise
-    ``jax.random.normal`` / ``gumbel`` on the CPU,
-    tests/test_torch_{prng,serve}.py)."""
+def phase_prng(n: int = 1 << 20, rows: int = 64) -> None:
+    """prng.normal and prng.gumbel in float32 and bf16, and the server's
+    temperature sampling (``serve.server.sample`` at 0.8 on ``rows`` rows
+    of TinyLlama's vocabulary, float32 and bf16 logits) on the card,
+    bitwise the CPU's (which is bitwise ``jax.random`` on the CPU,
+    tests/test_torch_{prng,serve,serve_bf16}.py).  Also printed: how many
+    of those rows a division by the temperature as a host scalar changes
+    on the card (CUDA multiplies by its reciprocal)."""
+    import numpy as np
     import torch
     from repro_torch.core import prng
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.server import sample
     keys = prng.PRNGKey(torch.arange(16) * 65536 + 7)
-    for name in ("normal", "gumbel"):
+    for name, dt in (("normal", torch.float32), ("gumbel", torch.float32),
+                     ("gumbel", torch.bfloat16)):
         fn = getattr(prng, name)
-        want = fn(keys, (n // 16,))
-        got = fn(keys.cuda(), (n // 16,)).cpu()
-        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        log(f"  prng.{name} card vs CPU on {n} draws: {bad} differ (must be "
-            "0)")
+        want = fn(keys, (n // 16,), dtype=dt)
+        got = fn(keys.cuda(), (n // 16,), dtype=dt).cpu()
+        bad = int((bits(got) != bits(want)).sum())
+        log(f"  prng.{name} {dt} card vs CPU on {n} draws: {bad} differ "
+            "(must be 0)")
         if bad:
-            raise AssertionError(f"prng.{name}: {bad} of {n} draws differ "
-                                 "between the card and the CPU")
+            raise AssertionError(f"prng.{name} {dt}: {bad} of {n} draws "
+                                 "differ between the card and the CPU")
+    serve = ServeConfig(**SERVE_GEOMETRY, sampling="temperature",
+                        temperature=0.8)
+    rng = np.random.default_rng(SERVE_SEED)
+    logits = torch.as_tensor(3 * rng.standard_normal((rows, 32000)),
+                             dtype=torch.float32)
+    rids, pos = list(range(rows)), [40 + r % 7 for r in range(rows)]
+    for dt in (torch.float32, torch.bfloat16):
+        x = logits.to(dt)
+        want, got = sample(x, serve, rids, pos), sample(x.cuda(), serve,
+                                                       rids, pos)
+        temp = prng.rounded(serve.temperature, dt)
+        host = int((bits((x.cuda() / temp).cpu()) != bits(
+            x / torch.tensor(temp, dtype=dt))).any(-1).sum())
+        bad = sum(a != b for a, b in zip(got, want))
+        log(f"  serve.server.sample {dt} at temperature 0.8, card vs CPU on "
+            f"{rows} rows: {bad} tokens differ (must be 0); a host scalar's "
+            f"division would change {host} of the rows on the card")
+        if bad:
+            raise AssertionError(f"sample {dt}: {bad} of {rows} tokens "
+                                 "differ between the card and the CPU")
 
 
 def phase_profile(arch, C: int, B: int, device: str, steps: int = 3,
@@ -2353,18 +2438,23 @@ def own_weights_differ(arch, scfg, seed: int, servers, folds) -> dict:
 
 
 def serve_fold(arch, base, prompts, geometry: dict, capacity: int, greedy,
-               card: str, tag: str) -> tuple:
+               card: str, tag: str, dtype=None) -> tuple:
     """A live-update fold at a step boundary against the offline fold: the
     messages of SERVE_FOLD_CLIENTS trainer clients over SERVE_FOLD_STEPS
     steps at tau = 1 (so E = 2) folded through a ``LiveUpdateBridge`` at
     the start of server step SERVE_FOLD_AT while ``prompts`` decode (rid =
-    index) over ``geometry``.  The folded weights must be bitwise the
-    offline fold's, the streams the monolithic ones (rings of ``capacity``)
-    under the same fold, token for token, and the fold one E = 2
-    ``subcge_apply_epochs`` launch per matrix leaf.  ``greedy``: the
-    unfolded streams (the tokens the fold moved are counted).  Every
-    request takes a slot at step 1, so the fold lands at the same decode
-    step of each.  Returns the serve run's launches and the numbers."""
+    index) over ``geometry``, weights and pool in ``dtype`` (float32 by
+    default).  The folded weights must be bitwise the offline fold's, the
+    streams token for token the monolithic streams of the same fold
+    offline (rings of ``capacity``): in float32 every stream, in bf16
+    (where paged and monolithic logits part by an ulp) every stream whose
+    smallest top-2 gap exceeds the largest paged-vs-monolithic logit gap,
+    itself within BF16_LOGIT_ULPS; and the fold one E = 2
+    ``subcge_apply_epochs`` launch per matrix leaf (``_bf16`` in bf16).
+    ``greedy``: the unfolded streams (the tokens the fold moved are
+    counted).  Every request takes a slot at step 1, so the fold lands at
+    the same decode step of each.  Returns the serve run's launches and
+    the numbers."""
     import numpy as np
     import torch
     from repro_torch.core.seeds import client_seeds
@@ -2399,9 +2489,13 @@ def serve_fold(arch, base, prompts, geometry: dict, capacity: int, greedy,
     def ingest(srv):
         if srv.n_steps == SERVE_FOLD_AT - 1:
             bridge.ingest_arrays(*msgs)
+    dtype = dtype or torch.float32
+    serve = ServeConfig(**geometry, param_dtype=dtype)
+    kernel = "subcge_apply_epochs" + "_bf16" * (dtype == torch.bfloat16)
+    rows = {} if dtype == torch.bfloat16 else None
     build.reset_launches()
-    live, lst, _ = serve_run(arch, own, prompts, ServeConfig(**geometry),
-                             bridge=bridge, before_step=ingest)
+    live, lst, _ = serve_run(arch, own, prompts, serve, bridge=bridge,
+                             before_step=ingest, rows=rows)
     fold_launches = dict(build.LAUNCHES)
     epochs = dict(build.EPOCH_LAUNCHES)
     folded = {k: t.clone() for k, t in base.items()}
@@ -2409,31 +2503,45 @@ def serve_fold(arch, base, prompts, geometry: dict, capacity: int, greedy,
     offline.ingest_arrays(*msgs)
     offline.fold(folded)
     differ = [k for k, t in folded.items()
-              if not torch.equal(own[k].view(torch.int32),
-                                 t.view(torch.int32))]
+              if not torch.equal(bits(own[k]), bits(t))]
     del own
-    ref_c = {rid: monolithic_stream(arch, base, p, SERVE_NEW,
-                                    {SERVE_FOLD_AT: folded}, capacity)[0]
-             for rid, p in enumerate(prompts)}
+    ref_c, margins, mono = {}, {}, {}
+    for rid, p in enumerate(prompts):
+        ref_c[rid], margins[rid], m = monolithic_stream(
+            arch, base, p, SERVE_NEW, {SERVE_FOLD_AT: folded}, capacity)
+        mono[rid] = m.cpu()
     del folded
-    bad = [rid for rid in ref_c if live[rid] != ref_c[rid]]
+    sure, gap = list(ref_c), None
+    if rows is not None:
+        gap, amax = logit_gap(prompts, live, ref_c, rows, mono)
+        sure = [rid for rid in ref_c if margins[rid] > gap]
+        if gap > BF16_LOGIT_ULPS * ulp_bf16(amax):
+            raise AssertionError(f"{tag}: the live fold's logits part from "
+                                 f"the monolithic ones by {gap}")
+    del rows, mono
+    bad = [rid for rid in sure if live[rid] != ref_c[rid]]
     moved = sum(a != b for rid in live for a, b in zip(live[rid],
                                                        greedy[rid]))
     n_matrix = sum(m.is_matrix for m in subcge_meta(tf.arch_spec(arch)).values())
     out = {"fold_ms": fold_ms, "launches": fold_launches,
            "epoch_launches": epochs, "differ": bad, "leaves_differ": differ,
-           "moved_vs_greedy": moved, "stats": lst}
+           "moved_vs_greedy": moved, "stats": lst, "logit_gap": gap,
+           "checked": len(sure)}
+    rule = "" if gap is None else (
+        f" ({len(sure)} of {len(ref_c)} streams checked: their smallest "
+        f"top-2 gap exceeds the largest live-vs-monolithic logit gap "
+        f"{gap:.4e})")
     log(f"[{tag}] live update: {SERVE_FOLD_CLIENTS} clients x "
         f"{SERVE_FOLD_STEPS} steps at tau 1 folded at step {SERVE_FOLD_AT} "
         f"in {fold_ms} ms; launches {fold_launches}, epoch launches by E "
         f"{epochs} ({n_matrix} matrix leaves); live vs offline fold: "
-        f"{len(bad)} streams and {len(differ)} leaves differ (must be 0); "
-        f"{moved} tokens moved from the unfolded greedy streams ({card})")
+        f"{len(bad)} streams{rule} and {len(differ)} leaves differ (must be "
+        f"0); {moved} tokens moved from the unfolded greedy streams ({card})")
     if bad or differ:
         raise AssertionError(f"{tag}: decoding under a live fold differs from "
                              f"the offline fold (streams {bad}, leaves "
                              f"{differ})")
-    if fold_launches.get("subcge_apply_epochs") != n_matrix \
+    if fold_launches.get(kernel) != n_matrix \
             or epochs != {SERVE_FOLD_E: n_matrix} or len(fold_ms) != 1:
         raise AssertionError(f"{tag}: the fold launched {fold_launches} "
                              f"({epochs}), not one E={SERVE_FOLD_E} update "
@@ -2643,6 +2751,142 @@ def phase_serve(arch, card: str, profile: bool):
     return dict(launches), out
 
 
+def ulp_bf16(x: float) -> float:
+    """One bf16 ulp at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def logit_gap(prompts, got: dict, ref: dict, rows: dict,
+              mono: dict) -> tuple:
+    """The largest gap between the paged server's logits ``rows`` (keyed by
+    (rid, position)) and the monolithic ones ``mono`` (rid: (new, vocab)),
+    over each stream's rows of one context (up to the first token where
+    the streams ``got`` and ``ref`` part), and the largest monolithic
+    logit there."""
+    gap = amax = 0.0
+    for rid, p in enumerate(prompts):
+        m = mono[rid].float()
+        part = next((i for i, (a, b) in enumerate(zip(got[rid], ref[rid]))
+                     if a != b), len(ref[rid]) - 1)
+        for i in range(part + 1):
+            gap = max(gap, float((rows[(rid, len(p) + i)].float()
+                                  - m[i]).abs().max()))
+            amax = max(amax, float(m[i].abs().max()))
+    return gap, amax
+
+
+def phase_serve_bf16(arch, card: str) -> tuple:
+    """Phase 12 (e): the serving path at TinyLlama-1.1B's full width in
+    bf16 (weights, KV pool, logits and sampling), as the JAX serve CLI
+    serves it without ``--reduced``: (a)'s script against the monolithic
+    bf16 streams under the margin rule (BF16_LOGIT_ULPS), the decode step
+    against the cost model's bound, (b) temperature 0.8 twice, (c) the
+    live fold at E = 2 on the bf16 kernel path, and the CLI without
+    ``--reduced``.  Returns the launches (the fold's) and the numbers."""
+    import io
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline.cost_model import step_cost
+    from repro_torch.serve import ServeConfig
+
+    bf16, out = torch.bfloat16, {}
+    serve = ServeConfig(**SERVE_GEOMETRY, param_dtype=bf16)
+    prompts = serve_prompts(arch.vocab)
+    base = tf.init_params(arch, SERVE_SEED, "cuda", bf16)
+    gib = sum(t.numel() * t.element_size() for t in base.values()) / 2**30
+
+    # greedy: paged continuous batching against the monolithic streams
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_rows = {}
+    res, st, nums = serve_run(arch, base, prompts, serve, rows=paged_rows)
+    nums["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ref, margins, mono = {}, {}, {}
+    for rid, p in enumerate(prompts):
+        ref[rid], margins[rid], m = monolithic_stream(arch, base, p,
+                                                      SERVE_NEW)
+        mono[rid] = m.cpu()
+    gap, amax = logit_gap(prompts, res, ref, paged_rows, mono)
+    del paged_rows, mono
+    ulp = ulp_bf16(amax)
+    sure = [rid for rid in ref if margins[rid] > gap]
+    bad = [rid for rid in sure if res[rid] != ref[rid]]
+    differ = [rid for rid in ref if res[rid] != ref[rid]]
+    cost = step_cost(arch, InputShape("serve", SERVE_GEOMETRY["max_seq"],
+                                      SERVE_GEOMETRY["max_batch"], "decode"),
+                     "decode", db=2)
+    b_ms = bound_ms(cost, PEAK_BF16_FLOPS)
+    out["greedy"] = {**nums, "stats": st, "param_gib": gib,
+                     "logit_gap": gap, "logit_gap_ulps": gap / ulp,
+                     "max_logit": amax, "margins": margins,
+                     "checked": len(sure), "differ": differ, "bad": bad,
+                     "decode_bound_ms": b_ms, "decode_cost": (cost.flops,
+                                                              cost.bytes)}
+    log(f"[12e] bf16 greedy: {arch.name} in bf16 ({gib:.2f} GiB of "
+        f"weights), {st['steps']} steps, {st['prefills']} prefills, "
+        f"{st['decodes']} decodes, {st['emitted']} tokens in "
+        f"{nums['wall_s']:.2f} s = {nums['tok_s']:.1f} tok/s; steady decode "
+        f"step median {nums['steady_step_ms']:.2f} ms (spread "
+        f"{nums['steady_spread_ms']}, {nums['n_steady']} steps; cost-model "
+        f"bound {b_ms:.4f} ms at B {SERVE_GEOMETRY['max_batch']}, context "
+        f"{SERVE_GEOMETRY['max_seq']}: {cost.bytes:.4e} B, {cost.flops:.4e} "
+        f"FLOP; {b_ms / nums['steady_step_ms']:.1%} reached); prefills "
+        f"{nums['prefill_ms']} ms; peak {nums['peak_gib']:.2f} GiB; paged vs "
+        f"monolithic logits: largest gap {gap:.4e} = {gap / ulp:.2f} bf16 "
+        f"ulps of the largest logit {amax:.4f} (limit {BF16_LOGIT_ULPS}); "
+        f"{len(sure)} of {len(ref)} streams' smallest top-2 gap exceeds it "
+        f"({len(ref) - len(sure)} left out), {len(bad)} of those differ "
+        f"(must be 0); {len(differ)} of {len(ref)} differ in all ({card})")
+    if bad or gap > BF16_LOGIT_ULPS * ulp:
+        raise AssertionError(f"serve bf16: paged streams {bad} differ from "
+                             f"their monolithic streams, or the logits part "
+                             f"by {gap / ulp:.2f} ulps")
+    if st["evicted"] != SERVE_REQUESTS or not nums["peak_gib"] < 80:
+        raise AssertionError(f"serve bf16: {st}, peak {nums['peak_gib']}")
+
+    # temperature sampling (bf16 Gumbels), twice
+    temp = ServeConfig(**SERVE_GEOMETRY, param_dtype=bf16,
+                       sampling="temperature", temperature=0.8)
+    ta, _, tnums = serve_run(arch, base, prompts, temp)
+    tb = serve_run(arch, base, prompts, temp)[0]
+    moved = sum(a != b for rid in ta for a, b in zip(ta[rid], res[rid]))
+    out["temperature"] = {**tnums, "replays": ta == tb,
+                          "moved_vs_greedy": moved}
+    log(f"[12e] bf16 temperature 0.8: two runs identical {ta == tb}; "
+        f"{tnums['tok_s']:.1f} tok/s, steady step median "
+        f"{tnums['steady_step_ms']:.2f} ms; {moved} tokens differ from "
+        f"greedy ({card})")
+    if ta != tb or not all(0 <= t < arch.vocab for v in ta.values()
+                           for t in v):
+        raise AssertionError("serve bf16: temperature sampling does not "
+                             "replay")
+
+    # the live fold on bf16 weights
+    n_fold = SERVE_GEOMETRY["max_batch"]
+    launches, out["live_update"] = serve_fold(
+        arch, base, prompts[:n_fold], SERVE_GEOMETRY,
+        SERVE_GEOMETRY["max_seq"], res, card, "12e", dtype=bf16)
+    del base
+    torch.cuda.empty_cache()
+
+    # the CLI without --reduced: bf16, as the JAX CLI
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(SERVE_CLI_ARGV)
+    cli_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    out["cli"] = {"rc": rc, "s": cli_s, "first_line": lines[0]}
+    log(f"[12e] CLI {' '.join(SERVE_CLI_ARGV)} in {cli_s:.1f} s: rc {rc}; "
+        f"{lines[0]} ({card})")
+    if rc != 0 or "bfloat16 weights" not in lines[0] or len(lines) != 5:
+        raise AssertionError(f"serve bf16: the CLI printed {lines}")
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def window_binds(arch, task, card: str) -> dict:
     """Phase 14 (b)'s last check: on one model's weights (seed 0) and the
     first validation rows of ``task``, the loss with ``arch``'s windows
@@ -2796,10 +3040,40 @@ def phase_qwen2(qwen2, card: str) -> tuple:
     return launches, out
 
 
+@contextlib.contextmanager
+def layer_inputs(into):
+    """Within the block, record each layer's input (``transformer.forward``
+    passes it to the mixer's norm, "ln_attn") and the final norm's, at the
+    last position, into the list ``into`` (nothing when it is None)."""
+    from repro_torch.models import transformer as tf
+    norm = tf.L.norm
+
+    def recording(b, key, x, kind):
+        if key in ("ln_attn", "ln_f"):
+            into.append(x[0, :, -1].float().cpu())
+        return norm(b, key, x, kind)
+    if into is not None:
+        tf.L.norm = recording
+    try:
+        yield
+    finally:
+        tf.L.norm = norm
+
+
+def hidden_gap(got, want) -> tuple:
+    """(max |got - want| in bf16 ulps of want's largest magnitude, the share
+    of elements not bitwise equal)."""
+    gap = (got - want).abs()
+    return (float(gap.max()) / ulp_bf16(float(want.abs().max())),
+            float((gap > 0).float().mean()))
+
+
 def serve_cached(arch, card: str, tag: str, B: int, P: int,
-                 new: int) -> tuple:
-    """One model of ``arch`` (random float32 weights from SERVE_SEED) serves
-    B greedy sequences through the monolithic steps: a P-token prefill
+                 new: int, params=None, seed: int = SERVE_SEED,
+                 witness: bool = False) -> tuple:
+    """One model of ``arch`` (random float32 weights from SERVE_SEED, or
+    ``params``, one model's flat tree: phase 19 (d) serves the bf16 pod's)
+    serves B greedy sequences through the monolithic steps: a P-token prefill
     through ``build_prefill_step`` into a cache of P + new positions (an
     MLA slot's is the compressed ring, a Mamba slot's its (h, conv)
     state), ``new`` decode steps through ``build_decode_step``, then one
@@ -2812,29 +3086,46 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
     B x n_embeds stubbed embeddings (standard normal, from SERVE_SEED)
     ahead of the prompt: the cache then holds n_embeds + P + new
     positions, decoding starts at n_embeds + P, and the forward takes the
-    same embeddings.  The decode step's bound: every weight read once (of
-    the token embedding only B rows; not the projector, which a decode
-    step does not read), the cache read and written.  Returns the
-    launches and the numbers."""
+    same embeddings (in the weights' type).  In bf16 the logits must lie
+    within BF16_FORWARD_ULPS bf16 ulps of the forward's largest logit, at
+    most BF16_FORWARD_PAST of them past one, each row's token the
+    forward's where its top-2 gap exceeds that.  ``seed`` draws the prompts
+    and embeddings; with ``witness``, the last decode step's and the
+    forward's hidden state at that position are compared layer by layer
+    (each layer's input, and the final norm's).  The decode step's bound
+    is the larger of the cost model's (``step_cost``: decode at B against
+    the cache's capacity, in the weights' type), which counts an MoE
+    layer's weights for one expert and the KV cache once for all B
+    sequences, and the step's bytes counted by hand (every weight read
+    once, every expert's included, of the token embedding only B rows and
+    not the projector, which a decode step does not read; a KV or MLA ring
+    read once and one position of it written; a Mamba slot's (h, conv)
+    read and written).  Returns the launches and the numbers."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch import steps as steplib
+    from repro_torch.configs.base import InputShape
     from repro_torch.models import params as plib
     from repro_torch.models import transformer as tf
+    from repro_torch.roofline.cost_model import step_cost
 
     fe = arch.frontend
     n_e = fe.n_embeds if fe is not None else 0
     cap = n_e + P + new
     spec = tf.arch_spec(arch)
-    view = {k: t[None] for k, t in tf.init_params(arch, SERVE_SEED,
-                                                  "cuda").items()}
-    rng = np.random.default_rng(SERVE_SEED)
+    if params is None:
+        params = tf.init_params(arch, SERVE_SEED, "cuda")
+    view = {k: t[None] for k, t in params.items()}
+    del params
+    dt = view["embed/tok"].dtype
+    esz = view["embed/tok"].element_size()
+    rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(0, arch.vocab, (B, P)),
                               device="cuda")
     embeds = None if fe is None else torch.as_tensor(
         rng.standard_normal((B, n_e, fe.embed_dim)), dtype=torch.float32,
-        device="cuda")
+        device="cuda").to(dt)
     prefill = steplib.build_prefill_step(arch, B, cap)
     decode = steplib.build_decode_step(arch)
     torch.cuda.synchronize()
@@ -2845,13 +3136,15 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
         last, cache = prefill(view, prompts, embeds)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
-        rows, fed, step_ms = [last], [], []
+        rows, fed, step_ms, hidden = [last], [], [], ([], [])
         for i in range(new):
             fed.append(rows[-1].argmax(-1)[:, None])
-            t0 = time.perf_counter()
-            lg, cache = decode(view, cache, fed[-1], n_e + P + i)
-            torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t0))
+            with layer_inputs(hidden[0] if witness and i == new - 1
+                              else None):
+                t0 = time.perf_counter()
+                lg, cache = decode(view, cache, fed[-1], n_e + P + i)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
             rows.append(lg)
         peak = torch.cuda.max_memory_allocated() / 2**30
         for key, c in cache.items():
@@ -2863,33 +3156,65 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
         cache_bytes = sum(t.numel() * t.element_size()
                           for c in cache.values() for k, t in c.items()
                           if k != "kpos")
+        state_bytes = sum(t.numel() * t.element_size()
+                          for c in cache.values() for k, t in c.items()
+                          if k in ("h", "conv"))
         del cache
-        full = tf.forward(arch, view, torch.cat([prompts] + fed, 1)[None],
-                          embeds=None if fe is None else embeds[None])[0]
+        with layer_inputs(hidden[1] if witness else None):
+            full = tf.forward(arch, view, torch.cat([prompts] + fed, 1)[None],
+                              embeds=None if fe is None else embeds[None])[0]
         ref = full[0, :, n_e + P - 1:].transpose(0, 1)    # (new + 1, B, V)
         del full
     launches = dict(build.LAUNCHES)
-    got = torch.stack(rows)
+    got, ref = torch.stack(rows).float(), ref.float()
     diff = (got - ref).abs()
-    ok = bool(torch.all(diff <= FORWARD_TOL * (1 + ref.abs())).item())
+    if dt == torch.bfloat16:
+        ulp = ulp_bf16(float(ref.abs().max()))
+        past = float((diff > ulp).float().mean())
+        top2 = torch.topk(ref, 2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > float(diff.max())
+        tokens = got.argmax(-1) == ref.argmax(-1)
+        ok = float(diff.max()) <= BF16_FORWARD_ULPS * ulp \
+            and past <= BF16_FORWARD_PAST and bool(tokens[sure].all())
+        tol = (f"{float(diff.max()) / ulp:.2f} bf16 ulps of the largest "
+               f"logit, {past:.2%} of the logits past one (limits "
+               f"{BF16_FORWARD_ULPS}, {BF16_FORWARD_PAST:.0%}); the "
+               f"forward's token at {int(tokens[sure].sum())} of "
+               f"{int(sure.sum())} rows whose top-2 gap exceeds that, "
+               f"{int(tokens.sum())} of {tokens.numel()} in all")
+        del top2, sure, tokens
+    else:
+        ok = bool(torch.all(diff <= FORWARD_TOL * (1 + ref.abs())).item())
+        tol = f"tol rtol / atol {FORWARD_TOL}"
     gaps = [float(d.max()) for d in diff]
     finite = bool(torch.isfinite(got).all())
+    n_params = plib.n_params(spec)
     del got, ref, diff, rows, view
     torch.cuda.empty_cache()
+    layers = [hidden_gap(a, b) for a, b in zip(*hidden)]
     slots = [(g.reps, s) for g in arch.groups for s in g.slots]
     expanded = sum(reps * B * cap * s.attn.n_heads
                    * (s.attn.head_dim + s.attn.rope_head_dim
                       + (s.attn.v_head_dim or s.attn.head_dim)) * 4
                    for reps, s in slots if s.attn and s.attn.is_mla)
     scans = sum(reps for reps, s in slots if s.mixer == "mamba")
-    weight_bytes = 4 * (plib.n_params(spec) - (arch.vocab - B) * arch.d_model
-                        - (fe.embed_dim * arch.d_model if fe else 0))
-    bound_ms = (weight_bytes + 2 * cache_bytes) / PEAK_HBM_BYTES * 1e3
+    cost = step_cost(arch, InputShape("serve", cap, B, "decode"), "decode",
+                     db=esz)
+    model_ms = bound_ms(cost, PEAK_BF16_FLOPS if esz == 2 else PEAK_F32_FLOPS)
+    ring_bytes = cache_bytes - state_bytes
+    hand_bytes = esz * (n_params - (arch.vocab - B) * arch.d_model
+                        - (fe.embed_dim * arch.d_model if fe else 0)) \
+        + ring_bytes + ring_bytes // cap + 2 * state_bytes
+    hand_ms = hand_bytes / PEAK_HBM_BYTES * 1e3
+    b_ms = max(model_ms, hand_ms)
     steady = sorted(step_ms[1:])
     out = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
            "steady_median_ms": steady[len(steady) // 2],
            "steady_spread_ms": (steady[0], steady[-1]),
-           "decode_bound_ms": bound_ms,
+           "decode_bound_ms": b_ms, "decode_cost": (cost.flops, cost.bytes),
+           "cost_model_ms": model_ms, "hand_bytes": hand_bytes,
+           "hand_ms": hand_ms, "seed": seed, "layer_gaps": layers,
+           "dtype": str(dt),
            "tok_s": B * new / (sum(step_ms) / 1e3),
            "tok_s_with_prefill": B * (new + 1)
            / ((prefill_ms + sum(step_ms)) / 1e3),
@@ -2900,20 +3225,27 @@ def serve_cached(arch, card: str, tag: str, B: int, P: int,
     kv = (f" against {expanded} B of expanded K/V "
           f"({expanded / cache_bytes:.1f}x)") if expanded else ""
     front = f"{n_e} embeddings and a " if fe else "a "
-    log(f"[{tag}] serving {arch.name} ({plib.n_params(spec)} params"
+    if layers:
+        log(f"[{tag}] witness: the last decode step's hidden state against "
+            f"the forward's at position {cap - 1}, layer by layer (max gap "
+            f"in bf16 ulps of the layer's largest value, share of elements "
+            f"not bitwise): {[(round(u, 2), round(f, 4)) for u, f in layers]}")
+    log(f"[{tag}] serving {arch.name} ({n_params} params"
         f"{f', capacity factor {caps}' if caps else ''}): {B} sequences, "
         f"{front}{P}-token prefill in {prefill_ms:.1f} ms into a cache of "
         f"{cap}, "
         f"{new} decode steps: median {out['steady_median_ms']:.2f} ms "
         f"(spread {out['steady_spread_ms'][0]:.2f}-"
         f"{out['steady_spread_ms'][1]:.2f}, first {step_ms[0]:.2f}; bound "
-        f"{bound_ms:.2f} ms, {bound_ms / out['steady_median_ms']:.1%} "
-        f"reached); {out['tok_s']:.1f} tok/s decoding, "
+        f"{b_ms:.4f} ms, the larger of the cost model's {model_ms:.4f} and "
+        f"{hand_bytes} B counted by hand, {hand_ms:.4f}; "
+        f"{b_ms / out['steady_median_ms']:.1%} reached); seed {seed}; "
+        f"{out['tok_s']:.1f} tok/s decoding, "
         f"{out['tok_s_with_prefill']:.1f} with the prefill; peak "
         f"{peak:.2f} GiB; cache {cache_bytes} B{kv}; against a no-cache "
         f"forward over {cap} tokens: prefill max |gap| {gaps[0]:.3e}, "
-        f"decode max |gap| {out['max_decode_gap']:.3e} (tol rtol / atol "
-        f"{FORWARD_TOL}); launches {launches} ({card})")
+        f"decode max |gap| {out['max_decode_gap']:.3e} ({tol}); {dt}; "
+        f"launches {launches} ({card})")
     if not (ok and finite):
         raise AssertionError(f"{tag}: cached logits off the no-cache forward "
                              f"(gaps {gaps}) or not finite")
@@ -3141,15 +3473,17 @@ def pod_steps(arch, pod, state, steps: int, seq: int, gb: int,
 
 
 def bf16_internvl(arch, card: str) -> dict:
-    """Phase 19 (a): InternVL2-26B whole through the pod SeedFlood step at
-    the PodConfig defaults (bf16 parameters, fold mode): BF16_STEPS steps
-    and one profiled.  Every leaf bf16 (no float32 copy of a weight), the
-    losses finite, the launches exactly the bf16 kernels' (the projector,
-    seven projections a layer and the logits in each signed forward, one
-    update per matrix leaf a step), the peak under 80 GiB, and the last
-    step's update of BF16_CHECK_LEAF's first BF16_CHECK_ROWS rows of layer
-    0 held to the plain update of that step's messages (within one bf16
-    ulp; the elements it changed and the share equal bitwise printed)."""
+    """Phase 19 (a): InternVL2-26B whole through the pod SeedFlood step at the
+    PodConfig defaults (bf16 parameters, fold mode): BF16_STEPS steps and
+    one profiled; then (d) the trained weights served in bf16
+    (``serve_cached`` with its embeddings). Every leaf bf16 (no float32
+    copy of a weight), the losses finite, the launches exactly the bf16
+    kernels' (the projector, seven projections a layer and the logits in
+    each signed forward, one update per matrix leaf a step), the peak under
+    80 GiB, and the last step's update of BF16_CHECK_LEAF's first
+    BF16_CHECK_ROWS rows of layer 0 held to the plain update of that step's
+    messages (within one bf16 ulp; the elements it changed and the share
+    equal bitwise printed)."""
     import torch
     from repro_torch.core import subcge
     from repro_torch.kernels import subcge_apply as sa
@@ -3236,8 +3570,51 @@ def bf16_internvl(arch, card: str) -> dict:
                              f"{want_l}")
     if not run["peak_gib"] < 80:
         raise AssertionError(f"bf16 pod: peak memory {run['peak_gib']} GiB")
-    del params, run, seen
+    del run, seen, before, got, want, U, V, A
     torch.cuda.empty_cache()
+    # (d) the pod's weights served in bf16: only bf16 fits them on one card
+    # (74 GiB in float32), and a second init would take another ~43 s.
+    # Two prompt seeds; the first with its witnesses of where the decode
+    # departs from the forward: layer by layer, and layer 0's products of
+    # one row at the decode's shape against the forward's
+    cap = arch.frontend.n_embeds + INTERNVL_PROMPT + FRONTEND_NEW
+    out["gemm_witness"] = gemm_witness(params, BF16_SERVE_B, cap, card)
+    _, out["served"] = serve_cached(arch, card, "19d", BF16_SERVE_B,
+                                    INTERNVL_PROMPT, FRONTEND_NEW,
+                                    params=params, witness=True)
+    _, out["served_seed2"] = serve_cached(
+        arch, card, "19d", BF16_SERVE_B, INTERNVL_PROMPT, FRONTEND_NEW,
+        params=params, seed=SERVE_SEED + 1)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemm_witness(params, B: int, T: int, card: str,
+                 leaves=("wq", "wk", "wo", "w1", "w2")) -> dict:
+    """Layer 0's projections (``Bundle.dense``'s ``torch.bmm``) of random
+    bf16 rows (seed SERVE_SEED), at the decode step's shape (B rows)
+    against the forward's (B x T rows, the same rows last): the max gap
+    in bf16 ulps of the largest output and the share of outputs not
+    bitwise equal, per leaf."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    out = {}
+    with torch.no_grad():
+        for leaf in leaves:
+            W = params[f"g0/s0/{leaf}"][0][None]
+            x = torch.randn((1, B, T, W.shape[1]), generator=gen,
+                            device="cuda").to(W.dtype)
+            full = torch.bmm(x.reshape(1, -1, W.shape[1]), W).reshape(
+                B, T, -1)[:, -1]
+            one = torch.bmm(x[:, :, -1], W)[0]
+            out[leaf] = hidden_gap(one.float(), full.float())
+            del x, full, one
+    torch.cuda.empty_cache()
+    log(f"[19d] witness: layer 0's products of one row at the decode's "
+        f"shape ({B} rows) against the forward's ({B} x {T}), (max gap in "
+        f"bf16 ulps of the largest output, share not bitwise): {out} "
+        f"({card})")
     return out
 
 
@@ -3417,10 +3794,9 @@ def pod_run(arch, card: str) -> dict:
     ``arch`` shared by POD_CLIENTS clients, each with POD_B sequences of
     the frontend's embeddings and POD_TEXT tokens (``make_train_batch``,
     seeded by the step), in float32, POD_SF_STEPS steps, launch counters
-    zeroed just before and read just after, then one step profiled twice:
-    by the device's activity alone (the measure phase 19 (a) reads) and
-    with the host's ops recorded too (the measure profiled steps took
-    before it).  Then the pod DSGD step, POD_DSGD_STEPS steps in float32
+    zeroed just before and read just after, then one step profiled by the
+    device's activity alone (the measure phase 19 (a) reads).  Then the
+    pod DSGD step, POD_DSGD_STEPS steps in float32
     and one in bf16 (the clients' bf16 gradients summed in float32), which
     launches no hand-written kernel (autograd through plain products).
     Each signed forward runs the projector, the layer's seven projections
@@ -3477,8 +3853,6 @@ def pod_run(arch, card: str) -> dict:
              "proj_moved": moved, "run_s": time.perf_counter() - t_run}
         if kind == "seedflood":
             o["profile"] = profile_step(lambda: step_fn(params, batch, steps))
-            o["profile_host"] = profile_step(
-                lambda: step_fn(params, batch, steps + 1), host=True)
         log(f"[18b] pod {kind}: {arch.name} ({n_params} params, one copy, "
             f"{str(dtype)[6:]}) x {POD_CLIENTS} clients x {POD_B} sequences "
             f"of {arch.frontend.n_embeds} embeddings + {POD_TEXT} tokens, "
@@ -3487,8 +3861,7 @@ def pod_run(arch, card: str) -> dict:
             f"ms ({wall}); peak {peak:.2f} GiB; projector moved by "
             f"{moved:.3e}; launches {launches} ({card})")
         if kind == "seedflood":
-            for key, what in (("profile", "device activity only"),
-                              ("profile_host", "host ops recorded too")):
+            for key, what in (("profile", "device activity only"),):
                 pr = o[key]
                 log(f"[18b] pod seedflood, one profiled step ({what}): wall "
                     f"{pr['wall_ms']:.1f} ms, device busy "
@@ -3773,7 +4146,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import archs
     from repro_torch.configs.base import Group
     from repro_torch.data import synthetic
@@ -3786,8 +4158,11 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     t_last = [t_start]
 
+    phase_s = {}        # each phase's seconds, also in the --out JSON
+
     def clock(phase: str) -> None:
         now = time.perf_counter()
+        phase_s[phase] = now - t_last[0]
         log(f"[t] phase {phase} took {now - t_last[0]:.1f} s "
             f"({now - t_start:.1f} s in all)")
         t_last[0] = now
@@ -3836,6 +4211,10 @@ def main(argv=None) -> int:
     log(f"[2] the update kernel at the serving fold's shapes: one "
         f"{tiny.name} ({card})")
     entries["serve"] = phase_kernels_serve(tiny)
+    torch.cuda.empty_cache()
+    log(f"[2] the update kernel at the bf16 serving fold's shapes: one "
+        f"{tiny.name} in bf16 ({card})")
+    entries["serve_bf16"] = phase_kernels_serve(tiny, "serve bf16", True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     gemma, qwen2 = archs.get(GEMMA_ARCH), archs.qwen2_cut()
@@ -4064,9 +4443,12 @@ def main(argv=None) -> int:
     launches["resume"], details["resume"] = phase_resume(opt, B, card)
     clock("11")
 
-    # 12. serving TinyLlama-1.1B whole (the serve profile runs here too)
+    # 12. serving TinyLlama-1.1B whole (the serve profile runs here too),
+    # in float32 and (e) in bf16
     launches["serve"], details["serve"] = phase_serve(tiny, card,
                                                       args.profile)
+    launches["serve_bf16"], details["serve_bf16"] = phase_serve_bf16(tiny,
+                                                                     card)
 
     clock("12")
 
@@ -4155,7 +4537,8 @@ def main(argv=None) -> int:
                 n: e.summary() for n, e in es.items()}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {**report, "card": card, "ptxas": ptxas, **details}, indent=1))
+            {**report, "card": card, "ptxas": ptxas, "phase_s": phase_s,
+             **details}, indent=1))
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

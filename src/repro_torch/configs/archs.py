@@ -56,7 +56,7 @@ def _gemma3_groups() -> tuple[Group, ...]:
 GEMMA3_1B = ArchConfig(
     name="gemma3-1b", family="dense", d_model=1152, vocab=262_144,
     groups=_gemma3_groups(), act="gelu", tie_embeddings=True,
-    rope_theta=1e6,
+    rope_theta=1e6, long_context_mode="native",
     source="[hf:google/gemma-3-1b-pt] 26L d1152 4H(kv1,hd256) ff6912 "
            "v262144, 5:1 local(sw512):global, 128k ctx")
 
@@ -94,7 +94,7 @@ FALCON_MAMBA_7B = ArchConfig(
     groups=(Group((LayerCfg(
         mixer="mamba", mamba=MambaCfg(d_inner=8192, d_state=16, d_conv=4),
         ffn="none"),), 64),),
-    pos="none",
+    pos="none", long_context_mode="native",
     source="[arXiv:2410.05355] 64L d4096 mamba1 (d_inner 8192, state 16, "
            "conv 4), attention-free, v65024")
 
@@ -120,7 +120,7 @@ def _jamba_groups() -> tuple[Group, ...]:
 
 JAMBA_15_LARGE = ArchConfig(
     name="jamba-1.5-large-398b", family="hybrid", d_model=8192, vocab=65_536,
-    groups=_jamba_groups(),
+    groups=_jamba_groups(), long_context_mode="native",
     source="[arXiv:2403.19887] 72L d8192 64H(kv8), Mamba:attn 7:1, "
            "MoE 16e top-2 every other layer, ff24576, v65536 — 398B total")
 

@@ -15,10 +15,11 @@ and rope, learned or sinusoidal positions (none only for an
 attention-free stack), and refuses the rest: any other position kind, an
 attention slot with no FFN.  The JAX package's
 ``sharding_policy`` and ``moe_gather_weights`` are mesh hints and stay out
-too: the port has no mesh; so do ``long_context_mode`` and its
-``for_shape`` rewrite, whose only consumers are the pod's input shapes and
-dry runs (ROADMAP Queue 1 item 14b; the pod's bf16 parameters and buffer
-mode, items 14c and 14a, are ported: ``launch.steps.PodConfig``).
+too: the port has no mesh.  ``InputShape`` and ``INPUT_SHAPES`` are the
+pod's input shapes, and ``ArchConfig.for_shape`` the variant an arch runs
+at one of them (``long_context_mode``: a full-attention arch decodes past
+100,000 positions through sliding windows of ``sliding_window_size``);
+``roofline.cost_model.step_cost`` prices an arch at a shape.
 ``MambaCfg`` leaves out the JAX ``chunk``: it sizes the chunks of the
 associative scan in jnp, a memory knob with no consumer here, where the
 recurrence runs through the ``selective_scan`` kernel in one pass over
@@ -109,11 +110,62 @@ class ArchConfig:
     tie_embeddings: bool = False
     max_seq: int = 131_072
     frontend: FrontendCfg | None = None
+    # long_500k handling: "native" (sub-quadratic already) or "sliding_window"
+    # (the variant a full-attention arch decodes that far with)
+    long_context_mode: str = "sliding_window"
+    sliding_window_size: int = 4096
     source: str = ""                   # citation [arXiv:... / hf:...]
 
     @property
     def n_layers(self) -> int:
         return sum(len(g.slots) * g.reps for g in self.groups)
+
+    def layer_cfgs(self) -> list[LayerCfg]:
+        """Every layer's slot, in stack order."""
+        out: list[LayerCfg] = []
+        for g in self.groups:
+            out.extend(list(g.slots) * g.reps)
+        return out
+
+    def with_sliding_window(self, window: int) -> "ArchConfig":
+        """Long-context variant: every attention slot's window clamped to
+        ``window`` (a global slot takes it)."""
+        def clamp(slot: LayerCfg) -> LayerCfg:
+            if slot.mixer != "attn" or slot.attn is None:
+                return slot
+            w = slot.attn.window
+            new_w = window if w is None else min(w, window)
+            return dataclasses.replace(
+                slot, attn=dataclasses.replace(slot.attn, window=new_w))
+
+        groups = tuple(dataclasses.replace(
+            g, slots=tuple(clamp(s) for s in g.slots)) for g in self.groups)
+        return dataclasses.replace(self, groups=groups,
+                                   name=self.name + "+sw" + str(window))
+
+    def for_shape(self, shape: "InputShape") -> "ArchConfig":
+        """The arch variant that runs at ``shape``: a decode past 100,000
+        positions takes sliding windows unless the arch is native there."""
+        if (shape.kind == "decode" and shape.seq > 100_000
+                and self.long_context_mode == "sliding_window"):
+            return self.with_sliding_window(self.sliding_window_size)
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq: int
+    global_batch: int
+    kind: str                          # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 def dense_layer(d_model: int, n_heads: int, n_kv: int, d_ff: int,

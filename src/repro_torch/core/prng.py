@@ -24,6 +24,11 @@ Semantics follow ``jax/_src/prng.py`` and ``jax/_src/random.py`` with
 * ``normal``       = ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))`` with
   XLA's float32 ``ErfInv`` polynomial (Giles), not ``torch.erfinv``, over
   XLA CPU's float32 ``log1p`` (:func:`log1p_xla`), not ``torch.log1p``.
+* bf16 draws (``uniform``, ``gumbel``, ``categorical`` on bf16 logits)
+  take 8-bit words, as ``random._uniform`` does for a type of fewer than 8
+  mantissa bits: the low byte of the 32-bit word at the same counter.
+  Every bf16 operation is one float32 operation rounded to bf16, as XLA
+  CPU computes bf16 (so ``gumbel`` rounds between its two logs).
 
 The reference is JAX on the CPU: XLA on a GPU or TPU lowers ``log1p`` with
 other polynomials and rounds differently again.  The same code runs on any
@@ -119,9 +124,14 @@ def _map_bits(key: torch.Tensor, shape, fn, dtype) -> torch.Tensor:
     return out.reshape(batch + shape)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit random words, shape ``key.shape[:-1] + shape`` (int64)."""
-    return _map_bits(key, shape, lambda b: b, torch.int64)
+def random_bits(key: torch.Tensor, shape, width: int = 32) -> torch.Tensor:
+    """``width``-bit random words (32 or 8), shape ``key.shape[:-1] +
+    shape`` (int64).  ``jax.random.bits(key, shape, uint8)`` is the low
+    byte of the 32-bit word at the same counter."""
+    if width not in (8, 32):
+        raise ValueError(f"random_bits takes 8- or 32-bit words, not {width}")
+    return _map_bits(key, shape, (lambda b: b) if width == 32
+                     else (lambda b: b & 0xFF), torch.int64)
 
 
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
@@ -138,7 +148,39 @@ def _unit_to_range(u: torch.Tensor, minval: float, maxval: float):
     return torch.clamp(u * float(span) + float(lo), min=float(lo))
 
 
-def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+def _bits8_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """The low bytes of uint32 words -> bf16 in [0, 1): the top 7 bits of
+    each byte fill bf16's mantissa of 1.0, minus 1."""
+    f = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16)
+    return f - 1.0
+
+
+def rounded(v: float, dtype) -> float:
+    """A Python float rounded to ``dtype``, as JAX converts a weakly typed
+    scalar to an array's type."""
+    return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
+def _unit_to_range_bf16(u: torch.Tensor, minval: float, maxval: float):
+    """``max(lo, u * (hi - lo) + lo)`` in bf16, each operation rounded."""
+    lo = rounded(minval, torch.bfloat16)
+    span = rounded(rounded(maxval, torch.bfloat16) - lo, torch.bfloat16)
+    return torch.clamp(u * span + lo, min=lo)
+
+
+def _check_dtype(dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"draws in float32 or bf16, not {dtype}")
+
+
+def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0,
+            dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)`` for float32
+    and bf16."""
+    _check_dtype(dtype)
+    if dtype == torch.bfloat16:
+        return _map_bits(key, shape, lambda b: _unit_to_range_bf16(
+            _bits8_to_unit(b), minval, maxval), dtype)
     return _map_bits(key, shape, lambda b: _unit_to_range(
         _bits_to_unit(b), minval, maxval), torch.float32)
 
@@ -301,9 +343,21 @@ def normal(key: torch.Tensor, shape, scale: float | None = None,
     return _map_bits(key, shape, fn, dtype)
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.gumbel(key, shape, float32)`` in its default "low" mode:
-    ``-log(-log(uniform(tiny, 1)))``, through XLA CPU's float32 ``log``."""
+def _gumbel_bf16(bits: torch.Tensor) -> torch.Tensor:
+    """The bf16 Gumbel of 8-bit words: each ``log`` XLA CPU's float32
+    ``log`` of the bf16 input, rounded to bf16 (128 distinct values)."""
+    u = _unit_to_range_bf16(_bits8_to_unit(bits), _TINY, 1.0)
+    inner = (-log_xla(u.float())).to(torch.bfloat16)
+    return (-log_xla(inner.float())).to(torch.bfloat16)
+
+
+def gumbel(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` in its default "low" mode:
+    ``-log(-log(uniform(tiny, 1)))``, through XLA CPU's float32 ``log``
+    (in bf16: of 8-bit words, rounded after each ``log``)."""
+    _check_dtype(dtype)
+    if dtype == torch.bfloat16:
+        return _map_bits(key, shape, _gumbel_bf16, dtype)
     return _map_bits(key, shape, lambda b: -log_xla(-log_xla(_unit_to_range(
         _bits_to_unit(b), _TINY, 1.0))), torch.float32)
 
@@ -311,6 +365,8 @@ def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` over the last axis, one key
     per row: ``key`` (..., 2) with ``...`` = ``logits.shape[:-1]``.  The
-    Gumbel-max trick, ties to the first index as ``jnp.argmax``."""
-    g = gumbel(key, logits.shape[-1:])
-    return torch.argmax(g + logits.float(), dim=-1)
+    Gumbel-max trick in the logits' type (float32 or bf16: the Gumbels
+    drawn in it, their sum with the logits rounded to it), ties to the
+    first index as ``jnp.argmax``."""
+    g = gumbel(key, logits.shape[-1:], logits.dtype)
+    return torch.argmax(g + logits, dim=-1)

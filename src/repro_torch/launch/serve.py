@@ -10,7 +10,9 @@ steps the serve swarm simulator drives under churn.
 sampling (keyed per (request, position), so a run is deterministic).
 ``--reduced`` serves the arch's smoke variant; ``--device cpu`` runs the
 plain versions on the CPU (the default is the card, and without one the
-CLI raises).  Weights are random, from seed 0, in float32.
+CLI raises).  Weights are random, from seed 0, in the JAX CLI's type:
+float32 with ``--reduced``, bf16 without it (weights, KV pool and logits);
+the first output line names it.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import archs
 from repro_torch.core import prng
@@ -28,7 +31,11 @@ from repro_torch.serve import SAMPLING_KINDS, DecodeServer, Request, \
 from repro_torch.serve.server import resolve_device
 
 
-def main(argv=None) -> int:
+def parse(argv=None) -> tuple:
+    """(arguments, arch, ServeConfig) of a CLI call, touching no device:
+    the pages reserve every request's whole length, and the weights are
+    float32 with ``--reduced`` and bf16 without it, as the JAX CLI's
+    ``PodConfig`` has them."""
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="tinyllama-1.1b",
                    choices=sorted(archs.REGISTRY))
@@ -47,18 +54,24 @@ def main(argv=None) -> int:
     cfg = archs.get(args.arch)
     if args.reduced:
         cfg = archs.reduced(cfg)
-    dev = resolve_device(args.device)
-
-    n_req = args.requests if args.requests is not None else args.batch
     seq = args.prompt_len + args.new
     page, ppr, n_pages = steplib.paged_geometry(
         seq, args.batch, min(args.page_size, seq))
     serve = ServeConfig(max_batch=args.batch, page_size=page,
                         n_pages=n_pages, max_seq=ppr * page,
                         sampling=args.sampling,
-                        temperature=args.temperature)
+                        temperature=args.temperature,
+                        param_dtype=torch.float32 if args.reduced
+                        else torch.bfloat16)
+    return args, cfg, serve
 
-    params = tf.init_params(cfg, 0, dev)
+
+def main(argv=None) -> int:
+    args, cfg, serve = parse(argv)
+    dev = resolve_device(args.device)
+    n_req = args.requests if args.requests is not None else args.batch
+
+    params = tf.init_params(cfg, 0, dev, serve.param_dtype)
     prompts = prng.randint(prng.PRNGKey(0), (n_req, args.prompt_len), 0,
                            cfg.vocab).numpy()
 
@@ -71,8 +84,9 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
 
     emitted = sum(len(v) for v in results.values())
+    dtype = str(serve.param_dtype).removeprefix("torch.")
     print(f"{cfg.name} on {dev}: {n_req} requests x {args.new} new tokens "
-          f"({args.sampling}); {emitted / dt:.1f} tok/s; "
+          f"({args.sampling}); {dtype} weights; {emitted / dt:.1f} tok/s; "
           f"stats={srv.stats()}")
     for b in range(n_req):
         print(f"  req{b}: {results[b]}")

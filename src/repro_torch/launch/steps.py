@@ -230,21 +230,25 @@ def build_dsgd_train_step(cfg: ArchConfig, pod: PodConfig):
 # serving steps
 # ---------------------------------------------------------------------------
 
-def build_prefill_step(cfg: ArchConfig, batch: int, seq: int,
-                       dtype=torch.float32):
+def build_prefill_step(cfg: ArchConfig, batch: int, seq: int, dtype=None):
     """Prefill ``batch`` prompts of T tokens into a fresh monolithic cache
     of capacity ``seq`` (an MLA slot's is the compressed one, ``ckv`` and
     ``krope``; a Mamba slot's is its state after the prompt, ``h`` and
     ``conv``): step(params, tokens (B, T), embeds=None) -> (last-position
-    logits (B, vocab), cache).  A frontend arch's prompt (T > 1) takes its
-    embeddings (B, P, edim) ahead of the tokens, so positions 0..P+T-1
-    fill and ``seq`` counts P; its decode then starts at pos = P + T."""
+    logits (B, vocab), cache).  The cache is in ``dtype``, by default the
+    parameters' (float32 or bf16; a Mamba slot's ``h`` stays float32, as
+    the JAX package keeps it), and so are the logits.  A frontend arch's
+    prompt (T > 1) takes its embeddings (B, P, edim) ahead of the tokens,
+    so positions 0..P+T-1 fill and ``seq`` counts P; its decode then
+    starts at pos = P + T."""
     def prefill_step(params, tokens, embeds=None):
         if cfg.frontend is not None and tokens.shape[1] > 1 \
                 and embeds is None:
             raise ValueError(f"{cfg.name}: a frontend arch's prefill takes "
                              "its embeddings")
-        cache = tf.init_cache(cfg, batch, seq, dtype, tokens.device)
+        cache = tf.init_cache(cfg, batch, seq,
+                              dtype or params["embed/tok"].dtype,
+                              tokens.device)
         logits, _ = tf.forward(
             cfg, params, tokens[None], cache=cache, pos=0,
             embeds=None if embeds is None else embeds[None])
@@ -276,7 +280,7 @@ def paged_geometry(seq: int, batch: int,
 
 
 def build_paged_prefill_step(cfg: ArchConfig, batch: int, seq: int,
-                             page_size: int, dtype=torch.float32):
+                             page_size: int, dtype=None):
     """Prefill ``batch`` same-length prompts against a throwaway monolithic
     cache of capacity == prompt length (a sliding-window slot's ring holds
     its last ``window`` positions) and scatter their KV into the pool rows
@@ -285,7 +289,8 @@ def build_paged_prefill_step(cfg: ArchConfig, batch: int, seq: int,
     package's is right past the window): step(params, pool, tokens (Bg,
     T), table (Bg, pages_per_req)) -> (last-position logits (Bg, vocab),
     pool).  The logits are the monolithic prefill's (the T > 1 path
-    attends the raw k/v, never the cache layout).  An MLA or Mamba slot is
+    attends the raw k/v, never the cache layout); the throwaway cache is in
+    ``dtype``, by default the parameters'.  An MLA or Mamba slot is
     refused, as the JAX package refuses it."""
     tf.check_paged_support(cfg)
     prefill = build_prefill_step(cfg, batch, seq, dtype)

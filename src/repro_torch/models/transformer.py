@@ -391,3 +391,7 @@ def lm_loss(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 def init_params(cfg: ArchConfig, seed: int = 0, device="cpu",
                 dtype=torch.float32) -> dict:
     return plib.init_params(arch_spec(cfg), seed, device, dtype)
+
+
+def count_params(cfg: ArchConfig) -> int:
+    return plib.n_params(arch_spec(cfg))

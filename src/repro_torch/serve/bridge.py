@@ -9,8 +9,10 @@ into the weights through :func:`repro_torch.core.subcge.apply_messages_epoch`
 at a client axis of 1 — the epoch-grouped fold, so messages whose sender
 step crosses a τ-refresh boundary are applied under the SENDER's subspace.
 That is one ``subcge_apply_epochs`` launch per matrix leaf per fold (and
-one dense Gaussian per message for each vector leaf).  An update is
-(seed, coef, step) triples, so no tensors ever ship.
+one dense Gaussian per message for each vector leaf); bf16 weights take
+the kernel's bf16 path (``subcge_apply_epochs_bf16``: the delta summed in
+float32, W rounded to bf16 once), written in place as float32 ones are.
+An update is (seed, coef, step) triples, so no tensors ever ship.
 
 Byte accounting stays in the Transport layer: the bridge only consumes
 inbox rows the transport already charged to its CommLedger.

@@ -29,6 +29,8 @@ from repro_torch.serve.paged_cache import PageAllocator, bucket_pages, \
     pages_needed
 
 SAMPLING_KINDS = ("greedy", "temperature")
+#: the weight types a server takes, as the JAX package's (float32, bf16)
+SERVE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +43,7 @@ class ServeConfig:
     sampling: str = "greedy"     # "greedy" | "temperature"
     temperature: float = 1.0     # temperature-sampling divisor
     sample_seed: int = 0         # PRNG root for temperature sampling
-    param_dtype: Any = torch.float32   # weights and KV pool
+    param_dtype: Any = torch.float32   # weights and KV pool: float32 | bf16
 
     def __post_init__(self):
         if self.sampling not in SAMPLING_KINDS:
@@ -52,11 +54,10 @@ class ServeConfig:
                              f"of page_size ({self.page_size})")
         if self.sampling == "temperature" and self.temperature <= 0:
             raise ValueError("temperature must be > 0")
-        if self.param_dtype != torch.float32:
+        if self.param_dtype not in SERVE_DTYPES:
             raise ValueError(
-                f"param_dtype {self.param_dtype}: the port serves float32 "
-                "only; every kernel takes float32 (bf16 weights are ROADMAP "
-                "Queue 2 item 3)")
+                f"param_dtype {self.param_dtype}: the port serves float32 or "
+                "bfloat16 weights (its kernels take no other type)")
 
     @property
     def pages_per_req(self) -> int:

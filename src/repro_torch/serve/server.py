@@ -21,7 +21,9 @@ server runs where its weights are: ``device`` (default ``"cuda"``) must be
 available and hold every weight.  Sampling draws every active slot's token
 in one call and brings them to the host once per step; temperature
 sampling keys each token by (``sample_seed``, rid, emit position), as the
-JAX server does.
+JAX server does.  Weights, the KV pool and the logits are in
+``ServeConfig.param_dtype`` (float32 or bf16); bf16 logits sample through
+bf16 Gumbels, as ``jax.random.categorical`` draws them.
 """
 from __future__ import annotations
 
@@ -49,6 +51,28 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def sample(logits: torch.Tensor, serve: ServeConfig, rids,
+           emit_pos) -> list[int]:
+    """Tokens for rows of logits (n, vocab), one host transfer.
+    ``emit_pos`` is the absolute position each sampled token will occupy —
+    (rid, emit_pos) keys its PRNG stream, so a run is deterministic and
+    churn-replayable."""
+    if serve.sampling == "greedy":
+        return torch.argmax(logits, dim=-1).tolist()
+    dev = logits.device
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(serve.sample_seed, dev),
+                                    ids(rids)), ids(emit_pos))
+    # JAX divides by the temperature rounded to the logits' type.  A 0-dim
+    # tensor on their device: CUDA multiplies by the reciprocal of a host
+    # scalar, which can round differently
+    temp = torch.tensor(prng.rounded(serve.temperature, logits.dtype),
+                        dtype=logits.dtype, device=dev)
+    return prng.categorical(key, logits / temp).tolist()
 
 
 class DecodeServer:
@@ -92,16 +116,7 @@ class DecodeServer:
     # -- sampling -------------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor, rids, emit_pos) -> list[int]:
-        """Tokens for rows of logits (n, vocab), one host transfer.
-        ``emit_pos`` is the absolute position each sampled token will
-        occupy — (rid, emit_pos) keys its PRNG stream, so a run is
-        deterministic and churn-replayable."""
-        if self.serve.sampling == "greedy":
-            return torch.argmax(logits, dim=-1).tolist()
-        key = prng.fold_in(prng.fold_in(
-            prng.PRNGKey(self.serve.sample_seed, self.device),
-            self._tensor(rids)), self._tensor(emit_pos))
-        return prng.categorical(key, logits / self.serve.temperature).tolist()
+        return sample(logits, self.serve, rids, emit_pos)
 
     # -- one decode-step boundary ---------------------------------------------
 

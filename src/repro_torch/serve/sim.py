@@ -64,7 +64,7 @@ class ServeSwarmSim:
         self.churn = churn
         self.transport = FloodTransport(graphs.ring(self.n))
         dev = resolve_device(device)
-        params = tf.init_params(cfg, 0, dev)
+        params = tf.init_params(cfg, 0, dev, serve_cfg.param_dtype)
         self.servers: dict[int, DecodeServer] = {}
         for node in range(n_trainers, self.n):
             bridge = LiveUpdateBridge(cfg, scfg, global_seed, node)

@@ -220,3 +220,68 @@ def test_synthetic_data_is_bitwise():
         for step in (0, 3):
             bj = np.asarray(jsyn.stacked_batches(dj[0], pj, step, 3, 1)["tokens"])
             assert (bj == tsyn.stacked_batches(dt[0], pt, step, 3, 1)).all()
+
+
+def _bf16_bits(x):
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(x).view(np.uint16)
+
+
+def test_bf16_uniform_and_gumbel_bitwise_on_every_word():
+    """bf16 draws take 8-bit words (bf16 has 7 mantissa bits): the words
+    are the low bytes of the 32-bit ones, and ``uniform`` (on [0, 1) and on
+    [-3, 5)) and ``gumbel`` equal ``jax.random``'s bitwise on draws that
+    cover all 256 words, the whole input space; the float32 draws of the
+    same keys stay bitwise."""
+    seen = set()
+    for seed in (0, 7, 2**32 - 1):
+        key, tkey = _key(seed), prng.PRNGKey(seed)
+        b8 = np.asarray(jax.random.bits(key, (4096,), jnp.uint8))
+        got = prng.random_bits(tkey, (4096,), width=8).numpy()
+        np.testing.assert_array_equal(got, b8.astype(np.int64))
+        seen.update(b8.tolist())
+        for lo, hi in ((0.0, 1.0), (-3.0, 5.0)):
+            want = jax.random.uniform(key, (4096,), jnp.bfloat16, lo, hi)
+            got = prng.uniform(tkey, (4096,), lo, hi, dtype=torch.bfloat16)
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+        want = jax.random.gumbel(key, (4096,), jnp.bfloat16)
+        got = prng.gumbel(tkey, (4096,), torch.bfloat16)
+        np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+        for name in ("uniform", "gumbel"):
+            want = np.asarray(getattr(jax.random, name)(key, (4096,)))
+            got = getattr(prng, name)(tkey, (4096,)).numpy()
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
+    assert seen == set(range(256))
+    with pytest.raises(ValueError):
+        prng.gumbel(prng.PRNGKey(0), (4,), torch.float16)
+
+
+def test_bf16_categorical_is_bitwise_jax():
+    """``categorical`` on bf16 logits draws bf16 Gumbels and argmaxes their
+    bf16 sum, as ``jax.random.categorical`` does: 256 keys of the server's
+    kind (fold_in(fold_in(PRNGKey(seed), rid), pos)), 1,000 bf16 logits a
+    row divided by the temperature 0.8 in bf16, as the JAX server divides
+    its bf16 logits.  Float32 Gumbels (the port before bf16 serving) give
+    other tokens on most rows."""
+    rng = np.random.default_rng(3)
+    n, V = 256, 1000
+    lg = jnp.asarray(rng.standard_normal((n, V)) * 2, jnp.bfloat16)
+    rids, pos = np.arange(n) % 5, 16 + np.arange(n)
+    key = jax.random.PRNGKey(0)
+    jkeys = jax.vmap(lambda r, p: jax.random.fold_in(
+        jax.random.fold_in(key, r), p))(jnp.asarray(rids), jnp.asarray(pos))
+    want = np.asarray(jax.vmap(
+        lambda k, row: jax.random.categorical(k, row / 0.8))(jkeys, lg))
+    want = want.tolist()
+    tl = torch.from_numpy(_bf16_bits(lg).astype(np.int16)).view(torch.bfloat16)
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(0), torch.as_tensor(rids)),
+                        torch.as_tensor(pos))
+    temp = float(torch.tensor(0.8, dtype=torch.bfloat16))
+    got = prng.categorical(keys, tl / temp)
+    assert got.tolist() == want
+    f32_gumbels = torch.argmax(prng.gumbel(keys, (V,)) + (tl / temp).float(),
+                               dim=-1)
+    assert (f32_gumbels != got).sum() > n // 2

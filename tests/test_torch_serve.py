@@ -3,7 +3,8 @@
 
 * page allocator and scheduler: tables, free lists, admission order and
   decode inputs equal to the JAX package's on the same script;
-* ``ServeConfig``'s refusals (bfloat16 among them);
+* ``ServeConfig``'s refusals (float16 among them: it serves float32 and
+  bf16);
 * ``prng.gumbel`` / ``categorical``: bitwise ``jax.random``.
 
 The serving tests are split into files of at most five tests (under
@@ -83,11 +84,17 @@ def test_scheduler_matches_jax_on_a_script():
 
 def test_serve_config_validation():
     assert ServeConfig().pages_per_req == 128 // 16
+    # float32 and bf16 serve, as in the JAX package; no kernel of the port
+    # takes float16
+    assert ServeConfig(param_dtype=torch.bfloat16).param_dtype \
+        == torch.bfloat16
     for bad in (dict(sampling="nucleus"), dict(max_seq=100, page_size=16),
                 dict(sampling="temperature", temperature=0.0),
-                dict(param_dtype=torch.bfloat16)):
+                dict(param_dtype=torch.float16)):
         with pytest.raises(ValueError):
             ServeConfig(**bad)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ServeConfig(param_dtype=torch.float16)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port's serving entry points: the CLI on the CPU, and the refusals
-of the server, the swarm and the CLI (no card, weights elsewhere, a dtype
-other than float32)."""
+of the server, the swarm and the CLI (no card, weights elsewhere, weights
+of another type than the config's)."""
 import pytest
 
 torch = pytest.importorskip("torch")
