@@ -141,8 +141,8 @@ no result line):
 12. serve  — ``repro_torch.serve`` at TinyLlama-1.1B's full width (22
              layers, d2048, 32 heads of 64 over 4 kv heads, ff 5632, vocab
              32000, untied), one model of random float32 weights from seed
-             0, 8 slots over a pool of 128 pages of 16 positions: (a) 16
-             greedy requests (prompts of 16-192 tokens from seed 0, 16 new
+             0, 8 slots over a pool of 128 pages of 16 positions: (a) 12
+             greedy requests (prompts of 16-192 tokens from seed 0, 12 new
              tokens each) must equal, token for token, their monolithic
              streams (prefill and decode over a ring of 256); steps,
              prefills, decodes, the steady decode step (median, spread),
@@ -198,7 +198,7 @@ no result line):
              tokens, 2 steps, the JAX ledger of a ring of 4, and on one
              model's weights the loss with the windows differs from the
              loss without them; (c) serving past the window: 4 greedy
-             requests of 520-700 prompt tokens and 16 new through 8 slots
+             requests of 520-700 prompt tokens and 12 new through 8 slots
              over pages of 16 equal their monolithic streams (rings of 512
              in the local slots) token for token, and one of them a
              no-cache recompute; then a live fold at C = 1, E = 2 equals
@@ -300,7 +300,24 @@ no result line):
              40 % past one, each token the forward's where its top-2 gap
              exceeds the logits' gap, the decode step against the cost
              model's bound.
-20. report — one JSON line ``{"kernels": [...]}`` (the bf16 paths as
+20. rest    — the JAX package's last modules: (a) the paper's Fig. 5 and
+             Table 4 at OPT-125M's full width (one model, float32, rank
+             32): MeZO's dense-message replay (``zo.mezo_apply_messages``)
+             against SubCGE's ``apply_messages`` at K = 1, 4 and 16, and
+             each one's gradient estimate on one 8 x 33 batch, each the
+             median of 3 host-clocked calls after a warm-up, beside its
+             bound (MeZO: K passes over theta; SubCGE: one), the MeZO /
+             SubCGE ratios printed; first the card's MeZO replay of the
+             two smallest leaves at K = 4, bitwise the CPU's; (b) the
+             per-client reference path (``batched_step=False``) on
+             Qwen1.5-0.5B whole beside the batched path, 8 clients on a
+             ring, 2 steps each: the ledgers equal, the leaves and losses
+             within atol 1e-6 after step 1 and 1e-5 after step 2 (bitwise
+             reported), ``subcge_apply`` once per client per matrix leaf,
+             ``subcge_apply_epochs`` once per client with a live message
+             per matrix leaf, the per-client / batched step ratio printed;
+             both runs into ``--out`` through ``RunResult.to_json``.
+21. report — one JSON line ``{"kernels": [...]}`` (the bf16 paths as
              kernels of their own, ``*_bf16``), the card's name and power
              limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -337,6 +354,10 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.roofline.cost_model import (  # noqa: E402
     PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES, Cost, bound_ms)
 RTOL = ATOL = 1e-5
+# phase 2: the plain version's and the library call's timed calls and
+# warm-ups beside each kernel unit, at most (3 and 2 until phase 20 needed
+# the time; the kernels keep theirs)
+REF_TIMING = (2, 1)
 # what the JAX package's FloodTransport charges a ring of 8
 # (tests/test_torch_slice.py pins the port's transport to the same values)
 LEDGER_RING8_3STEPS = (368, 2944)
@@ -374,13 +395,14 @@ LEDGER_MESHGRID64_CHURN_6STEPS = (82602, 668088, 15912, 18)
 # OPT-125M checkpoint of 64 clients would be 30.2 GiB)
 RESUME_CLIENTS, RESUME_STEPS = 4, 5
 # phase 12: serving TinyLlama-1.1B whole (float32, random weights from seed
-# 0): 16 requests of prompts drawn between 16 and 192 tokens and 16 new
-# tokens each (32 until the frontend phase needed the time) through 8
-# slots, so that admission, eviction and page reuse all happen; the
+# 0): 12 requests of prompts drawn between 16 and 192 tokens and 12 new
+# tokens each (16 and 16 until phase 20 needed the time, 32 new tokens
+# until the frontend phase) through 8 slots, so that admission, eviction
+# and page reuse all happen; the
 # monolithic reference decodes over a ring of SERVE_MAX_SEQ
 SERVE_ARCH = "tinyllama-1.1b"
 SERVE_GEOMETRY = dict(max_batch=8, page_size=16, max_seq=256, n_pages=128)
-SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 16, (16, 192)
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 12, 12, (16, 192)
 # the live-update fold: the messages of 8 trainer clients over 2 steps at
 # tau = 1 (so E = 2), folded at the start of server step 3, rank 16
 SERVE_FOLD_CLIENTS, SERVE_FOLD_STEPS, SERVE_FOLD_E, SERVE_FOLD_AT = 8, 2, 2, 3
@@ -571,8 +593,22 @@ RANK_SWEEP = 64
 # until the bf16 serving arms needed the time: one step runs the dual
 # forward, the update, the flood or gossip and the replay on both devices)
 SMALL_STEPS = 1
+# phase 20 (a): the paper's Fig. 5 / Table 4 setting (benchmarks/
+# paper_tables.py: rank 32, one tau-epoch, 1e-4 coefficients) at OPT-125M's
+# full width: messages K per replay and timed calls per unit
+FIG5_KS = (1, 4, 16)
+FIG5_RANK = 32
+FIG5_REPS = 3
+# phase 20 (b): the per-client reference path beside the batched one, 2
+# steps each
+PER_CLIENT_STEPS = 2
 # batch of the final accuracy pass (``data.synthetic.accuracy``)
 EVAL_BATCH = 128
+# the test split of the slices' runs (run_slice) and of phase 20 (b): one
+# accuracy batch (1,000 samples, 8 batches, until phase 20 needed the
+# time; the training split comes first from the task's rng, so it is the
+# same)
+SLICE_TEST = EVAL_BATCH
 # the slices' runs: clients on a ring and sequences per client (32 tokens and
 # the label slot each)
 SLICE_CLIENTS, SLICE_B = 8, 8
@@ -924,9 +960,10 @@ def check_rank1(e: Entry, C: int, M: int, shapes, randn,
              * ovec[:, None, :]).to(dt)
         del xf, Wf
         Wn = W.transpose(1, 2) if trans else W
+        ref = (min(reps, REF_TIMING[0]), min(warmup, REF_TIMING[1]))
         ms = time_ms(lambda: fn(x, W, u, v, s), reps, warmup)
-        p_ms = time_ms(lambda: plain(x, W, u, v, s), reps, warmup)
-        l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn), reps, warmup)
+        p_ms = time_ms(lambda: plain(x, W, u, v, s), *ref)
+        l_ms = time_ms(lambda: torch.baddbmm(R, x, Wn), *ref)
         nbytes = esz * (C * M * K + CW * K * N + C * M * N) \
             + 4 * (C * K + C * N + C)
         flops = 2 * C * M * K * (N + 1) + 3 * C * M * N
@@ -1012,18 +1049,19 @@ def check_update(e: Entry, leaves, E: int, randn, r: int = 16) -> None:
             err, want_max = max(err, se), max(want_max, sw)
             del want
         ms = time_ms(fn, 3)
-        c_ms = time_ms(lambda: got.copy_(W), 3)   # got is checked: reuse it
+        c_ms = time_ms(lambda: got.copy_(W), *REF_TIMING)   # got is checked
         del got
         torch.cuda.empty_cache()
         if e.bf16:
-            p_ms = sum(time_ms(lambda lo=lo: plain(lo, min(nb, lo + step)), 3)
+            p_ms = sum(time_ms(lambda lo=lo: plain(lo, min(nb, lo + step)),
+                               *REF_TIMING)
                        for lo in range(0, nb, step))
         else:
-            p_ms = time_ms(plain, 3)
+            p_ms = time_ms(plain, *REF_TIMING)
         UA = torch.einsum("enr,ebrs->bnes", U, A).reshape(nb, n, E * r)
         Vt = Vm.permute(0, 2, 1).reshape(E * r, m).expand(nb, E * r, m)
         UA, Vt = UA.to(dt), Vt.to(dt)
-        l_ms = time_ms(lambda: torch.baddbmm(W, UA, Vt), 3)
+        l_ms = time_ms(lambda: torch.baddbmm(W, UA, Vt), *REF_TIMING)
         nbytes = esz * 2 * nb * n * m \
             + 4 * E * (n * r + m * r + nb * r * r)
         flops = 2 * E * nb * (n * m * r + n * r * r)
@@ -1054,6 +1092,7 @@ def run_slice(arch, what, phase, card: str, clients: int = SLICE_CLIENTS,
     from repro_torch.data import synthetic
     from repro_torch.dtrain.runner import DTrainConfig, run
     from repro_torch.kernels import build
+    task = task or synthetic.TaskConfig(vocab=arch.vocab, n_test=SLICE_TEST)
     build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1074,7 +1113,7 @@ def run_slice(arch, what, phase, card: str, clients: int = SLICE_CLIENTS,
     log(f"[{phase}] {what}: {arch.name} ({out['n_params']} params) x "
         f"{clients} clients, {topology}, {res.extra['engine']}, {steps} "
         f"steps of {batch} x "
-        f"{(task or synthetic.TaskConfig()).seq_len + 1} tokens in "
+        f"{task.seq_len + 1} tokens in "
         f"{wall:.1f} s; losses {res.loss_curve}; consensus "
         f"{res.consensus_error:.3e}; gmp {res.gmp}; valid_loss "
         f"{out['valid_loss']}; ledger {res.extra['n_messages']} msgs / "
@@ -1118,8 +1157,9 @@ def check_expert(e: Entry, C: int, M: int, mo, d: int, randn) -> None:
              * v[:, :, None, :]).reshape(C * E, cap, N).to(dt)
         del xf, Wf
         ms = time_ms(lambda: ops.rank1_matmul_expert(x, W, u, v, s), 3)
-        p_ms = time_ms(lambda: r1.rank1_matmul_expert_plain(x, W, u, v, s), 3)
-        l_ms = time_ms(lambda: torch.baddbmm(R, xb, Wb), 3)
+        p_ms = time_ms(lambda: r1.rank1_matmul_expert_plain(x, W, u, v, s),
+                       *REF_TIMING)
+        l_ms = time_ms(lambda: torch.baddbmm(R, xb, Wb), *REF_TIMING)
         B = C * E
         nbytes = esz * (B * cap * K + B * K * N + B * cap * N) \
             + 4 * (B * K + B * N + C)
@@ -1756,11 +1796,16 @@ def phase_baselines(opt, B: int, card: str):
     launches summed over the arms (each arm's counters zeroed just before
     its run and read just after) and each arm's numbers."""
     import torch
+    from repro_torch.dtrain import lora
     from repro_torch.dtrain.runner import DTrainConfig, run
     from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
 
     n_layers, d = opt.n_layers, opt.d_model
-    lora_floats = n_layers * 2 * (d * 8 + 8 * d)     # wq, wv at r = 8
+    lora_floats = lora.n_lora_params(lora.lora_spec(tf.arch_spec(opt)))
+    if lora_floats != n_layers * 2 * (d * 8 + 8 * d):   # wq, wv at r = 8
+        raise AssertionError(f"n_lora_params {lora_floats} != the adapters'"
+                             " count of wq and wv at r = 8")
     if (lora_floats, 2 * BASELINE_CLIENTS * 126_755_328 * 4,
             2 * BASELINE_CLIENTS * max(1, int(126_755_328 * 0.01)) * 8) != \
             (294_912, DSGD_EXCHANGE_BYTES, CHOCO_EXCHANGE_BYTES):
@@ -3287,11 +3332,10 @@ def phase_jamba(jamba, falcon_whole, card: str) -> dict:
     logits, both updates, peak under 80 GiB; (b) one model of the cut and
     (c) Falcon Mamba 7B whole served through the monolithic steps
     (``serve_cached``).  Returns {key: (launches, numbers)}."""
-    from repro_torch.data import synthetic
     launches, out = run_slice(jamba, "jamba", "17a", card, JAMBA_CLIENTS,
                               ledger=LEDGER_RING3_3STEPS)
     shapes, expert, scans = hybrid_shapes(jamba)
-    n_eval = -(-synthetic.TaskConfig().n_test // EVAL_BATCH)
+    n_eval = -(-SLICE_TEST // EVAL_BATCH)
     for name, want in (("rank1_matmul", sum(shapes.values()) * 2 * 3),
                        ("rank1_matmul_expert", expert * 2 * 3),
                        ("selective_scan", scans * (2 * 3 + n_eval + 1)),
@@ -4126,6 +4170,255 @@ def deepseek_serving(ds):
             for s in g.slots)) for g in ds.groups))
 
 
+def host_ms(fn, reps: int = FIG5_REPS) -> float:
+    """Median host milliseconds of ``reps`` calls of ``fn()``, each ended by
+    ``torch.cuda.synchronize()`` (the caller warms up first)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def phase_fig5(opt, card: str) -> dict:
+    """Phase 20 (a): the paper's Fig. 5 and Table 4 at ``opt``'s full width
+    (one model, float32, rank FIG5_RANK, one τ-epoch): the message-apply
+    phase (MA) of MeZO's dense replay (``zo.mezo_apply_messages``) against
+    SubCGE's (``subcge.apply_messages``) at each K of FIG5_KS, and the
+    gradient-estimate phase (GE) of each on one batch of 8 x 33 tokens
+    (``zo.mezo_alpha`` against the dual forward through the rank-1
+    kernels; the subspace, made once per τ-epoch, outside it, as the
+    reference's Table 4).  Each time is the median of FIG5_REPS calls after
+    a warm-up, beside its bound: MeZO's MA moves θ in and out once per
+    message, SubCGE's once for all K.  First, the card's MeZO replay of
+    the two smallest leaves at K = 4 is held bitwise to the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import subcge, zo
+    from repro_torch.core.messages import fmt_bytes
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.perturb import sample_pert
+    from repro_torch.roofline.cost_model import forward_cost
+
+    meta = plib.subcge_meta(tf.arch_spec(opt))
+    scfg = subcge.SubCGEConfig(rank=FIG5_RANK, refresh_period=10_000)
+    params = {p: t[None] for p, t in tf.init_params(opt, 0, "cuda").items()}
+    n = sum(t.numel() for t in params.values())
+    theta_bytes = 4 * n
+    sub = subcge.subspace_at_step(meta, scfg, 0, 0, "cuda")
+    out = {"n_params": n, "rank": FIG5_RANK, "reps": FIG5_REPS, "ma": {}}
+
+    small = sorted(params, key=lambda p: (params[p].numel(), p))[:2]
+    seeds = torch.arange(1, 5, dtype=torch.int64)[None]
+    coefs = torch.tensor([[1e-4, -2e-4, 3e-4, -4e-4]])
+    on_card = zo.mezo_apply_messages({p: params[p].clone() for p in small},
+                                     seeds.to("cuda"), coefs.to("cuda"))
+    on_cpu = zo.mezo_apply_messages({p: params[p].cpu() for p in small},
+                                    seeds, coefs)
+    for p in small:
+        if not torch.equal(bits(on_card[p].cpu()), bits(on_cpu[p])):
+            raise AssertionError(f"fig5: mezo_apply_messages of {p} on the "
+                                 "card differs from the CPU's")
+    out["bitwise_leaves"] = {p: tuple(params[p].shape) for p in small}
+    log(f"[20] fig5: {opt.name} ({n} params, {fmt_bytes(theta_bytes)} of "
+        f"float32), rank {FIG5_RANK}; mezo_apply_messages at K = 4 on "
+        f"{out['bitwise_leaves']}: card bitwise the CPU ({card})")
+
+    def ma(fn, K):
+        s = torch.arange(1, K + 1, dtype=torch.int64, device="cuda")[None]
+        c = torch.full((1, K), 1e-4, device="cuda")
+        return lambda: fn(params, s, c)
+
+    mezo = zo.mezo_apply_messages
+
+    def sub_ma(p, s, c):
+        return subcge.apply_messages(p, meta, scfg, sub, s, c)
+
+    ma(mezo, 1)()
+    ma(sub_ma, 1)()
+    torch.cuda.synchronize()
+    for K in FIG5_KS:
+        t_mezo, t_sub = host_ms(ma(mezo, K)), host_ms(ma(sub_ma, K))
+        b_mezo = 1e3 * K * 2 * theta_bytes / PEAK_HBM_BYTES
+        b_sub = 1e3 * 2 * theta_bytes / PEAK_HBM_BYTES
+        out["ma"][K] = {"mezo_ms": t_mezo, "subcge_ms": t_sub,
+                        "mezo_bound_ms": b_mezo, "subcge_bound_ms": b_sub,
+                        "ratio": t_mezo / t_sub}
+        log(f"[20] fig5 MA, K = {K}: mezo {t_mezo:.3f} ms (bound {b_mezo:.4f}"
+            f" ms: {fmt_bytes(K * 2 * theta_bytes)} at 3.35 TB/s, "
+            f"{b_mezo / t_mezo:.2%} reached), subcge {t_sub:.3f} ms (bound "
+            f"{b_sub:.4f} ms: {fmt_bytes(2 * theta_bytes)}, "
+            f"{b_sub / t_sub:.2%} reached); mezo / subcge "
+            f"{t_mezo / t_sub:.1f}x ({card})")
+
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, opt.vocab, (1, 8, 33)), device="cuda")
+    one = torch.ones((1,), dtype=torch.int64, device="cuda")
+
+    def loss(p):
+        return tf.lm_loss(opt, p, toks)
+
+    def ge_sub():
+        pert = sample_pert(meta, scfg, one, scfg.eps)
+        lp = tf.lm_loss(opt, params, toks, sub=sub, pert=pert)
+        lm = tf.lm_loss(opt, params, toks, sub=sub,
+                        pert=pert.with_scale(-scfg.eps))
+        return (lp - lm) / (2 * scfg.eps)
+
+    def ge_mezo():
+        return zo.mezo_alpha(loss, params, one, scfg.eps)
+
+    with torch.no_grad():
+        a_sub, a_mezo = ge_sub(), ge_mezo()
+        torch.cuda.synchronize()
+        t_ge_sub, t_ge_mezo = host_ms(ge_sub), host_ms(ge_mezo)
+    if not (torch.isfinite(a_sub).all() and torch.isfinite(a_mezo).all()):
+        raise AssertionError("fig5: a non-finite gradient estimate")
+    fwd = forward_cost(opt, 8, 33, 33, db=4)
+    b_ge_sub, by = bound(2 * fwd.bytes, 2 * fwd.flops)
+    # MeZO also forms θ ± εz: θ and z read, the copy written, twice
+    b_ge_mezo, _ = bound(2 * fwd.bytes + 2 * 3 * theta_bytes, 2 * fwd.flops)
+    out["ge"] = {"mezo_ms": t_ge_mezo, "subcge_ms": t_ge_sub,
+                 "mezo_bound_ms": b_ge_mezo, "subcge_bound_ms": b_ge_sub,
+                 "bound_by": by, "ratio": t_ge_mezo / t_ge_sub,
+                 "alpha": [float(a_mezo[0]), float(a_sub[0])]}
+    log(f"[20] fig5 GE, one batch of 8 x 33: mezo {t_ge_mezo:.3f} ms (bound "
+        f"{b_ge_mezo:.4f} ms), subcge {t_ge_sub:.3f} ms (bound "
+        f"{b_ge_sub:.4f} ms, {by}); mezo / subcge "
+        f"{t_ge_mezo / t_ge_sub:.1f}x; Table 4 at K = {FIG5_KS[-1]}: mezo "
+        f"GE + MA {t_ge_mezo + out['ma'][FIG5_KS[-1]]['mezo_ms']:.1f} ms, "
+        f"subcge {t_ge_sub + out['ma'][FIG5_KS[-1]]['subcge_ms']:.1f} ms "
+        f"({card})")
+    del params, sub
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_per_client(arch, card: str) -> tuple:
+    """Phase 20 (b): SeedFlood's per-client reference path
+    (``batched_step=False``) beside the batched path on ``arch`` whole, 8
+    clients on a ring, PER_CLIENT_STEPS steps from the same weights: the
+    ledgers equal, the leaves and losses within the reference's atol 1e-6
+    after step 1 (tests/test_epoch_replay.py; bitwise reported) and 1e-5
+    after the last, and the per-client launches pinned: ``subcge_apply``
+    once per online client per matrix leaf (the own update, a client axis
+    of 1), ``subcge_apply_epochs`` once per client with a live message per
+    matrix leaf (the replay), the dual forward's products as the batched
+    path's.  Both runs' results go into ``--out`` through
+    ``RunResult.to_json``."""
+    import torch
+    from repro_torch.core.messages import fmt_bytes
+    from repro_torch.data import synthetic
+    from repro_torch.dtrain.methods.seedflood import SeedFloodMethod
+    from repro_torch.dtrain.runner import DTrainConfig, run
+    from repro_torch.kernels import build
+    from repro_torch.models import params as plib
+    from repro_torch.models import transformer as tf
+
+    meta = plib.subcge_meta(tf.arch_spec(arch))
+    n_matrix = sum(m.is_matrix and not m.frozen for m in meta.values())
+    task = synthetic.TaskConfig(vocab=arch.vocab, n_test=SLICE_TEST)
+    apply_inbox = SeedFloodMethod.apply_inbox
+    seen = {}
+
+    def hooked(self, stacked, inbox):
+        stacked = apply_inbox(self, stacked, inbox)
+        live = int((inbox.coefs != 0).any(axis=1).sum()) \
+            if inbox is not None and inbox.seeds.shape[1] else 0
+        seen["live"] = seen.get("live", 0) + live
+        if inbox is not None and inbox.t == 0:
+            seen["step1"](stacked)
+        return stacked
+
+    runs, launches, gaps = {}, {}, {}
+    for batched in (True, False):
+        tag = "batched" if batched else "per_client"
+        seen["live"] = 0
+        if batched:
+            seen["step1"] = lambda st: seen.update(
+                snap={p: t.clone() for p, t in st.items()})
+        else:
+            def step1(st):
+                snap = seen.pop("snap")
+                gaps["step1"] = max(float((st[p] - snap[p]).abs().max())
+                                    for p in st)
+                gaps["step1_bitwise"] = all(torch.equal(bits(st[p]),
+                                                        bits(snap[p]))
+                                            for p in st)
+            seen["step1"] = step1
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        SeedFloodMethod.apply_inbox = hooked
+        try:
+            t0 = time.perf_counter()
+            res = run(DTrainConfig(arch=arch, n_clients=SLICE_CLIENTS,
+                                   topology="ring", steps=PER_CLIENT_STEPS,
+                                   batch_size=SLICE_B, task=task,
+                                   batched_step=batched, device="cuda"))
+            wall = time.perf_counter() - t0
+        finally:
+            SeedFloodMethod.apply_inbox = apply_inbox
+        launches[tag] = dict(build.LAUNCHES)
+        runs[tag] = res
+        steady = res.extra["step_wall_s"]
+        log(f"[20] {tag}: {arch.name} x {SLICE_CLIENTS} clients, ring, "
+            f"{PER_CLIENT_STEPS} steps of {SLICE_B} x 33 tokens in "
+            f"{wall:.1f} s; losses {res.loss_curve}; ledger "
+            f"{res.extra['n_messages']} msgs / {fmt_bytes(res.total_bytes)}; "
+            f"first step {1e3 * res.compile_wall_s:.1f} ms, steady step "
+            f"{1e3 * steady[-1]:.1f} ms; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{launches[tag]}; live client rows {seen['live']} ({card})")
+        if not all(math.isfinite(v) for v in res.loss_curve):
+            raise AssertionError(f"per-client {tag}: non-finite loss")
+        if not res.consensus_error < 1e-10:
+            raise AssertionError(f"per-client {tag}: consensus error "
+                                 f"{res.consensus_error}")
+        if tag == "batched":
+            continue
+        b, c = runs["batched"], res
+        if (b.extra["n_messages"], b.total_bytes) != \
+                (c.extra["n_messages"], c.total_bytes):
+            raise AssertionError("per-client: the ledger differs from the "
+                                 "batched path's")
+        fb, fc = b.extra["final_stacked"], c.extra["final_stacked"]
+        gaps["last"] = max(float((fc[p] - fb[p]).abs().max()) for p in fb)
+        gaps["last_bitwise"] = all(torch.equal(bits(fc[p]), bits(fb[p]))
+                                   for p in fb)
+        gaps["loss"] = [abs(x - y) for x, y in zip(c.loss_curve,
+                                                   b.loss_curve)]
+        if not (gaps["step1"] <= 1e-6 and gaps["loss"][0] <= 1e-6
+                and gaps["last"] <= 1e-5):
+            raise AssertionError(f"per-client: gaps to the batched path "
+                                 f"{gaps} past atol 1e-6 / 1e-5")
+        want = {"subcge_apply": PER_CLIENT_STEPS * SLICE_CLIENTS * n_matrix,
+                "subcge_apply_epochs": seen["live"] * n_matrix}
+        for name in ("rank1_matmul", "rank1_matmul_t"):
+            want[name] = launches["batched"].get(name, 0)
+        for name, k in want.items():
+            if launches[tag].get(name, 0) != k or k <= 0:
+                raise AssertionError(f"per-client: {name} launched "
+                                     f"{launches[tag].get(name, 0)} times, "
+                                     f"not {k}")
+    ratio = runs["per_client"].extra["step_wall_s"][-1] / \
+        runs["batched"].extra["step_wall_s"][-1]
+    log(f"[20] per-client vs batched: leaves after step 1 max gap "
+        f"{gaps['step1']:.3e} (bitwise {gaps['step1_bitwise']}), after "
+        f"step {PER_CLIENT_STEPS} {gaps['last']:.3e} (bitwise "
+        f"{gaps['last_bitwise']}); loss gaps {gaps['loss']}; steady step "
+        f"per-client / batched {ratio:.2f}x ({card})")
+    out = {"gaps": gaps, "step_ratio": ratio, "n_matrix_leaves": n_matrix,
+           "launches": launches,
+           **{k: r.to_json() for k, r in runs.items()}}
+    del runs
+    torch.cuda.empty_cache()
+    return launches["per_client"], out
+
+
 def check_dense_run(what: str, launches: dict, out: dict) -> None:
     """Both updates launched, and the run's peak under the card's 80 GiB."""
     for name in ("subcge_apply", "subcge_apply_epochs"):
@@ -4148,7 +4441,6 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.configs import archs
     from repro_torch.configs.base import Group
-    from repro_torch.data import synthetic
     from repro_torch.dtrain.runner import DTrainConfig, run
     from repro_torch.kernels import build
 
@@ -4332,9 +4624,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"falcon: kernel {name} never launched")
     # one scan per Mamba layer in every forward: the two signed forwards of
     # each of the 3 steps, the final accuracy pass of the averaged model
-    # (``RunResult.gmp``) over the 1000-sample test split in batches of 128,
+    # (``RunResult.gmp``) over the SLICE_TEST-sample test split in batches of 128,
     # and its validation loss (one batch of 128 rows)
-    n_eval = -(-synthetic.TaskConfig().n_test // EVAL_BATCH)
+    n_eval = -(-SLICE_TEST // EVAL_BATCH)
     want = archs.FALCON_LAYERS * (2 * 3 + n_eval + 1)
     if launches["falcon"].get("selective_scan", 0) != want:
         raise AssertionError(f"falcon: selective_scan launched "
@@ -4489,6 +4781,14 @@ def main(argv=None) -> int:
     launches["bf16_jamba"], details["bf16_jamba"] = bf16_jamba(jamba, card)
     clock("19")
 
+    # 20. the JAX package's last modules: MeZO's dense replay against
+    # SubCGE (Fig. 5 / Table 4) at OPT-125M's full width, and the per-client
+    # reference path on Qwen1.5-0.5B whole beside the batched one
+    details["fig5"] = phase_fig5(opt, card)
+    launches["per_client"], details["per_client"] = phase_per_client(qwen,
+                                                                     card)
+    clock("20")
+
     if args.profile:
         for key, arch, clients, topology in (
                 ("qwen", qwen, C, "ring"), ("kimi", kimi, C, "ring"),
@@ -4526,7 +4826,7 @@ def main(argv=None) -> int:
         log(f"[p] the rejoin step under churn, {opt.name} x {PAPER_CLIENTS} "
             f"clients ({card}): {prof}")
 
-    # 20. report: each kernel over the paths that run it
+    # 21. report: each kernel over the paths that run it
     report = {"kernels": [
         record(n, [e[n] for e in entries.values() if n in e],
                sum(ln.get(n, 0) for ln in launches.values()))

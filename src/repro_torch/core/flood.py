@@ -473,6 +473,11 @@ class VectorFloodNetwork(_FloodBase):
             acc |= self._round_bits()
         return acc
 
+    def round(self) -> list[list[Message]]:
+        """One round: per client, the messages newly accepted in it."""
+        return [[self._msgs[j] for j in idx]
+                for idx in self._rows_indices(self._round_bits())]
+
     def rounds(self, k: int) -> list[list[Message]]:
         """k rounds (fewer once quiescent); per-client accepted messages."""
         return [[self._msgs[j] for j in idx]
@@ -569,3 +574,15 @@ def staleness_bound(diameter: int, k: int) -> int:
     """Paper §4.5: delayed flooding with k hops per iteration bounds message
     staleness by ⌈D/k⌉ iterations."""
     return -(-diameter // k)
+
+
+def flood_bytes_per_iteration(graph, n_new_messages: int) -> int:
+    """Upper bound on bytes a full flood of ``n_new_messages`` costs: each
+    message traverses each *directed* edge at most once."""
+    return 2 * graph.number_of_edges() * n_new_messages * MESSAGE_BYTES
+
+
+def gossip_sr_history_bytes(t: int, n: int, graph) -> int:
+    """Gossip with shared randomness (paper §3.2): at iteration t each edge
+    carries the O(t·n) full history of seed–scalar pairs."""
+    return 2 * graph.number_of_edges() * t * n * MESSAGE_BYTES

@@ -49,6 +49,10 @@ class Message:
     def uid(self) -> tuple[int, int]:
         return (self.origin, self.step)
 
+    @property
+    def nbytes(self) -> int:
+        return MESSAGE_BYTES
+
 
 @dataclasses.dataclass
 class CommLedger:
@@ -86,3 +90,12 @@ def topk_payload_bytes(n_params: int, density: float, dtype_bytes: int = 4,
     """ChocoSGD-style top-k sparsified payload: values + indices."""
     k = max(1, int(n_params * density))
     return k * (dtype_bytes + index_bytes)
+
+
+def fmt_bytes(b: float) -> str:
+    """A byte count with a binary unit and two decimals ("2.88KB")."""
+    for unit in ("B", "KB", "MB", "GB", "TB", "PB"):
+        if abs(b) < 1024.0:
+            return f"{b:.2f}{unit}"
+        b /= 1024.0
+    return f"{b:.2f}EB"

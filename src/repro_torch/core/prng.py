@@ -322,14 +322,22 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-_SQRT2 = float(np.float32(np.sqrt(2)))
+SQRT2 = float(np.float32(np.sqrt(2)))
 
 
 def _normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
     """The float32 normal draw of 32-bit words: ``sqrt(2) · erf_inv`` of
     the uniform their top 23 bits make, as ``jax.random.normal`` forms it."""
     return (erf_inv(_unit_to_range(_bits_to_unit(bits), _NORMAL_LO, 1.0))
-            * _SQRT2).float()
+            * SQRT2).float()
+
+
+def normal_root(key: torch.Tensor, shape) -> torch.Tensor:
+    """``erf_inv`` of the uniform that :func:`normal`'s words make, before
+    its sqrt(2) factor (float32): what XLA CPU multiplies by a scale folded
+    with sqrt(2) when it fuses ``scale * normal`` into an axpy."""
+    return _map_bits(key, shape, lambda b: erf_inv(_unit_to_range(
+        _bits_to_unit(b), _NORMAL_LO, 1.0)).float(), torch.float32)
 
 
 def normal(key: torch.Tensor, shape, scale: float | None = None,

@@ -22,10 +22,23 @@ def path_hash(path: str) -> int:
     return int.from_bytes(h, "little") & 0x7FFFFFFF
 
 
+def key_from_seed(seed, device=None) -> torch.Tensor:
+    """A PRNG key from an integer seed (or a tensor of them): (..., 2)."""
+    return prng.PRNGKey(seed, device)
+
+
+def client_seed(base_seed, step, client) -> np.ndarray:
+    """``s_{i,t}``: the seed client ``i`` attaches to its step-``t`` message,
+    a uint32 that wraps like jnp (``client`` may be an array of clients).
+    Collision-free for (step, client) pairs while clients < 2**16."""
+    return (np.asarray(base_seed).astype(np.uint32)
+            + np.asarray(step).astype(np.uint32) * np.uint32(65536)
+            + np.asarray(client).astype(np.uint32))
+
+
 def client_seeds(base_seed: int, step: int, n: int) -> np.ndarray:
     """All n clients' ``s_{i,t}`` for one step (uint32, wraps like jnp)."""
-    return (np.uint32(base_seed) + np.uint32(step) * np.uint32(65536)
-            + np.arange(n, dtype=np.uint32))
+    return client_seed(base_seed, step, np.arange(n, dtype=np.uint32))
 
 
 def message_key(seeds: torch.Tensor) -> torch.Tensor:
@@ -64,3 +77,15 @@ def path_order(paths) -> list[str]:
     """Paths in the order ``jax.tree_util`` flattens a nested dict (sorted
     keys at every level)."""
     return sorted(paths, key=lambda p: tuple(p.split("/")))
+
+
+def tree_paths(tree: dict) -> list[str]:
+    """The '/'-joined leaf paths of a flat path dict, in the order
+    ``jax.tree_util`` flattens the nested tree."""
+    return path_order(tree)
+
+
+def map_with_paths(fn, tree: dict) -> dict:
+    """``{path: fn(path, leaf)}`` over a flat path dict, visited in
+    :func:`tree_paths` order."""
+    return {p: fn(p, tree[p]) for p in path_order(tree)}

@@ -21,6 +21,7 @@ perturbation and no update on any path.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +29,16 @@ import torch
 from repro_torch.core import prng, seeds as seedlib
 from repro_torch.core.messages import pad_pow2
 from repro_torch.kernels import ops as kops
+
+
+class UV(NamedTuple):
+    U: torch.Tensor  # (rows, r)
+    V: torch.Tensor  # (cols, r)
+
+
+class IJ(NamedTuple):
+    i: torch.Tensor  # (*seed_shape, *batch_dims) int32
+    j: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +121,8 @@ def make_subspace(meta: dict[str, LeafMeta], cfg: SubCGEConfig,
         rows, cols = m.inst_shape
         ku, kv = prng.split(seedlib.subspace_key(global_seed, step, path,
                                                  device)).unbind(-2)
-        out[path] = (prng.normal(ku, (rows, cfg.rank)),
-                     prng.normal(kv, (cols, cfg.rank)))
+        out[path] = UV(prng.normal(ku, (rows, cfg.rank)),
+                       prng.normal(kv, (cols, cfg.rank)))
     return out
 
 
@@ -130,8 +141,41 @@ def sample_coords(meta: dict[str, LeafMeta], cfg: SubCGEConfig,
     for path in seedlib.path_order(meta):
         m = meta[path]
         if m.is_matrix:
-            out[path] = seedlib.coord_sample(seedlib.leaf_key(key, path),
-                                             m.batch_shape, cfg.rank)
+            out[path] = IJ(*seedlib.coord_sample(
+                seedlib.leaf_key(key, path), m.batch_shape, cfg.rank))
+    return out
+
+
+def _outer_from_coords(uv: UV, ij: IJ) -> torch.Tensor:
+    """z = U[:, i] ⊗ V[:, j] for every index of ``ij``: (*ij, rows, cols)."""
+    u = uv.U[:, ij.i.long()].movedim(0, -1)
+    v = uv.V[:, ij.j.long()].movedim(0, -1)
+    return u[..., :, None] * v[..., None, :]
+
+
+def materialize_z(params: dict, meta: dict[str, LeafMeta], cfg: SubCGEConfig,
+                  subspace: dict, message_seeds: torch.Tensor) -> dict:
+    """The full perturbation z of each client's message (RNG_S of
+    Algorithm 1): ``message_seeds`` (C,), leaves (C, *shape).
+
+    Matrix leaves: canonical-coordinate rank-1 outer products.  Other
+    leaves: the dense Gaussian of the message seed (drawn in float32 and
+    cast, as ``apply_messages`` draws it).  Frozen leaves: zeros.  For the
+    simulator and tests only: the training paths never materialise z (the
+    rank-1 term is fused into the products)."""
+    coords = sample_coords(meta, cfg, message_seeds)
+    key = seedlib.message_key(message_seeds)
+    out = {}
+    for path in seedlib.path_order(params):
+        m, leaf = meta[path], params[path]
+        if m.frozen:
+            out[path] = torch.zeros_like(leaf)
+        elif m.is_matrix:
+            out[path] = _outer_from_coords(subspace[path],
+                                           coords[path]).to(leaf.dtype)
+        else:
+            out[path] = seedlib.gaussian_like(seedlib.leaf_key(key, path),
+                                              m.shape).to(leaf.dtype)
     return out
 
 
@@ -161,6 +205,17 @@ def scatter_A(i: torch.Tensor, j: torch.Tensor, coefs: torch.Tensor,
         A.scatter_add_(2, flat[:, k],
                        coefs[:, k, None, None].expand(C, nb, 1).contiguous())
     return A.reshape((C,) + B + (rank, rank))
+
+
+def apply_A(leaf: torch.Tensor, uv: UV, A: torch.Tensor) -> torch.Tensor:
+    """leaf + U A V^T over the leaf's leading axes, through ``subcge_apply``
+    (a new tensor; the leaf is left as it was)."""
+    return kops.subcge_apply(leaf, uv.U, A, uv.V)
+
+
+def delta_from_A(uv: UV, A: torch.Tensor, dtype) -> torch.Tensor:
+    """U A V^T alone, in ``dtype`` (``kernels.ops.subcge_delta``)."""
+    return kops.subcge_delta(uv.U, A, uv.V, dtype)
 
 
 def _vector_update(path: str, m: LeafMeta, message_seeds: torch.Tensor,

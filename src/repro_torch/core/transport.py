@@ -62,6 +62,10 @@ class TransportBase:
     def apply_churn(self, events) -> None:
         raise ValueError(f"{type(self).__name__} does not support churn")
 
+    def drain(self, max_iters: int, final_step: int) -> Iterator[Any]:
+        """Nothing in flight: the end-of-run drain yields no inbox."""
+        return iter(())
+
     def stats(self) -> dict:
         return {}
 

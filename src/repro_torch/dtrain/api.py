@@ -120,6 +120,41 @@ class RunResult:
     compile_wall_s: float = 0.0     # the first step (kernel builds, warm-up)
     extra: dict = dataclasses.field(default_factory=dict)
 
+    #: extra[] entries excluded from to_json(): whole parameter trees that
+    #: belong in a checkpoint, not a results file.
+    _JSON_DROP = ("final_stacked", "final_params")
+
+    def to_json(self) -> dict:
+        """JSON-safe dict: tensors and numpy scalars become Python numbers,
+        arrays lists, anything else unknown its ``str``; the parameter trees
+        (``final_stacked`` / ``final_params``) are dropped."""
+        def coerce(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu()
+                x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+            if isinstance(x, (np.ndarray, np.generic)):
+                arr = np.asarray(x)
+                return arr.item() if arr.ndim == 0 else arr.tolist()
+            if isinstance(x, dict):
+                return {str(k): coerce(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return [coerce(v) for v in x]
+            if isinstance(x, (bool, int, str, float)) or x is None:
+                return x
+            return str(x)
+
+        extra = {k: v for k, v in self.extra.items()
+                 if k not in self._JSON_DROP}
+        return coerce({
+            "method": self.method, "gmp": self.gmp,
+            "loss_curve": self.loss_curve, "acc_curve": self.acc_curve,
+            "bytes_per_edge": self.bytes_per_edge,
+            "total_bytes": self.total_bytes,
+            "consensus_error": self.consensus_error,
+            "wall_s": self.wall_s, "compile_wall_s": self.compile_wall_s,
+            "extra": extra,
+        })
+
 
 @dataclasses.dataclass
 class Outbox:
@@ -138,6 +173,18 @@ class Method(Protocol):
                    t: int) -> tuple[Any, Outbox]: ...
     def apply_inbox(self, state: Any, inbox: Any) -> Any: ...
     def params_of(self, state: Any) -> dict: ...
+
+
+@runtime_checkable
+class Transport(Protocol):
+    """One communication substrate (``repro_torch.core.transport``).  Owns
+    the CommLedger: every byte a run charges is charged here."""
+
+    def bind(self, init_payload: Any) -> None: ...
+    def active_mask(self) -> np.ndarray: ...
+    def apply_churn(self, events) -> None: ...
+    def exchange(self, payload: Any, t: int, active: np.ndarray) -> Any: ...
+    def stats(self) -> dict: ...
 
 
 class MethodBase:

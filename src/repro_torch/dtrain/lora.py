@@ -9,6 +9,8 @@ charges).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models import params as plib
@@ -50,3 +52,8 @@ def merge(params: dict, lora: dict, alpha: float = 16.0) -> dict:
         out[path] = params[path] + ((alpha / r) * torch.matmul(A, B)).to(
             params[path].dtype)
     return out
+
+
+def n_lora_params(lspec: dict[str, LeafSpec]) -> int:
+    """Floats in the adapters of ``lspec`` (what a LoRA gossip sends)."""
+    return sum(int(math.prod(s.shape)) for s in lspec.values())

@@ -8,9 +8,9 @@ spec reads; ``repro_torch.dtrain.runner.validate_config`` rejects
 non-default values of any other method-specific field instead of dropping
 them on the floor.
 
-The names and the ``consumes`` sets are the JAX package's, less the fields
+The names and the ``consumes`` sets are the JAX package's, less the field
 the port's config does not have: ``kernel_backend`` (the port dispatches
-on the device) and ``batched_step`` (the port runs only the batched path).
+on the device).
 The event engine's ``trace`` and ``sim_latency_s`` belong to seedflood and
 the six gossip variants, ``sim_churn_step_s`` to seedflood alone (churn
 under a trace needs the flood substrate); central_zo and gossip_sr reject a
@@ -24,7 +24,7 @@ from typing import Callable
 
 from repro_torch.core.transport import (FloodTransport, GossipSRTransport,
                                         GossipTransport, NullTransport)
-from repro_torch.dtrain.api import Setup
+from repro_torch.dtrain.api import Method, Setup, Transport
 from repro_torch.dtrain.methods.central_zo import CentralZOMethod
 from repro_torch.dtrain.methods.gossip import (FirstOrderStep, GossipMethod,
                                                LoRAAdapter, ZeroOrderStep)
@@ -35,8 +35,8 @@ from repro_torch.dtrain.methods.seedflood import SeedFloodMethod
 @dataclasses.dataclass(frozen=True)
 class MethodSpec:
     name: str
-    make_method: Callable             # (cfg) -> Method
-    make_transport: Callable          # (cfg, setup) -> Transport
+    make_method: Callable[..., Method]          # (cfg) -> Method
+    make_transport: Callable[..., Transport]    # (cfg, setup) -> Transport
     consumes: frozenset = frozenset()  # method-specific cfg fields
     supports_churn: bool = False
 
@@ -86,9 +86,9 @@ METHOD_SPECS: dict[str, MethodSpec] = {
     "seedflood": MethodSpec(
         name="seedflood", make_method=SeedFloodMethod,
         make_transport=_flood_transport,
-        consumes=frozenset({"flood_k", "flood_backend", "epoch_replay",
-                            "drain", "trace", "sim_latency_s",
-                            "sim_churn_step_s"}),
+        consumes=frozenset({"flood_k", "flood_backend", "batched_step",
+                            "epoch_replay", "drain", "trace",
+                            "sim_latency_s", "sim_churn_step_s"}),
         supports_churn=True),
     "dsgd": _gossip_spec("dsgd", zeroth_order=False, use_lora=False,
                          choco=False),

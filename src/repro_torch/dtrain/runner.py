@@ -84,6 +84,11 @@ class DTrainConfig:
     # flood engine: "python" (per-message), "numpy" (bitset), or "auto"
     # (the bitset engine from core.flood.AUTO_VECTOR_MIN_CLIENTS clients)
     flood_backend: str = "auto"
+    # True: the estimate -> own update -> replay pipeline runs batched over
+    # the stacked client axis.  False: the per-client reference path (each
+    # client's own update and replay apart, on its view of the stacked
+    # params), kept for parity and as the batched path's baseline
+    batched_step: bool = True
     # every k steps the Trainer writes method + transport state to
     # checkpoint_dir/stepNNNNNN.npz; resume_from restores one and continues
     # bitwise as the uninterrupted run would
@@ -110,8 +115,8 @@ class DTrainConfig:
 #: for a field outside its method's ``consumes`` set is a config error, not
 #: a silent no-op.
 _METHOD_FIELDS = ("momentum", "choco_density", "flood_k", "flood_backend",
-                  "epoch_replay", "drain", "lora_r", "lora_alpha", "trace",
-                  "sim_latency_s", "sim_churn_step_s")
+                  "batched_step", "epoch_replay", "drain", "lora_r",
+                  "lora_alpha", "trace", "sim_latency_s", "sim_churn_step_s")
 
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(DTrainConfig)}
 

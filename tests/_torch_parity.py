@@ -70,6 +70,37 @@ def one_thread():
         torch.set_num_threads(before)
 
 
+#: the jitted pieces the JAX SeedFloodMethod's ``init`` builds, by what they
+#: close over (see ``_share_seedflood_jits``)
+_SEEDFLOOD_JITS: dict = {}
+
+
+def _share_seedflood_jits(method, cfg) -> None:
+    """Make ``method.init`` build its jitted pieces once per configuration
+    they close over (the arch and SubCGE settings, through ``Setup``, the
+    global seed and lr), and hand the same jits to later runs of equal
+    configuration: a run that differs in flood engine, churn, steps or
+    replay arm then reuses the compiled programs instead of compiling
+    them again (jit retraces per new shape as usual).  The computation,
+    and so the run's result, is the same as a fresh method's."""
+    key = (repr(cfg.arch), cfg.subcge_rank, cfg.subcge_tau, cfg.eps,
+           cfg.kernel_backend, cfg.seed, cfg.lr)
+    init = method.init
+
+    def shared_init(setup):
+        if key not in _SEEDFLOOD_JITS:
+            state = init(setup)
+            _SEEDFLOOD_JITS[key] = {k: v for k, v in vars(method).items()
+                                    if k.startswith("_") and callable(v)}
+            return state
+        method.n = cfg.n_clients
+        method.meta, method.scfg = setup.meta, setup.scfg
+        vars(method).update(_SEEDFLOOD_JITS[key])
+        return setup.stacked
+
+    method.init = shared_init
+
+
 def jax_method_run(cfg, coefs: dict | None = None):
     """``repro.dtrain.runner.run`` of ``cfg`` through the JAX package's
     public Trainer (churn schedule included), with the method's
@@ -77,7 +108,8 @@ def jax_method_run(cfg, coefs: dict | None = None):
     ``extra["final_stacked"]`` (the JAX package reports final params for
     seedflood and central_zo only).  With ``coefs`` a dict, each step's
     SeedFlood coefficients go into ``coefs[t]`` (n_clients float32, 0 for
-    a client that sent nothing)."""
+    a client that sent nothing).  SeedFlood runs of equal model settings
+    share their compiled steps (``_share_seedflood_jits``)."""
     from repro.dtrain.api import Setup
     from repro.dtrain.methods import METHOD_SPECS
     from repro.dtrain.runner import _churn_schedule, validate_config
@@ -87,6 +119,8 @@ def jax_method_run(cfg, coefs: dict | None = None):
     spec = METHOD_SPECS[cfg.method]
     setup = Setup(cfg)
     method = spec.make_method(cfg)
+    if cfg.method == "seedflood":
+        _share_seedflood_jits(method, cfg)
     extra = method.result_extra
     method.result_extra = lambda st: {**extra(st),
                                       "final_stacked": method.params_of(st)}

@@ -49,8 +49,9 @@ ARCH = dict(d_model=32, n_layers=1, n_heads=2, d_ff=64)
 TASK = dict(vocab=256, n_valid=8, n_test=64)
 RUN = dict(n_clients=4, steps=3, batch_size=2, local_iters=1, subcge_rank=4,
            subcge_tau=2)
-#: fields the port's config does not have, left out of its ``consumes``
-DROPPED = {"kernel_backend", "batched_step"}
+#: the field the port's config does not have (it dispatches on the
+#: device), left out of its ``consumes``; ``batched_step`` is the port's too
+DROPPED = {"kernel_backend"}
 
 
 def _runs(method, **kw):
